@@ -10,7 +10,6 @@ from apvast_torch.config import (
     ApVastConfig,
     GevdSolver,
     production_overrides,
-    slice_overrides,
 )
 from apvast_torch.engine import (
     HopOutputs,
@@ -32,6 +31,5 @@ __all__ = [
     "process_hop",
     "production_overrides",
     "run_stream",
-    "slice_overrides",
     "stitch_outputs",
 ]

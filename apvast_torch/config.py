@@ -4,20 +4,22 @@ The fields are those of ``apvast_tpu/config.py`` that a ported path
 reads, with their JAX names, defaults and validation, so a configuration
 of the JAX package converts field for field
 (``apvast_torch.utils.convert.config_from_jax``). The JAX fields that no
-ported path reads yet (the subspace solver's knobs, the frequency-domain
-engine's, the MATLAB loading factors) are not fields here; each comes
-with the slice that first reads it. In this package a ``use_pallas_*``
-flag means "use the hand-written Hopper kernel"
+ported path reads yet (the 'invert'/'newton' solvers' iteration knobs,
+the frequency-domain engine's, the MATLAB loading factors) are not fields
+here; each comes with the slice that first reads it. In this package a
+``use_pallas_*`` flag means "use the hand-written Hopper kernel"
 (``apvast_torch/csrc/*.cu``, wrapped in ``apvast_torch/ops/kernels/``),
 and ``use_matmul_dft`` means the WOLA transforms run as ``torch`` matmuls
 against DFT matrices.
 
-The port runs one slice of the JAX engine so far: the time-domain hop
-with the exact GEVD solver (``GevdSolver.EIGH``), the FFT or kernel
-streaming convolution, dense or skew-assembled lag statistics and the
-FFT or kernel output synthesis. :func:`check_port_slice` rejects every
-other value with ``NotImplementedError`` naming the slice that brings it;
-no such configuration is run another way.
+The port runs the time-domain hop of the JAX engine: the exact GEVD
+solver (``GevdSolver.EIGH``) or the tracking subspace solver
+(``GevdSolver.SUBSPACE`` with ``subspace_whiten="tracking"``, the
+production solver), the FFT or kernel streaming convolution, dense or
+skew-assembled lag statistics (full or half form) and the FFT or kernel
+output synthesis. :func:`check_port_slice` rejects every other value with
+``NotImplementedError`` naming the slice that brings it; no such
+configuration is run another way.
 """
 
 from __future__ import annotations
@@ -65,7 +67,8 @@ class TargetFilterVariant(enum.Enum):
 
 class GevdSolver(enum.Enum):
     """EIGH: exact dense eigendecomposition after Cholesky whitening.
-    SUBSPACE: the warm-started top-V solvers (a later slice of the port)."""
+    SUBSPACE: the warm-started top-V solvers; the port runs the tracking
+    one (``subspace_whiten="tracking"``)."""
 
     EIGH = "eigh"
     SUBSPACE = "subspace"
@@ -132,6 +135,34 @@ class ApVastConfig:
     perceptual_frontend: PerceptualFrontend = PerceptualFrontend.MATLAB_MODEL
     perceptual_taps: int = 32
     gevd_solver: GevdSolver = GevdSolver.EIGH
+    # SUBSPACE solver: columns beyond num_eigenvectors, and the whitening.
+    # The port runs "tracking": a carried inverse Cholesky factor
+    # preconditions Rayleigh-Ritz tracking on the exact pencil
+    # (ops/jdiag.jdiag_topk_tracked), refreshed every
+    # tracking_rebuild_period hops, on the first tracking_warmup_hops hops
+    # and whenever the carried Ritz residual exceeds
+    # tracking_residual_rebuild (0 disables that trigger).
+    subspace_oversample: int = 30
+    subspace_whiten: str = "invert"
+    tracking_outer_steps: int = 2
+    tracking_rebuild_period: int = 4
+    tracking_warmup_hops: int = 4
+    tracking_li_bf16: bool = False
+    tracking_residual_precision: str = "high"
+    tracking_residual_rebuild: float = 0.0
+    # "cholqr2" orthonormalizes the doubled basis [q, p]; "direct"
+    # Rayleigh-Ritzes it raw, reusing A q and B q.
+    tracking_rr_basis: str = "cholqr2"
+    # The skew statistics hand the tracking solver M with R = M + M^T
+    # (no symmetric completion pass); applied only when the skew lag
+    # statistics feed the tracking solver (engine/hop.half_form).
+    statistics_half_form: bool = False
+    # Rayleigh-Ritz eigensolver: "jacobi" is kernel K4 (float32 only),
+    # "lapack" is torch.linalg.eigh.
+    small_eigh: str = "lapack"
+    jacobi_sweeps: int = 4
+    use_pallas_subspace: bool = False
+    use_pallas_whiten: bool = False
     # Dense framed statistics kernel; in production only a fallback that
     # use_lag_statistics takes precedence over.
     use_pallas_statistics: bool = False
@@ -175,6 +206,41 @@ class ApVastConfig:
                 raise ValueError(
                     "weighting_conv_taps must be odd and in (0, block_size)"
                 )
+        if self.subspace_whiten not in (
+            "solve", "invert", "newton", "tracking"
+        ):
+            raise ValueError(
+                "subspace_whiten must be one of 'solve', 'invert', "
+                "'newton', 'tracking'"
+            )
+        if self.tracking_rebuild_period < 1:
+            raise ValueError("tracking_rebuild_period must be >= 1")
+        if self.tracking_li_bf16 and self.dtype != "float32":
+            raise ValueError(
+                "tracking_li_bf16 is a float32-production knob — it "
+                "would silently degrade a float64 parity config"
+            )
+        if self.tracking_rr_basis not in ("cholqr2", "direct"):
+            raise ValueError(
+                "tracking_rr_basis must be 'cholqr2' or 'direct'"
+            )
+        if self.tracking_residual_precision not in ("high", "default"):
+            raise ValueError(
+                "tracking_residual_precision must be 'high' or 'default'"
+            )
+        if (
+            self.tracking_residual_precision == "default"
+            and self.dtype != "float32"
+        ):
+            raise ValueError(
+                "tracking_residual_precision='default' is a float32-"
+                "production knob — it would silently degrade a float64 "
+                "parity config"
+            )
+        if self.tracking_outer_steps < 1:
+            raise ValueError("tracking_outer_steps must be >= 1")
+        if self.tracking_residual_rebuild < 0:
+            raise ValueError("tracking_residual_rebuild must be >= 0")
         if self.lag_assembly not in ("wide", "pair", "tap", "skew"):
             raise ValueError(
                 "lag_assembly must be one of 'wide', 'pair', 'tap', 'skew'"
@@ -222,6 +288,11 @@ class ApVastConfig:
         return self.filter_length * self.num_srcs
 
     @property
+    def subspace_rank(self) -> int:
+        """Columns of the tracked subspace (SUBSPACE solver)."""
+        return min(self.num_eigenvectors + self.subspace_oversample, self.jl)
+
+    @property
     def num_solutions(self) -> int:
         return (
             len(self.output_spans)
@@ -252,45 +323,80 @@ class ApVastConfig:
         return cls(rir_length=rl, num_srcs=ns, num_mics=nm, **kwargs)
 
 
+def uses_tracking_solver(config: ApVastConfig) -> bool:
+    """Whether the hop runs the tracking GEVD solver (and carries its
+    state)."""
+    return (
+        config.gevd_solver is GevdSolver.SUBSPACE
+        and config.subspace_whiten == "tracking"
+    )
+
+
 def production_overrides() -> dict:
     """The values of the JAX package's ``production_overrides("tpu")`` for
-    the port's fields: float32, the subspace solver, skew-assembled lag
-    statistics and every kernel flag on. The solver's own knobs in the
-    JAX dict come with slice 2 of the port (``utils/convert.py`` keeps
-    their production values).
-
-    The port's current slice composes this with the exact solver,
-    :func:`slice_overrides`.
-    """
+    the port's fields: float32, the tracking subspace solver with the
+    Jacobi Rayleigh-Ritz kernel, skew-assembled half-form lag statistics
+    and every kernel flag on. (``subspace_iters=2``, a JAX field that the
+    tracking solver does not read, is accepted at that value by
+    ``utils/convert.py``.) The exact-solver oracle is
+    ``production_overrides() | {"gevd_solver": GevdSolver.EIGH}``."""
     return dict(
         dtype="float32",
         gevd_solver=GevdSolver.SUBSPACE,
+        subspace_oversample=14,
+        subspace_whiten="tracking",
+        tracking_outer_steps=1,
+        tracking_rebuild_period=32,
+        tracking_warmup_hops=6,
+        tracking_rr_basis="direct",
+        tracking_residual_rebuild=2.5,
         use_lag_statistics=True,
         lag_assembly="skew",
+        statistics_half_form=True,
         use_pallas_statistics=True,
         use_pallas_output=True,
         use_pallas_conv=True,
         use_matmul_dft=True,
+        small_eigh="jacobi",
+        jacobi_sweeps=2,
     )
 
 
-def slice_overrides() -> dict:
-    """The configuration this slice of the port runs end to end: the
-    production values with the exact GEVD solver."""
-    return production_overrides() | {"gevd_solver": GevdSolver.EIGH}
+_WHITEN = (
+    "the 'invert'/'solve'/'newton' subspace solvers, a later slice of the "
+    "port (ROADMAP Queue 1 item 4)"
+)
+# Values of port fields that no ported path runs: field -> (value, the
+# slice of ROADMAP.md that brings it).
+NOT_RUN = {
+    "tracking_li_bf16": (True, "a bfloat16 preconditioner carry, a later slice of the port"),
+    "tracking_residual_precision": (
+        "default", "single-pass bf16 residual products of the TPU, a later slice of the port"
+    ),
+    "use_pallas_subspace": (True, f"kernel K9 with {_WHITEN}"),
+    "use_pallas_whiten": (True, f"kernel K10 with {_WHITEN}"),
+}
+
+
+def check_not_run(fields) -> None:
+    """Raise ``NotImplementedError`` if the mapping ``fields`` sets a value
+    of :data:`NOT_RUN`."""
+    for name, (value, where) in NOT_RUN.items():
+        if fields.get(name) == value:
+            raise NotImplementedError(f"{name}={value!r} comes with {where}")
 
 
 def check_port_slice(config: ApVastConfig) -> None:
-    """Raise ``NotImplementedError`` for a value this slice of the port
-    does not run, naming the slice of ``ROADMAP.md`` that brings it."""
+    """Raise ``NotImplementedError`` for a value the port does not run,
+    naming the slice of ``ROADMAP.md`` that brings it."""
     if config.dtype not in ("float32", "float64"):
         raise ValueError(f"dtype must be 'float32' or 'float64', got {config.dtype!r}")
-    if config.gevd_solver is GevdSolver.SUBSPACE:
+    if config.gevd_solver is GevdSolver.SUBSPACE and config.subspace_whiten != "tracking":
         raise NotImplementedError(
-            "GevdSolver.SUBSPACE (the tracking solver with the Jacobi "
-            "eigensolver kernel) comes with slice 2 of the port; use "
-            "GevdSolver.EIGH"
+            f"subspace_whiten={config.subspace_whiten!r} comes with {_WHITEN}; "
+            "use 'tracking'"
         )
+    check_not_run(vars(config))
     if config.weighting_conv_taps is not None:
         raise NotImplementedError(
             "weighting_conv_taps (truncated time-domain weighting with the "

@@ -1,0 +1,234 @@
+// K4: batched small symmetric eigensolver, cyclic parallel Jacobi.
+//
+// Replaces apvast_tpu/ops/pallas/jacobi_eigh.py::jacobi_eigh (the kernel
+// body _kernel plus the wrapper's sort-free ranking). The TPU kernel ran
+// every round as three n x n MXU products A <- M^T (A M), V <- V M with the
+// rotation-permutation matrix M = R P: R rotates each slot pair (2i, 2i+1)
+// by the angle that zeroes A[2i, 2i+1], and P moves the slots one step
+// along the round-robin tournament ring (src[c] = the slot whose occupant
+// moves into slot c). Each column of M has two nonzeros, so here a round
+// is an O(n^2) gather-and-rotate:
+//   r1 = src[c1], r2 = src[c2], p = partner slot (r ^ 1),
+//   (A M)[a, c2]   = A[a, r2] R[r2, r2] + A[a, p2] R[p2, r2],
+//   A'[c1, c2]     = R[r1, r1] (A M)[r1, c2] + R[p1, r1] (A M)[p1, c2],
+//   V'[row, c2]    = V[row, r2] R[r2, r2] + V[row, p2] R[p2, r2],
+// with R[r, r] = c and R[partner(r), r] = -s for even r, +s for odd r.
+// The angle keeps the TPU formula: theta = A[q,q] - A[p,p], sign +1 for
+// theta >= 0, t = 2 apq sign / (|theta| + sqrt(theta^2 + 4 apq^2) + 1e-30),
+// c = 1/sqrt(1 + t^2) (IEEE sqrt and division: built without fast math,
+// so the 1e-30 guard stays a normal float and no rsqrt approximation
+// changes the rotations), s = t c.
+//
+// Bound on the H100: latency. At the production shape (2, 64, 64) with 2
+// sweeps the work is 2 * 63 dependent rounds per matrix; bytes ~ 3 * 2 *
+// 64^2 * 4 B = 98 KB (0.03 us at 3.35 TB/s) and operations ~ 2 * 2 * 63 *
+// 9 * 64^2 = 9.3 MFLOP (0.14 us at 67 TFLOP/s), while every round waits on
+// the one before it.
+// Design: one thread block per matrix (grid = batch); A and V (npad x npad,
+// zero-padded, V = I) stay in shared memory for all sweeps. Each thread
+// owns a fixed set of entries (c1, c2); the schedule is fixed, so the
+// slots it gathers from (r1, r2 and their partners) are computed once,
+// packed into one register per entry, and the rotation pairs are read as
+// (c, s) float2s: a round costs six loads of A and V and two of the pair
+// table per entry, no integer division. Up to npad = 64 A and V are
+// double-buffered (64 KB of dynamic shared memory), so a round is two
+// phases between barriers: npad/2 threads compute the pair rotations, then
+// every thread writes its new entries into the other buffer. Above that
+// (npad <= 128, 128 KB) one buffer each: the new entries wait in registers
+// for a third barrier. After the last sweep the same launch ranks the
+// diagonal (pad slots keyed to +inf, ties to the lower index) and writes w
+// ascending and the matching columns of V, so the kernel runs once per
+// Rayleigh-Ritz solve.
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int kMaxThreads = 1024;
+
+// Entry e of the thread's k-th slot: c1 = e / np, c2 = e % np, and the
+// occupants moving into them, r1 = src[c1], r2 = src[c2], packed 8 bits each.
+__device__ __forceinline__ unsigned pack_entry(int e, int np, const int* src) {
+  const int c1 = e / np, c2 = e % np;
+  return (unsigned)c1 | ((unsigned)src[c1] << 8) | ((unsigned)src[c2] << 16);
+}
+
+// A'[c1, c2] and V'[c1, c2] of one round. R[r, r] = c, R[partner(r), r] =
+// -s for even r and +s for odd r, with (c, s) of pair r / 2.
+__device__ __forceinline__ void rotate_entry(unsigned packed, int np, const float* A,
+                                             const float* V, const float2* cs,
+                                             float& a_out, float& v_out) {
+  const int c1 = packed & 0xff, r1 = (packed >> 8) & 0xff, r2 = packed >> 16;
+  const int p1 = r1 ^ 1, p2 = r2 ^ 1;
+  const float2 g1 = cs[r1 >> 1], g2 = cs[r2 >> 1];
+  const float o1 = (r1 & 1) ? g1.y : -g1.y;
+  const float o2 = (r2 & 1) ? g2.y : -g2.y;
+  const float am_r = A[r1 * np + r2] * g2.x + A[r1 * np + p2] * o2;
+  const float am_p = A[p1 * np + r2] * g2.x + A[p1 * np + p2] * o2;
+  a_out = g1.x * am_r + o1 * am_p;
+  v_out = V[c1 * np + r2] * g2.x + V[c1 * np + p2] * o2;
+}
+
+// The rotation of pair i = (2i, 2i+1) that zeroes A[2i, 2i+1], for
+// i = tid, tid + nt, ... < np / 2.
+__device__ __forceinline__ void pair_rotations(const float* A, float2* cs, int np,
+                                               int tid, int nt) {
+  for (int i = tid; i < np / 2; i += nt) {
+    const int p = 2 * i, q = p + 1;
+    const float app = A[p * np + p], aqq = A[q * np + q], apq = A[p * np + q];
+    const float theta = aqq - app;
+    const float sg = theta >= 0.f ? 1.f : -1.f;
+    const float denom = fabsf(theta) + sqrtf(theta * theta + 4.f * apq * apq) + 1e-30f;
+    const float t = 2.f * apq * sg / denom;
+    const float c = 1.f / sqrtf(1.f + t * t);
+    cs[i] = make_float2(c, t * c);
+  }
+}
+
+// PER entries per thread (np^2 <= PER * blockDim.x); DOUBLE: A and V have
+// a second buffer each in shared memory.
+template <int PER, bool DOUBLE>
+__global__ void __launch_bounds__(kMaxThreads)
+jacobi_eigh_kernel(const float* __restrict__ a, const int* __restrict__ src_g,
+                   float* __restrict__ w_out, float* __restrict__ v_out,
+                   int n, int np, int sweeps) {
+  extern __shared__ float smem[];
+  const int nn = np * np;
+  float* A = smem;
+  float* V = A + nn;
+  float* A2 = DOUBLE ? V + nn : nullptr;
+  float* V2 = DOUBLE ? A2 + nn : nullptr;
+  float2* cs = reinterpret_cast<float2*>(V + (DOUBLE ? 3 : 1) * nn);  // np / 2
+  int* src = reinterpret_cast<int*>(cs + np / 2);
+  int* rank = src + np;
+  int* cnt = rank + np;
+  int* first = cnt + np;
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const float* ab = a + (size_t)b * n * n;
+  for (int e = tid; e < nn; e += nt) {
+    const int r = e / np, c = e % np;
+    A[e] = (r < n && c < n) ? ab[r * n + c] : 0.f;
+    V[e] = (r == c) ? 1.f : 0.f;
+  }
+  for (int i = tid; i < np; i += nt) {
+    src[i] = src_g[i];
+    cnt[i] = 0;
+  }
+  __syncthreads();
+
+  unsigned packed[PER];
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int e = tid + k * nt;
+    packed[k] = e < nn ? pack_entry(e, np, src) : 0u;
+  }
+
+  for (int sw = 0; sw < sweeps; ++sw) {
+    for (int round = 0; round < np - 1; ++round) {
+      pair_rotations(A, cs, np, tid, nt);
+      __syncthreads();
+      if (DOUBLE) {
+#pragma unroll
+        for (int k = 0; k < PER; ++k) {
+          const int e = tid + k * nt;
+          if (e < nn) rotate_entry(packed[k], np, A, V, cs, A2[e], V2[e]);
+        }
+        __syncthreads();
+        float* t = A; A = A2; A2 = t;
+        t = V; V = V2; V2 = t;
+      } else {
+        float ra[PER], rv[PER];
+#pragma unroll
+        for (int k = 0; k < PER; ++k) {
+          const int e = tid + k * nt;
+          if (e < nn) rotate_entry(packed[k], np, A, V, cs, ra[k], rv[k]);
+        }
+        __syncthreads();
+#pragma unroll
+        for (int k = 0; k < PER; ++k) {
+          const int e = tid + k * nt;
+          if (e < nn) {
+            A[e] = ra[k];
+            V[e] = rv[k];
+          }
+        }
+        __syncthreads();
+      }
+    }
+  }
+
+  // Ascending rank of every slot; pad slots key to +inf.
+  for (int i = tid; i < np; i += nt) {
+    const float ki = i < n ? A[i * np + i] : INFINITY;
+    int r = 0;
+    for (int j = 0; j < np; ++j) {
+      const float kj = j < n ? A[j * np + j] : INFINITY;
+      r += (kj < ki) || (kj == ki && j < i);
+    }
+    rank[i] = r;
+    if (r < n) {
+      atomicAdd(&cnt[r], 1);
+      first[r] = i;  // used only where exactly one slot has rank r
+    }
+  }
+  __syncthreads();
+  // Output column c gathers the slots of rank c (the one-hot contraction
+  // of the TPU wrapper: a sum when NaNs collide ranks, 0 when none).
+  for (int c = tid; c < n; c += nt) {
+    float s = 0.f;
+    if (cnt[c] == 1) {
+      s = A[first[c] * (np + 1)];
+    } else if (cnt[c] > 1) {
+      for (int i = 0; i < np; ++i)
+        if (rank[i] == c) s += A[i * (np + 1)];
+    }
+    w_out[(size_t)b * n + c] = s;
+  }
+  float* vb = v_out + (size_t)b * n * n;
+  for (int e = tid; e < n * n; e += nt) {
+    const int r = e / n, c = e % n;
+    float s = 0.f;
+    if (cnt[c] == 1) {
+      s = V[r * np + first[c]];
+    } else if (cnt[c] > 1) {
+      for (int i = 0; i < np; ++i)
+        if (rank[i] == c) s += V[r * np + i];
+    }
+    vb[e] = s;
+  }
+}
+
+template <int PER, bool DOUBLE>
+int launch(const float* a, const int* src, float* w, float* v, int bz, int n, int np,
+           int sweeps, int threads, cudaStream_t stream) {
+  const size_t nn = (size_t)np * np;
+  const size_t smem = (DOUBLE ? 4 : 2) * nn * sizeof(float) + (np / 2) * sizeof(float2) +
+                      4 * np * sizeof(int);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(jacobi_eigh_kernel<PER, DOUBLE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  jacobi_eigh_kernel<PER, DOUBLE><<<bz, threads, smem, stream>>>(a, src, w, v, n, np, sweeps);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// a (bz, n, n) symmetric, src (np,) int32 tournament schedule -> w (bz, n)
+// ascending, v (bz, n, n) eigenvectors in columns; float32, contiguous;
+// np = max(8, ceil8(n)) <= 128.
+extern "C" int jacobi_eigh_launch(const float* a, const int* src, float* w,
+                                  float* v, int bz, int n, int np, int sweeps,
+                                  cudaStream_t stream) {
+  if (np % 8 || np < n || np > 128) return (int)cudaErrorInvalidValue;
+  const int nn = np * np;
+  const int threads = nn < kMaxThreads ? nn : kMaxThreads;
+  if (nn <= threads) return launch<1, true>(a, src, w, v, bz, n, np, sweeps, threads, stream);
+  if (nn <= 4 * threads) return launch<4, true>(a, src, w, v, bz, n, np, sweeps, threads, stream);
+  return launch<16, false>(a, src, w, v, bz, n, np, sweeps, threads, stream);
+}

@@ -1,7 +1,7 @@
-// K3: lag tables -> source-major covariance rows (full form).
+// K3: lag tables -> source-major covariance rows, full or half form.
 //
-// Replaces apvast_tpu/ops/pallas/skew_assembly.py::lag_skew_assemble
-// (half_scaled=False). The TPU kernel ran the tap band a as a sequential
+// Replaces apvast_tpu/ops/pallas/skew_assembly.py::lag_skew_assemble, both
+// values of half_scaled. The TPU kernel ran the tap band a as a sequential
 // grid axis, carrying acc_a = shift_left(acc_{a-1}) + lhsT[a] . rhs in
 // scratch, with acc_0 = c0. Unrolled, the recursion is a running sum
 // along each lane diagonal D = t2 + a of a source block:
@@ -19,7 +19,12 @@
 // consecutive lanes. At step a the block's threads write one whole output
 // row t1 = J-1-a: valid lanes get the sum, the strict-upper-tap lanes
 // (t2 > t1, lane s2*J + (D-a) mod J for a > D) get 0. Any S works: there
-// is no sublane alignment and no lane padding to inherit.
+// is no sublane alignment and no lane padding to inherit. The half form
+// (R = M + M^T) is decided at write time in the same pass: every valid lane
+// of diagonal D = J-1 is a tap-diagonal lane (t2 == t1), so that thread
+// writes 0.5 * acc (an exact scaling), the others acc. The form is a
+// template parameter, so the full form's loop carries no scaling: a
+// run-time flag cost it half again its time on the H100 (PERF.md).
 
 #include <cuda_runtime.h>
 
@@ -27,6 +32,7 @@ namespace {
 
 constexpr int kLanes = 128;  // output lanes (diagonals) per block
 
+template <bool kHalf>
 __global__ void __launch_bounds__(kLanes)
 skew_assembly_kernel(const float* __restrict__ lhs_t,
                      const float* __restrict__ rhs,
@@ -51,6 +57,7 @@ skew_assembly_kernel(const float* __restrict__ lhs_t,
   const float* rp = rhs + (size_t)p * c * w;
   float* op = out + ((size_t)p * s1n + s1) * j * w;
   float acc = c0[((size_t)p * s1n + s1) * w + wi];
+  const float scale = (kHalf && dd == j - 1) ? 0.5f : 1.f;
   for (int a = 0; a < j; ++a) {
     const size_t row = (size_t)(j - 1 - a) * w;
     if (a <= dd) {
@@ -59,7 +66,7 @@ skew_assembly_kernel(const float* __restrict__ lhs_t,
       float dot = 0.f;
       for (int cc = 0; cc < c; ++cc) dot = fmaf(la[cc], rp[(size_t)cc * w + lane], dot);
       acc += dot;
-      op[row + lane] = acc;
+      op[row + lane] = kHalf ? acc * scale : acc;
     } else {
       op[row + s2 * j + (dd - a + j)] = 0.f;
     }
@@ -69,19 +76,19 @@ skew_assembly_kernel(const float* __restrict__ lhs_t,
 }  // namespace
 
 // lhs_t (p, j*s1, c), rhs (p, c, w), c0 (p, s1, w) -> out (p, s1, j, w),
-// w = s2*j; float32, contiguous.
+// w = s2*j; float32, contiguous; half != 0 halves the tap-diagonal lanes.
 extern "C" int skew_assembly_launch(const float* lhs_t, const float* rhs,
                                     const float* c0, float* out, int p, int s1,
-                                    int j, int c, int w, cudaStream_t stream) {
+                                    int j, int c, int w, int half,
+                                    cudaStream_t stream) {
   const size_t smem = (size_t)j * c * sizeof(float);
+  auto kernel = half ? skew_assembly_kernel<true> : skew_assembly_kernel<false>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        skew_assembly_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid((w + kLanes - 1) / kLanes, s1, p);
-  skew_assembly_kernel<<<grid, kLanes, smem, stream>>>(lhs_t, rhs, c0, out, s1,
-                                                       j, c, w);
+  kernel<<<grid, kLanes, smem, stream>>>(lhs_t, rhs, c0, out, s1, j, c, w);
   return (int)cudaGetLastError();
 }

@@ -6,8 +6,11 @@ the reference a batch axis:
 1. streaming RIR convolution    (FFT overlap-save, or kernel K1)
 2. weighted target update       (WOLA analysis + perceptual weighting)
 3. weighted response update     (matmul-DFT or FFT WOLA)
-4. statistics                   (framed Gram, or lag statistics: K2 + K3)
-5. GEVD + filter synthesis      (exact Cholesky-whitened eigh)
+4. statistics                   (framed Gram, or lag statistics: K2 + K3,
+                                 half form M with R = M + M^T for the
+                                 tracking solver)
+5. GEVD + filter synthesis      (exact Cholesky-whitened eigh, or the
+                                 tracking solver with K4)
 6. input block slide
 7. output synthesis             (FFT, or kernel K5 + the target roll)
 """
@@ -23,11 +26,12 @@ from apvast_torch.config import (
     TargetFilterVariant,
     ToeplitzVariant,
     check_port_slice,
+    uses_tracking_solver,
 )
 from apvast_torch.engine.plan import ApVastPlan
-from apvast_torch.engine.state import ApVastState
+from apvast_torch.engine.state import ApVastState, TrackingState
 from apvast_torch.ops.framing import framed_statistics
-from apvast_torch.ops.jdiag import jdiag
+from apvast_torch.ops.jdiag import jdiag, jdiag_topk_tracked
 from apvast_torch.ops.kernels import circular_filter_overlap, streaming_conv
 from apvast_torch.ops.lag_statistics import covariance_via_lags_skew
 from apvast_torch.ops.synthesis import variable_span_filters
@@ -53,13 +57,16 @@ _PATH_ZONE = [0, 1, 0, 1]  # destination zone == weighting zone
 class HopOutputs:
     """Per-hop loudspeaker feeds, each (V, hop, srcs), None for a disabled
     zone; the target feeds are one (hop, srcs) copy; ``silenced`` counts
-    the non-finite solver outputs of the hop (int32 scalar, 0 = healthy)."""
+    the non-finite solver outputs of the hop (int32 scalar, 0 = healthy);
+    ``rebuilt`` says whether the tracking solver refreshed its
+    preconditioner this hop (a host bool, False for the exact solver)."""
 
     out_a: torch.Tensor | None
     out_b: torch.Tensor | None
     out_a_t: torch.Tensor
     out_b_t: torch.Tensor
     silenced: torch.Tensor
+    rebuilt: bool = False
 
 
 def convolve_inputs(config, plan, conv_history, resp, target_resp, hops):
@@ -138,9 +145,36 @@ def weighted_spectra(config, plan, resp, target_resp):
     return t_spec * weighting, r_spec
 
 
+def half_form(config: ApVastConfig) -> bool:
+    """Whether stage 4 hands the solver the half matrices M (R = M + M^T):
+    the skew lag statistics feeding the tracking solver. Any other solver
+    gets the completed R, as in the JAX engine."""
+    return (
+        config.statistics_half_form
+        and config.use_lag_statistics
+        and config.lag_assembly == "skew"
+        and uses_tracking_solver(config)
+    )
+
+
+def rebuild_predicate(config: ApVastConfig, state: ApVastState) -> bool:
+    """Whether the tracking solver refreshes its preconditioner this hop:
+    inside the warmup window, on the cadence, or when the previous hop's
+    Ritz residual exceeds ``tracking_residual_rebuild``. The JAX engine
+    decides this on the device under ``lax.cond``; here the hop counter is
+    a host int and the residual costs one device read per hop, so the
+    factorization runs only on the hops that take it."""
+    hop = state.gevd_hop
+    if hop < config.tracking_warmup_hops or hop % config.tracking_rebuild_period == 0:
+        return True
+    threshold = config.tracking_residual_rebuild
+    return threshold > 0 and bool(state.gevd_resid > threshold)
+
+
 def hop_statistics(config: ApVastConfig, wresp_stat, wtarget_stat):
-    """Stage 4: the spatial statistics (R (4, SJ, SJ), r (2, SJ)) of the
-    statistics buffers as a state carries them after a hop."""
+    """Stage 4: the spatial statistics (R (4, SJ, SJ), or its half form M
+    when :func:`half_form`; r (2, SJ)) of the statistics buffers as a
+    state carries them after a hop."""
     j = config.filter_length
     if (
         config.toeplitz_variant is ToeplitzVariant.PYTHON
@@ -152,7 +186,8 @@ def hop_statistics(config: ApVastConfig, wresp_stat, wtarget_stat):
     k = buf_eff.shape[-1] - j + 1
     d = wtarget_stat[..., -k:]  # (2, m, k) target alignment
     if config.use_lag_statistics:
-        r_mats, r_vecs = covariance_via_lags_skew(buf_eff, d, j)
+        form = "half" if half_form(config) else "full"
+        r_mats, r_vecs = covariance_via_lags_skew(buf_eff, d, j, form=form)
     else:
         r_mats, r_vecs = framed_statistics(buf_eff, d, j)
     if config.normalize_statistics:
@@ -168,8 +203,13 @@ def process_hop(
     state: ApVastState,
     hop_a: torch.Tensor,
     hop_b: torch.Tensor,
+    rebuild_override: bool | None = None,
 ) -> tuple[ApVastState, HopOutputs]:
-    """One hop of ``hop`` samples of each program signal."""
+    """One hop of ``hop`` samples of each program signal.
+
+    ``rebuild_override``: tracking solver only, a host bool that replaces
+    :func:`rebuild_predicate` (a caller driving several streams decides
+    the rebuild once for all of them)."""
     check_port_slice(config)
     dtype = torch_dtype(config)
     device = plan.window.device
@@ -205,26 +245,58 @@ def process_hop(
 
     # ---- 5. GEVD + variable-span synthesis -----------------------------
     # Zone A pencil: (R_AA, R_AB); zone B pencil: (R_BB, R_BA).
+    half = half_form(config)
     a_stack = r_mats[[0, 3]]
     b_stack = r_mats[[1, 2]]
     eye = torch.eye(s * j, dtype=dtype, device=device)
     if config.effective_reg_b_relative > 0:
+        # In half form tr(M) = tr(B) / 2 and M takes half of B's loading,
+        # so the same expression loads B correctly.
         mean_diag = torch.diagonal(b_stack, dim1=-2, dim2=-1).sum(-1) / (s * j)
         b_stack = b_stack + (config.effective_reg_b_relative * mean_diag)[:, None, None] * eye
     reg = config.reg_b  # PYTHON regularization (check_port_slice)
-    if not config.run_a:  # keep the disabled zone's pencil factorizable
-        a_stack = torch.stack([eye, a_stack[1]])
-        b_stack = torch.stack([eye, b_stack[1]])
+    # Keep a disabled zone's pencil factorizable (half form: M + M^T = I).
+    filler = 0.5 * eye if half else eye
+    if not config.run_a:
+        a_stack = torch.stack([filler, a_stack[1]])
+        b_stack = torch.stack([filler, b_stack[1]])
     if not config.run_b:
-        a_stack = torch.stack([a_stack[0], eye])
-        b_stack = torch.stack([b_stack[0], eye])
-    u, lam = jdiag(a_stack, b_stack, reg)  # (2, jl, jl), (2, jl)
-    # The exact path has no zeroing guard (parity semantics); it counts the
-    # non-finite outputs so a blowup stays visible.
-    silenced = (
-        (~torch.isfinite(u)).sum(dtype=torch.int32)
-        + (~torch.isfinite(lam)).sum(dtype=torch.int32)
-    )
+        a_stack = torch.stack([a_stack[0], filler])
+        b_stack = torch.stack([b_stack[0], filler])
+    carry = {}
+    rebuilt = False
+    if uses_tracking_solver(config):
+        if dtype != torch.float32 and config.small_eigh == "jacobi":
+            raise ValueError(
+                "small_eigh='jacobi' is a float32 kernel — it would "
+                "silently degrade a float64 parity config"
+            )
+        rebuilt = (
+            rebuild_predicate(config, state)
+            if rebuild_override is None
+            else bool(rebuild_override)
+        )
+        (
+            u, lam, carry["gevd_q"], carry["gevd_lam"], carry["gevd_minv"],
+            silenced, carry["gevd_resid"],
+        ) = jdiag_topk_tracked(
+            a_stack, b_stack, reg, v,
+            state.gevd_q, state.gevd_lam, state.gevd_minv, rebuilt,
+            outer_steps=config.tracking_outer_steps,
+            small_eigh=config.small_eigh,
+            jacobi_sweeps=config.jacobi_sweeps,
+            rr_basis=config.tracking_rr_basis,
+            half_form=half,
+        )  # u (2, jl, v), lam (2, v)
+        carry["gevd_hop"] = state.gevd_hop + 1
+    else:
+        u, lam = jdiag(a_stack, b_stack, reg)  # (2, jl, jl), (2, jl)
+        # The exact path has no zeroing guard (parity semantics); it counts
+        # the non-finite outputs so a blowup stays visible.
+        silenced = (
+            (~torch.isfinite(u)).sum(dtype=torch.int32)
+            + (~torch.isfinite(lam)).sum(dtype=torch.int32)
+        )
     w_family = variable_span_filters(u, lam, r_vecs, config.mu, v)  # (2, v, jl)
     zone_gate = torch.tensor(
         [float(config.run_a), float(config.run_b)], dtype=dtype, device=device
@@ -278,7 +350,7 @@ def process_hop(
 
     out_vhs = out_emit.permute(0, 1, 3, 2)  # (2, v, hop, s)
     t_vhs = t_emit.permute(0, 2, 1)  # (2, hop, s)
-    new_state = ApVastState(
+    new_state = (TrackingState if carry else ApVastState)(
         conv_history=conv_history,
         resp=slide_tail(resp[0], resp[1], hop),
         target_resp=slide_tail(target_resp[0], target_resp[1], hop),
@@ -289,6 +361,7 @@ def process_hop(
         input_blocks=input_blocks,
         out_overlap=out_overlap,
         target_out_overlap=target_out_overlap,
+        **carry,
     )
     outputs = HopOutputs(
         out_a=out_vhs[0] if config.run_a else None,
@@ -296,5 +369,6 @@ def process_hop(
         out_a_t=t_vhs[0],
         out_b_t=t_vhs[1],
         silenced=silenced,
+        rebuilt=rebuilt,
     )
     return new_state, outputs

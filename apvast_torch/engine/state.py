@@ -14,7 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from apvast_torch.config import ApVastConfig, check_port_slice
+from apvast_torch.config import ApVastConfig, check_port_slice, uses_tracking_solver
 from apvast_torch.utils.device import resolve_device, torch_dtype
 
 
@@ -43,8 +43,40 @@ class ApVastState:
     target_out_overlap: torch.Tensor
 
 
+@dataclasses.dataclass
+class TrackingState(ApVastState):
+    """The state of a hop that runs the tracking GEVD solver: the data path
+    plus the solver's carry (the JAX state's ``gevd_*`` leaves)."""
+
+    # Ritz vectors (2, jl, k) and values (2, k).
+    gevd_q: torch.Tensor
+    gevd_lam: torch.Tensor
+    # Inverse Cholesky factor of the loaded dark matrix, (2, jl, jl).
+    gevd_minv: torch.Tensor
+    # Hop counter of the rebuild cadence: a host int, so the cadence reads
+    # nothing from the device.
+    gevd_hop: int
+    # The previous hop's relative Ritz residual, a float32 scalar.
+    gevd_resid: torch.Tensor
+
+
+def tracking_shapes(config: ApVastConfig) -> dict[str, tuple[int, ...]]:
+    """Shape of every tracking-solver state tensor (none for the exact
+    solver)."""
+    if not uses_tracking_solver(config):
+        return {}
+    jl, k = config.jl, config.subspace_rank
+    return {
+        "gevd_q": (2, jl, k),
+        "gevd_minv": (2, jl, jl),
+        "gevd_lam": (2, k),
+        "gevd_hop": (),
+        "gevd_resid": (),
+    }
+
+
 def state_shapes(config: ApVastConfig) -> dict[str, tuple[int, ...]]:
-    """Shape of every state tensor."""
+    """Shape of every state tensor of the hop's data path."""
     m, s, v = config.num_mics, config.num_srcs, config.num_solutions
     block, n, hop = config.block_size, config.statistics_buffer_length, config.hop
     return {
@@ -67,6 +99,7 @@ def init_state(
     response_noise: tuple[np.ndarray | torch.Tensor, np.ndarray | torch.Tensor]
     | None = None,
     generator: torch.Generator | None = None,
+    subspace_init: np.ndarray | torch.Tensor | None = None,
 ) -> ApVastState:
     """Fresh engine state on ``device`` (default ``"cuda"``).
 
@@ -76,6 +109,13 @@ def init_state(
     ``response_noise=(resp (4, m, s, block), target_resp (2, m, block))``,
     drawn from ``generator`` (scaled by ``noise_init_scale``), or zero
     when neither is given (the MATLAB behavior).
+
+    The tracking solver's cold basis (2, jl, subspace_rank), a fixed
+    full-rank random block in JAX (``jax.random.key(7)``), is likewise
+    injected (``subspace_init``), drawn from ``generator`` after the noise,
+    or drawn from a ``torch.Generator`` seeded with 7. Its carried factor
+    starts as the identity, its Ritz values at zero and its hop counter at
+    0, inside the warmup window, so the first hop rebuilds the factor.
     """
     check_port_slice(config)
     device = resolve_device(device)
@@ -108,8 +148,29 @@ def init_state(
         for name, shape in shapes.items()
         if name not in ("resp", "target_resp")
     }
-    return ApVastState(
+    data = dict(
         resp=resp[..., config.hop :].contiguous(),
         target_resp=target_resp[..., config.hop :].contiguous(),
         **zeros,
     )
+    if uses_tracking_solver(config):
+        jl, k = config.jl, config.subspace_rank
+        if subspace_init is not None:
+            q = torch.as_tensor(subspace_init, device=device).to(dtype)
+            if tuple(q.shape) != (2, jl, k):
+                raise ValueError(
+                    f"subspace_init shape {tuple(q.shape)} != {(2, jl, k)}"
+                )
+        else:
+            gen = generator or torch.Generator().manual_seed(7)
+            q = torch.randn((2, jl, k), generator=gen, dtype=dtype,
+                            device=gen.device).to(device)
+        return TrackingState(
+            **data,
+            gevd_q=q.contiguous(),
+            gevd_lam=torch.zeros((2, k), dtype=dtype, device=device),
+            gevd_minv=torch.eye(jl, dtype=dtype, device=device).repeat(2, 1, 1),
+            gevd_hop=0,
+            gevd_resid=torch.zeros((), dtype=torch.float32, device=device),
+        )
+    return ApVastState(**data)

@@ -22,7 +22,8 @@ def run_stream(
 
     ``signal_a`` / ``signal_b``: (num_hops * hop,); a trailing partial hop
     is dropped. Returns the final state and HopOutputs with a leading
-    ``num_hops`` axis on every field (None fields stay None).
+    ``num_hops`` axis on every field (None fields stay None; ``rebuilt``
+    becomes a bool tensor).
     """
     hop = config.hop
     num_hops = min(signal_a.shape[0], signal_b.shape[0]) // hop
@@ -35,9 +36,11 @@ def run_stream(
 
     def stacked(name):
         vals = [getattr(o, name) for o in per_hop]
-        return None if vals[0] is None else torch.stack(vals)
+        if vals[0] is None:
+            return None
+        return torch.tensor(vals) if name == "rebuilt" else torch.stack(vals)
 
-    fields = ("out_a", "out_b", "out_a_t", "out_b_t", "silenced")
+    fields = ("out_a", "out_b", "out_a_t", "out_b_t", "silenced", "rebuilt")
     return state, HopOutputs(**{f: stacked(f) for f in fields})
 
 

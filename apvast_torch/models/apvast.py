@@ -37,13 +37,16 @@ class ApVast:
         device: str | torch.device | None = None,
         generator: torch.Generator | None = None,
         response_noise=None,
+        subspace_init=None,
         **config_overrides,
     ):
         """Parameters mirror the reference constructor; extra keyword
         arguments flow into :class:`ApVastConfig`. Runs on ``"cuda"``
         unless ``device`` says otherwise (raises if no card is present).
         The initial response noise is injected (``response_noise``), drawn
-        from ``generator``, or zero."""
+        from ``generator``, or zero; the tracking solver's cold basis is
+        injected (``subspace_init``, (2, jl, subspace_rank)) or drawn
+        (``engine.state.init_state``)."""
         self.config = ApVastConfig.for_rirs(
             rir_a,
             rir_b,
@@ -64,17 +67,22 @@ class ApVast:
         )
         self.device = resolve_device(device)
         self.plan = build_plan(self.config, rir_a, rir_b, self.device)
-        self.reset(generator=generator, response_noise=response_noise)
+        self.reset(
+            generator=generator, response_noise=response_noise,
+            subspace_init=subspace_init,
+        )
 
-    def reset(self, generator=None, response_noise=None) -> None:
-        """Fresh state; ``silenced`` restarts at 0."""
+    def reset(self, generator=None, response_noise=None, subspace_init=None) -> None:
+        """Fresh state; ``silenced`` and ``rebuilds`` restart at 0."""
         self.state = init_state(
             self.config, self.device, response_noise=response_noise,
-            generator=generator,
+            generator=generator, subspace_init=subspace_init,
         )
         # Non-finite solver outputs summed over every hop since the reset
         # (an int32 tensor on the device, read without a sync until asked).
         self.silenced = torch.zeros((), dtype=torch.int32, device=self.device)
+        # Hops on which the tracking solver refreshed its preconditioner.
+        self.rebuilds = 0
 
     def _signal(self, x) -> torch.Tensor:
         return torch.as_tensor(x).reshape(-1).to(
@@ -92,6 +100,7 @@ class ApVast:
             self.config, self.plan, self.state, input_a, input_b
         )
         self.silenced = self.silenced + outputs.silenced
+        self.rebuilds += int(outputs.rebuilt)
         v = self.config.num_solutions
         return (
             outputs.out_a,
@@ -108,6 +117,7 @@ class ApVast:
             self.config, self.plan, self.state, signal_a, signal_b
         )
         self.silenced = self.silenced + outs.silenced.sum(dtype=torch.int32)
+        self.rebuilds += int(outs.rebuilt.sum())
         v = self.config.num_solutions
 
         def stitch(x):

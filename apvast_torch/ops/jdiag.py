@@ -1,37 +1,245 @@
-"""Joint diagonalization of a symmetric-PSD pencil (A, B) — the exact
-solver (port of ``apvast_tpu/ops/jdiag.py::jdiag`` / ``jdiag_batched``;
-``jdiag`` here is batched over any leading axes, so it is both).
+"""Joint diagonalization of a symmetric-PSD pencil (A, B) (port of
+``apvast_tpu/ops/jdiag.py``): the exact solver ``jdiag`` (batched over any
+leading axes, so also ``jdiag_batched``) and the production tracking
+solver ``jdiag_topk_tracked`` with its CholeskyQR2 ``_cholqr2``.
 
-Whiten with the Cholesky factor of the loaded B, take the symmetric
-eigendecomposition, back-transform:
+Contract of both:
     U^T A U = diag(d)   with d descending,   U^T B U = I.
+
+Every matmul here is a plain fp32 (or fp64) product: the JAX solver asks
+for ``Precision.HIGH``/``HIGHEST`` on the TPU, which on the card means
+TF32 off (``torch.backends.cuda.matmul.allow_tf32 = False``, PyTorch's
+default).
 """
 
 from __future__ import annotations
 
 import torch
 
+from apvast_torch.ops.kernels import jacobi_eigh
+from apvast_torch.ops.trisolve import neumann_tri_inverse, triangular_inverse
+
+
+def cholesky(x: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor, NaN-filled where the factorization fails, as
+    JAX's is (``torch.linalg.cholesky`` would raise instead), so the
+    solvers' non-finite guards and ``silenced`` count see it."""
+    chol, info = torch.linalg.cholesky_ex(x)
+    return torch.where((info > 0)[..., None, None], torch.nan, chol)
+
+
+def eigh(h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``torch.linalg.eigh`` (ascending) that returns NaNs for a matrix
+    with a non-finite entry, as JAX's does; torch raises instead."""
+    bad = ~torch.isfinite(h).all(-1).all(-1)
+    d, v = torch.linalg.eigh(torch.where(bad[..., None, None], torch.zeros_like(h), h))
+    return d.masked_fill(bad[..., None], torch.nan), v.masked_fill(bad[..., None, None], torch.nan)
+
 
 def jdiag(A: torch.Tensor, B: torch.Tensor, reg: float = 1e-7):
     """Returns ``(U, d)``: generalized eigenvectors in the columns of U and
     eigenvalues in descending order. ``reg`` loads B's diagonal before the
-    factorization.
-
-    A factorization that fails (B + reg I not positive definite) yields
-    NaNs, as the JAX solver's does, so the hop's ``silenced`` count sees it;
-    ``torch.linalg.cholesky`` would raise instead.
-    """
+    factorization."""
     n = A.shape[-1]
     eye = torch.eye(n, dtype=A.dtype, device=A.device)
-    chol, info = torch.linalg.cholesky_ex(B + reg * eye)
-    chol = torch.where((info > 0)[..., None, None], torch.nan, chol)
+    chol = cholesky(B + reg * eye)
     half = torch.linalg.solve_triangular(chol, A, upper=False)
     white = torch.linalg.solve_triangular(
         chol, half.transpose(-1, -2), upper=False
     ).transpose(-1, -2)
     white = 0.5 * (white + white.transpose(-1, -2))
-    d, v = torch.linalg.eigh(white)  # ascending
+    d, v = eigh(white)  # ascending
     u = torch.linalg.solve_triangular(
         chol.transpose(-1, -2), v.flip(-1), upper=True
     )
     return u, d.flip(-1)
+
+
+def _cholqr2(q: torch.Tensor) -> torch.Tensor:
+    """CholeskyQR2 orthonormalization of the columns of (batched) ``q``:
+    two passes of q <- q L^-T with L the Cholesky factor of the Gram
+    matrix, jittered relative to its own trace so a rank-deficient block
+    does not turn the factor into NaNs."""
+    k = q.shape[-1]
+    eye = torch.eye(k, dtype=q.dtype, device=q.device)
+    for _ in range(2):
+        gram = q.transpose(-1, -2) @ q
+        trace = torch.diagonal(gram, dim1=-2, dim2=-1).sum(-1)
+        jitter = (trace / k) * 1e-6 + 1e-30
+        chol = cholesky(gram + jitter[..., None, None] * eye)
+        q = q @ neumann_tri_inverse(chol).transpose(-1, -2)
+    return q
+
+
+def _sym(x: torch.Tensor) -> torch.Tensor:
+    return 0.5 * (x + x.transpose(-1, -2))
+
+
+def jdiag_topk_tracked(
+    A: torch.Tensor,
+    B: torch.Tensor,
+    reg: float,
+    num_vectors: int,
+    q_init: torch.Tensor,
+    lam_init: torch.Tensor,
+    li_carry: torch.Tensor,
+    rebuild: bool,
+    outer_steps: int = 2,
+    small_eigh: str = "lapack",
+    jacobi_sweeps: int = 4,
+    rr_basis: str = "cholqr2",
+    half_form: bool = False,
+):
+    """Top-k GEVD by inner-outer subspace tracking, with no (n, n)
+    factorization except when ``rebuild`` is set.
+
+    The carried inverse Cholesky factor Li preconditions each outer step:
+    the carried Ritz basis X (z, n, k) is expanded with the block residual
+    P = Li^T Li (A X - B X L), and the doubled pencil on [X, P] is solved
+    by Rayleigh-Ritz on the exact (A, B): whitened by its own small
+    Cholesky factor, two k-block power steps seeded from the X coordinates,
+    then one (k, k) eigensolve (kernel K4 for ``small_eigh="jacobi"``).
+
+    ``half_form``: A and B are half matrices M with the pencil R = M + M^T
+    (the skew statistics' half form); R x is applied as M x + M^T x and the
+    full dark matrix exists only for the rebuild's Cholesky.
+
+    ``rebuild`` is a host bool: the factorization runs only on the hops
+    that refresh Li, and a non-finite fresh factor falls back to the
+    carried one.
+
+    Returns ``(u, d, q_next, lam_next, li_next, silenced, resid_rel)``:
+    u (z, n, num_vectors) with U^T (B + reg I) U = I, d descending, the
+    carries, the count of non-finite outputs zeroed (int32) and the
+    relative block residual of the incoming Ritz pairs on this pencil
+    (float32 scalar, max over zones, +inf when non-finite or when a zone's
+    basis was degenerate), which the caller compares with its rebuild
+    threshold on the next hop.
+    """
+    z, n, _ = A.shape
+    k = q_init.shape[-1]
+    dtype, dev = A.dtype, A.device
+    eye = torch.eye(n, dtype=dtype, device=dev)
+
+    # Zone-wise basis-health guard: a sustained true-silence gap collapses
+    # the pencil until the inner CholeskyQR2 returns an exactly-zero
+    # (finite) basis, which is absorbing (its residual reads 0, below any
+    # rebuild threshold). A basis is healthy iff all-finite and no column
+    # has underflowed; unhealthy zones restart from identity columns.
+    eye_nk = eye[:, :k].expand(z, n, k)
+
+    def basis_healthy(qz):
+        fin = torch.isfinite(qz).all(dim=-1).all(dim=-1)
+        cn = (qz * qz).sum(-2).min(-1).values
+        return fin & (cn > 1e-20)
+
+    healthy0 = basis_healthy(q_init)
+    q_init = torch.where(healthy0[:, None, None], q_init, eye_nk)
+    lam_init = torch.where(healthy0[:, None], lam_init, torch.zeros_like(lam_init))
+
+    if half_form:
+        def apply_a(x):
+            return A @ x + A.transpose(-1, -2) @ x
+
+        def apply_b(x):
+            return B @ x + B.transpose(-1, -2) @ x + reg * x
+
+        def b_full():
+            return B + B.transpose(-1, -2) + reg * eye
+    else:
+        b_l = B + reg * eye
+
+        def apply_a(x):
+            return A @ x
+
+        def apply_b(x):
+            return b_l @ x
+
+        def b_full():
+            return b_l
+
+    li = li_carry
+    if rebuild:
+        fresh = triangular_inverse(cholesky(b_full()))
+        li = torch.where(torch.isfinite(fresh), fresh, li_carry)
+
+    def small_solve(h):
+        if small_eigh == "jacobi":
+            return jacobi_eigh(h.contiguous(), jacobi_sweeps)
+        return eigh(h)
+
+    q, lam = q_init, lam_init
+    resid_rel = None
+    for _ in range(outer_steps):
+        aq = apply_a(q)
+        bq = apply_b(q)
+        res = aq - bq * lam[:, None, :]
+        if resid_rel is None:
+            # Staleness of the incoming Ritz pairs, from products already
+            # computed; a non-finite value maps to +inf (forces a rebuild).
+            num = res.float().square().sum((-2, -1))
+            den = aq.float().square().sum((-2, -1))
+            resid_rel = torch.sqrt(num / (den + torch.finfo(torch.float32).tiny)).max()
+            resid_rel = torch.where(
+                torch.isfinite(resid_rel), resid_rel, torch.full_like(resid_rel, torch.inf)
+            )
+        p = li.transpose(-1, -2) @ (li @ res)
+        if rr_basis == "direct":
+            # Rayleigh-Ritz on the raw basis [q, p] (the whitening of bbar
+            # below makes orthonormality unnecessary), reusing A q and B q;
+            # p is column-scaled so bbar stays balanced.
+            pn = torch.sqrt((p * p).sum(-2, keepdim=True))
+            p = p / (pn + torch.finfo(dtype).tiny)
+            s = torch.cat([q, p], dim=-1)
+            a_s = torch.cat([aq, apply_a(p)], dim=-1)
+            b_s = torch.cat([bq, apply_b(p)], dim=-1)
+        else:
+            s = _cholqr2(torch.cat([q, p], dim=-1))
+            a_s = apply_a(s)
+            b_s = apply_b(s)
+        st = s.transpose(-1, -2)
+        abar = _sym(st @ a_s)
+        bbar = _sym(st @ b_s)
+        kk = bbar.shape[-1]
+        eyek = torch.eye(kk, dtype=dtype, device=dev)
+        tr = torch.diagonal(bbar, dim1=-2, dim2=-1).sum(-1) / kk
+        # Trace-relative, dtype-scaled jitter: covers roundoff on warmup
+        # hops without biasing float64 eigenvalues.
+        jit_rel = 8.0 * torch.finfo(dtype).eps
+        bbar = bbar + (jit_rel * tr)[:, None, None] * eyek
+        lbar = cholesky(bbar)
+        libar = triangular_inverse(lbar)
+        wbar = _sym((libar @ abar) @ libar.transpose(-1, -2))
+        # Inner inexact solve: k-block power steps seeded from the X
+        # coordinates (the previous Ritz vectors span basis slots :k).
+        y = _cholqr2(lbar.transpose(-1, -2)[:, :, :k])
+        for _ in range(2):
+            y = _cholqr2(wbar @ y)
+        h = _sym(y.transpose(-1, -2) @ (wbar @ y))
+        d, v = small_solve(h)  # ascending
+        # Pencil coordinates, descending, c^T bbar c = I.
+        c = libar.transpose(-1, -2) @ (y @ v.flip(-1))
+        q = s @ c  # B-orthonormal Ritz vectors
+        lam = d.flip(-1)
+
+    u = q[..., :num_vectors]
+    dd = lam[..., :num_vectors]
+    bad_u = ~torch.isfinite(u)
+    bad_d = ~torch.isfinite(dd)
+    silenced = bad_u.sum(dtype=torch.int32) + bad_d.sum(dtype=torch.int32)
+    u = torch.where(bad_u, torch.zeros_like(u), u)
+    dd = torch.where(bad_d, torch.zeros_like(dd), dd)
+    # Carries self-heal: non-finite entries fall back to the incoming
+    # values, and a zone whose outgoing basis went degenerate falls back to
+    # the sanitized entry basis. (Li is healed inside the rebuild.)
+    q = torch.where(torch.isfinite(q), q, q_init)
+    lam = torch.where(torch.isfinite(lam), lam, torch.zeros_like(lam))
+    healthy1 = basis_healthy(q)
+    q = torch.where(healthy1[:, None, None], q, q_init)
+    lam = torch.where(healthy1[:, None], lam, lam_init)
+    # A degenerate hop must force the caller's rebuild: report +inf, not
+    # the zero residual of a zero basis.
+    resid_rel = torch.where(
+        healthy0.all() & healthy1.all(), resid_rel, torch.full_like(resid_rel, torch.inf)
+    )
+    return u, dd, q, lam, li, silenced, resid_rel

@@ -7,6 +7,7 @@ its kernel (``apvast_torch/csrc/*.cu``, built at first use) or raises,
 and adds one to its ``launches`` count.
 """
 
+from apvast_torch.ops.kernels.jacobi_eigh import jacobi_eigh, jacobi_eigh_plain
 from apvast_torch.ops.kernels.lag_corr import lag_corr, lag_corr_plain
 from apvast_torch.ops.kernels.output_filter import (
     circular_filter_overlap,
@@ -26,6 +27,7 @@ WRAPPERS = {
     "streaming_conv": streaming_conv,
     "lag_corr": lag_corr,
     "skew_assembly": lag_skew_assemble,
+    "jacobi_eigh": jacobi_eigh,
     "output_filter": circular_filter_overlap,
 }
 
@@ -43,6 +45,8 @@ __all__ = [
     "WRAPPERS",
     "circular_filter_overlap",
     "circular_filter_overlap_plain",
+    "jacobi_eigh",
+    "jacobi_eigh_plain",
     "lag_corr",
     "lag_corr_plain",
     "lag_skew_assemble",

@@ -30,7 +30,9 @@ import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
-KERNEL_SOURCES = ("streaming_conv", "lag_corr", "skew_assembly", "output_filter")
+KERNEL_SOURCES = (
+    "streaming_conv", "lag_corr", "skew_assembly", "jacobi_eigh", "output_filter",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

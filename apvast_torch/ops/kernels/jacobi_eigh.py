@@ -1,0 +1,154 @@
+"""K4: batched small symmetric eigensolver by cyclic parallel Jacobi.
+
+Kernel: ``apvast_torch/csrc/jacobi_eigh.cu``, replacing
+``apvast_tpu/ops/pallas/jacobi_eigh.py::jacobi_eigh``. The tracking GEVD
+solver calls it once per outer step on its (2, k, k) Rayleigh-Ritz
+matrices (k = 64 at the north star) with ``jacobi_sweeps=2``: far from
+converged, so the result depends on the rotation order, and the port
+keeps that order exactly: the padding to ``max(8, ceil8(n))`` slots, the
+round-robin tournament schedule, the angle formula with its sign rule and
+``1e-30`` guard, ``c = 1/sqrt(1 + t^2)``, the rotation-permutation matrix
+of every round, and the sort-free ranking with pad slots keyed to +inf and
+a first-index tie-break. Bound on the H100: latency (126 dependent rounds
+of an O(n^2) gather-and-rotate at n = 64; see the kernel's note).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from apvast_torch.ops.kernels import _build
+
+MAX_SLOTS = 128  # A and V of a padded matrix sit in one block's shared memory
+
+
+def tournament_schedule(n: int) -> np.ndarray:
+    """src[slot] = slot whose occupant rotates into ``slot`` each round
+    (the JAX function's schedule). Slots are paired (2i, 2i+1); slot 0 stays,
+    the rest walk a ring: top row left-to-right, bottom row right-to-left.
+    n - 1 rounds meet every index pair once and return to the identity
+    arrangement, which is asserted here."""
+    if n % 2:
+        raise ValueError("n must be even")
+    m = n // 2
+    ring = [2 * i for i in range(1, m)] + [2 * i + 1 for i in range(m - 1, -1, -1)]
+    src = np.arange(n)
+    for p in range(len(ring)):
+        src[ring[(p + 1) % len(ring)]] = ring[p]
+    occ = np.arange(n)
+    pairs = set()
+    for _ in range(n - 1):
+        pairs.update(
+            (min(occ[2 * i], occ[2 * i + 1]), max(occ[2 * i], occ[2 * i + 1]))
+            for i in range(m)
+        )
+        occ = occ[src]
+    assert len(pairs) == n * (n - 1) // 2 and np.array_equal(occ, np.arange(n)), (
+        "tournament schedule lost the covering property"
+    )
+    return src
+
+
+def padded_size(n: int) -> int:
+    """Slots of the Jacobi iteration for an (n, n) matrix: a multiple of 8,
+    at least 8 (the schedule depends on it)."""
+    return max(8, -(-n // 8) * 8)
+
+
+def _rank(w: torch.Tensor, n: int) -> torch.Tensor:
+    """Ascending position of every slot: ``#{j : k_j < k_i} + #{j < i :
+    k_j == k_i}`` with pad slots (index >= n) keyed to +inf."""
+    npad = w.shape[-1]
+    idx = torch.arange(npad, device=w.device)
+    keyed = torch.where(idx < n, w, torch.full_like(w, float("inf")))
+    ki, kj = keyed[:, :, None], keyed[:, None, :]
+    tie = (kj == ki) & (idx[None, :] < idx[:, None])[None]
+    return ((kj < ki) | tie).sum(-1)
+
+
+def jacobi_eigh_plain(a: torch.Tensor, sweeps: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The dense formula of the TPU kernel: every round builds the
+    rotation-permutation matrix M and applies A <- M^T A M, V <- V M as
+    batched matmuls. Shapes as :func:`jacobi_eigh`."""
+    bz, n, _ = a.shape
+    npad = padded_size(n)
+    dev = a.device
+    a = torch.nn.functional.pad(a.float(), (0, npad - n, 0, npad - n))
+    src = torch.as_tensor(tournament_schedule(npad), device=dev)
+    rows = torch.arange(npad, device=dev)[:, None]
+    srcb = src[None, :]  # src(c) per column
+    perm_d = (srcb == rows).float()
+    perm_u = ((srcb == rows + 1) & (rows % 2 == 0)).float()
+    perm_l = ((srcb == rows - 1) & (rows % 2 == 1)).float()
+    even = (torch.arange(npad, device=dev) % 2 == 0).float()
+    v = torch.eye(npad, device=dev).expand(bz, npad, npad)
+    for _ in range(sweeps):
+        for _ in range(npad - 1):
+            diag = torch.diagonal(a, dim1=-2, dim2=-1)
+            # a[2i, 2i+1] on the even slots, 0 on the odd ones.
+            apq = a[:, 0::2, 1::2].diagonal(dim1=-2, dim2=-1)
+            apq = torch.stack([apq, torch.zeros_like(apq)], -1).reshape(bz, npad)
+            theta = torch.roll(diag, -1, dims=-1) - diag
+            sg = torch.where(theta >= 0, 1.0, -1.0)
+            denom = theta.abs() + torch.sqrt(theta * theta + 4.0 * apq * apq) + 1e-30
+            t = 2.0 * apq * sg / denom
+            c = torch.rsqrt(1.0 + t * t)
+            s_e = t * c * even
+            c_e = c * even
+            s2 = (s_e + torch.roll(s_e, 1, dims=-1))[..., None]
+            c2 = (c_e + torch.roll(c_e, 1, dims=-1))[..., None]
+            m = perm_d * c2 + perm_u * s2 - perm_l * s2  # (bz, npad, npad)
+            a = m.transpose(-1, -2) @ (a @ m)
+            v = v @ m
+    w = torch.diagonal(a, dim1=-2, dim2=-1)
+    perm = (_rank(w, n)[:, :, None] == torch.arange(n, device=dev)).float()
+    # w (not keyed) is exactly zero at the pad slots, so the one-hot
+    # contraction never multiplies inf by 0.
+    w_out = torch.einsum("bi,bic->bc", w, perm)
+    v_out = (v @ perm)[:, :n, :]
+    return w_out, v_out
+
+
+_schedules: dict[tuple[int, torch.device], torch.Tensor] = {}
+
+
+def jacobi_eigh(a: torch.Tensor, sweeps: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Eigendecomposition of a batch of small symmetric float32 matrices.
+
+    Args:
+        a: (B, n, n) symmetric, n <= 128.
+        sweeps: full Jacobi sweeps (n_pad - 1 rounds each).
+
+    Returns:
+        ``(w (B, n), v (B, n, n))``: eigenvalues ascending, eigenvectors in
+        the columns of v, as ``torch.linalg.eigh`` orders them.
+    """
+    _build.check_input(a, "a", 3)
+    bz, n, n2 = a.shape
+    if n != n2 or n < 1:
+        raise ValueError(f"a must be a batch of square matrices, got {tuple(a.shape)}")
+    npad = padded_size(n)
+    if npad > MAX_SLOTS:
+        raise ValueError(f"n={n} pads to {npad} > {MAX_SLOTS} slots of shared memory")
+    if sweeps < 0:
+        raise ValueError("sweeps must be >= 0")
+    if a.device.type == "cpu":
+        return jacobi_eigh_plain(a, sweeps)
+    key = (npad, a.device)
+    if key not in _schedules:
+        _schedules[key] = torch.as_tensor(
+            tournament_schedule(npad), dtype=torch.int32, device=a.device
+        )
+    w = torch.empty((bz, n), dtype=torch.float32, device=a.device)
+    v = torch.empty((bz, n, n), dtype=torch.float32, device=a.device)
+    if bz:
+        _build.launch(
+            "jacobi_eigh", "jacobi_eigh_launch",
+            a, _schedules[key], w, v, bz, n, npad, sweeps,
+        )
+        jacobi_eigh.launches += 1
+    return w, v
+
+
+jacobi_eigh.launches = 0

@@ -1,8 +1,10 @@
-"""K3: lag tables -> source-major covariance rows (full form).
+"""K3: lag tables -> source-major covariance rows, full or half form.
 
 Kernel: ``apvast_torch/csrc/skew_assembly.cu``, replacing
-``apvast_tpu/ops/pallas/skew_assembly.py::lag_skew_assemble`` with
-``half_scaled=False`` (the half form comes with the tracking solver).
+``apvast_tpu/ops/pallas/skew_assembly.py::lag_skew_assemble`` in both
+forms: ``half_scaled=True`` writes the half matrix M with R = M + M^T
+(strict-upper-tap lanes zero, tap-diagonal lanes halved at write time),
+which the tracking solver consumes without a symmetric completion.
 Bound on the H100: bytes (the 10.24 MB output of the north-star shapes).
 The TPU kernel's sequential band recursion
 ``acc_a = shift_left(acc_{a-1}) + lhsT[a] . rhs`` unrolls into independent
@@ -20,11 +22,16 @@ from apvast_torch.ops.kernels import _build
 
 
 def lag_skew_assemble_plain(
-    lhs_t: torch.Tensor, rhs_sm: torch.Tensor, c0_sm: torch.Tensor, j: int
+    lhs_t: torch.Tensor,
+    rhs_sm: torch.Tensor,
+    c0_sm: torch.Tensor,
+    j: int,
+    half_scaled: bool = False,
 ) -> torch.Tensor:
     """The band recursion ``acc_0 = c0 + T_0``,
     ``acc_a = shift_left(acc_{a-1}) + T_a`` with ``T_a = lhsT[a] @ rhs``,
-    row band t1 = J-1-a = acc_a; strict-upper-tap lanes (t2 > t1) zeroed.
+    row band t1 = J-1-a = acc_a; strict-upper-tap lanes (t2 > t1) zeroed,
+    and with ``half_scaled`` the tap-diagonal lanes (t2 == t1) halved.
     Shapes as :func:`lag_skew_assemble`."""
     p, js1, c = lhs_t.shape
     s1 = js1 // j
@@ -40,11 +47,18 @@ def lag_skew_assemble_plain(
     t2 = torch.arange(w, device=lhs_t.device) % j
     t1 = torch.arange(j, device=lhs_t.device)
     upper = t2[None, :] > t1[:, None]  # (j, w)
-    return out.masked_fill(upper, 0.0)
+    out = out.masked_fill(upper, 0.0)
+    if half_scaled:
+        out = torch.where(t2[None, :] == t1[:, None], 0.5 * out, out)
+    return out
 
 
 def lag_skew_assemble(
-    lhs_t: torch.Tensor, rhs_sm: torch.Tensor, c0_sm: torch.Tensor, j: int
+    lhs_t: torch.Tensor,
+    rhs_sm: torch.Tensor,
+    c0_sm: torch.Tensor,
+    j: int,
+    half_scaled: bool = False,
 ) -> torch.Tensor:
     """Source-major lower-tap-triangle covariance rows.
 
@@ -54,10 +68,12 @@ def lag_skew_assemble(
         rhs_sm: (P, C, S2*J) — ``rhs_sm[p, c, s2*J + t2]`` = x2[c][J-1-t2].
         c0_sm: (P, S1, S2*J) — ``C0[p, s1, s2, J-1-t2]``.
         j: filter length J.
+        half_scaled: halve the tap-diagonal lanes (the half form M).
 
     Returns:
         (P, S1, J, S2*J): row band ``[p, s1, t1]`` is covariance row
-        (s1, t1), valid at lanes with t2 <= t1 and zero above.
+        (s1, t1), valid at lanes with t2 <= t1 and zero above; with
+        ``half_scaled`` the lanes t2 == t1 hold half of it.
     """
     _build.check_input(lhs_t, "lhs_t", 3)
     _build.check_input(rhs_sm, "rhs_sm", 3, lhs_t.device)
@@ -74,11 +90,11 @@ def lag_skew_assemble(
     if j * c * 4 > 227 * 1024:
         raise ValueError("J * C lhs rows exceed the block's shared memory")
     if lhs_t.device.type == "cpu":
-        return lag_skew_assemble_plain(lhs_t, rhs_sm, c0_sm, j)
+        return lag_skew_assemble_plain(lhs_t, rhs_sm, c0_sm, j, half_scaled)
     out = torch.empty((p, s1, j, w), dtype=torch.float32, device=lhs_t.device)
     _build.launch(
         "skew_assembly", "skew_assembly_launch",
-        lhs_t, rhs_sm, c0_sm, out, p, s1, j, c, w,
+        lhs_t, rhs_sm, c0_sm, out, p, s1, j, c, w, int(half_scaled),
     )
     lag_skew_assemble.launches += 1
     return out

@@ -42,16 +42,17 @@ def _c0_and_cross_fused(
 
 
 def covariance_via_lags_skew(
-    buf: torch.Tensor, d: torch.Tensor, j: int
+    buf: torch.Tensor, d: torch.Tensor, j: int, form: str = "full"
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Source-major lag statistics through the skew assembly, in full form
-    (R itself; the half form R = M + M^T comes with the tracking solver).
+    """Source-major lag statistics through the skew assembly.
 
     Args:
         buf: (4, M, S, N) weighted-response statistics buffers, the
             PYTHON-variant sample deletion already applied.
         d: (2, M, K) weighted target buffers aligned to the K frames.
         j: filter length J.
+        form: "full" returns R; "half" returns M with R = M + M^T (K3's
+            half form) and skips the symmetric completion pass.
 
     Returns:
         (r_mats (4, S*J, S*J), r_vecs (2, S*J)).
@@ -60,6 +61,8 @@ def covariance_via_lags_skew(
     k = n - j + 1
     if d.shape[-1] != k:
         raise ValueError(f"target buffer must have K={k} samples")
+    if form not in ("full", "half"):
+        raise ValueError(f"form must be 'full' or 'half', got {form!r}")
 
     c0, r_corr = _c0_and_cross_fused(buf, d, j)
     # c0 in output coordinates: c0_sm[p, s1, s2*J + t2] = c0[s1, s2, J-1-t2].
@@ -79,9 +82,12 @@ def covariance_via_lags_skew(
     rhs_sm = rhs.flip(-1).reshape(p4, 2 * m, s * j)
 
     low = lag_skew_assemble(
-        lhs_t.contiguous(), rhs_sm.contiguous(), c0_sm.contiguous(), j
+        lhs_t.contiguous(), rhs_sm.contiguous(), c0_sm.contiguous(), j,
+        half_scaled=(form == "half"),
     ).reshape(p4, s * j, s * j)
     r_vecs = r_corr.flip(-1).reshape(2, s * j)
+    if form == "half":
+        return low, r_vecs
     # Symmetric completion: valid values at t2 <= t1 within every source
     # block; R = R^T fills the strict upper-tap lanes.
     taps = torch.arange(s * j, device=buf.device) % j

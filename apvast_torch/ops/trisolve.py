@@ -1,0 +1,44 @@
+"""Triangular inversion (port of ``apvast_tpu/ops/trisolve.py``).
+
+``neumann_tri_inverse`` is the matmul-only inverse of a small lower
+factor, kept as written: CholeskyQR2 (``ops/jdiag._cholqr2``) uses it, and
+its zero-diagonal guard decides what a collapsed (silent) pencil gives.
+``triangular_inverse`` inverts a large Cholesky factor. The JAX function
+splits it into blocks to dodge the TPU's latency-bound substitution; on
+the card one batched ``solve_triangular`` against the identity is the
+same inverse (the JAX function's own path for blocks it cannot split).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def neumann_tri_inverse(l: torch.Tensor, refine: int = 2) -> torch.Tensor:
+    """Inverse of (batched) lower-triangular ``l`` by exact Neumann
+    doubling: L = D (I - M) with M strictly lower and nilpotent, so
+    (I - M)^-1 = prod_j (I + M^(2^j)); then ``refine`` Newton steps
+    X <- X + X (I - L X)."""
+    n = l.shape[-1]
+    eye = torch.eye(n, dtype=l.dtype, device=l.device)
+    d = torch.diagonal(l, dim1=-2, dim2=-1)
+    # An exact-zero diagonal (semi-definite input) would give inf * 0 = NaN
+    # in M; the guard keeps the result bounded.
+    dinv = 1.0 / torch.where(d == 0, torch.ones_like(d), d)
+    m = eye - dinv[..., :, None] * l
+    x = eye + m
+    p = m
+    for _ in range(max(0, (n - 1).bit_length() - 1)):
+        p = p @ p
+        x = x + x @ p
+    x = x * dinv[..., None, :]
+    for _ in range(refine):
+        x = x + x @ (eye - l @ x)
+    return x
+
+
+def triangular_inverse(chol: torch.Tensor) -> torch.Tensor:
+    """Inverse of a (batched) lower-triangular matrix."""
+    n = chol.shape[-1]
+    eye = torch.eye(n, dtype=chol.dtype, device=chol.device)
+    return torch.linalg.solve_triangular(chol, eye.expand_as(chol), upper=False)

@@ -15,7 +15,12 @@ import torch
 
 from apvast_torch import config as cfg_mod
 from apvast_torch.engine.plan import ApVastPlan
-from apvast_torch.engine.state import ApVastState, state_shapes
+from apvast_torch.engine.state import (
+    ApVastState,
+    TrackingState,
+    state_shapes,
+    tracking_shapes,
+)
 from apvast_torch.utils.device import resolve_device, torch_dtype
 
 _ENUM_FIELDS = {
@@ -27,33 +32,19 @@ _ENUM_FIELDS = {
     "perceptual_frontend": cfg_mod.PerceptualFrontend,
     "gevd_solver": cfg_mod.GevdSolver,
 }
-_SLICE_2 = "slice 2 of the port (the tracking subspace solver)"
+_WHITEN = "the 'invert'/'newton' subspace solvers, a later slice of the port"
 _FD = "the frequency-domain engine, a later slice of the port"
 _MATLAB = "MATLAB regularization, a later slice of the port"
 # JAX config fields that no ported path reads yet: the values the port
-# accepts for each, and the slice that brings it. The solver's knobs are
-# accepted at their JAX default and at the value of JAX's
-# production_overrides("tpu"); the JAX engine reads neither under
-# GevdSolver.EIGH, this slice's solver.
+# accepts for each, and the slice that brings it. The power-iteration
+# knobs of the 'invert'/'newton' solvers are accepted at their JAX
+# default and at the value of JAX's production_overrides("tpu"); the
+# tracking solver does not read them.
 UNPORTED_FIELDS = {
     "bright_loading": ((1e-8,), _MATLAB),
     "dark_loading": ((5e-3,), _MATLAB),
-    "subspace_oversample": ((30, 14), _SLICE_2),
-    "subspace_iters": ((3, 2), _SLICE_2),
-    "subspace_orth": (("cholqr2",), _SLICE_2),
-    "subspace_whiten": (("invert", "tracking"), _SLICE_2),
-    "tracking_outer_steps": ((2, 1), _SLICE_2),
-    "tracking_rebuild_period": ((4, 32), _SLICE_2),
-    "tracking_warmup_hops": ((4, 6), _SLICE_2),
-    "tracking_li_bf16": ((False,), _SLICE_2),
-    "tracking_residual_precision": (("high",), _SLICE_2),
-    "tracking_residual_rebuild": ((0.0, 2.5), _SLICE_2),
-    "tracking_rr_basis": (("cholqr2", "direct"), _SLICE_2),
-    "statistics_half_form": ((False, True), _SLICE_2),
-    "small_eigh": (("lapack", "jacobi"), _SLICE_2),
-    "jacobi_sweeps": ((4, 2), _SLICE_2),
-    "use_pallas_subspace": ((False,), _SLICE_2),
-    "use_pallas_whiten": ((False,), _SLICE_2),
+    "subspace_iters": ((3, 2), _WHITEN),
+    "subspace_orth": (("cholqr2",), _WHITEN),
     "fd_frame_taps": ((1,), _FD),
     "fd_bin_coupling": ((1,), _FD),
     "fd_eigh": (("lapack",), _FD),
@@ -79,20 +70,22 @@ _SUBSPACE_STATE = ("gevd_q", "gevd_minv", "gevd_lam", "gevd_hop", "gevd_resid")
 def config_from_jax(fields: dict) -> cfg_mod.ApVastConfig:
     """A port config from the field dict of a JAX ``ApVastConfig``
     (``dataclasses.asdict(jax_config)``). Enum members are matched by
-    value; an unknown field raises ``ValueError``, and a field of
-    :data:`UNPORTED_FIELDS` at another value than those it lists raises
-    ``NotImplementedError`` naming the slice that brings it."""
+    value; an unknown field raises ``ValueError``; a value of
+    ``config.NOT_RUN``, or a field of :data:`UNPORTED_FIELDS` at another
+    value than those it lists, raises ``NotImplementedError`` naming the
+    slice that brings it."""
     known = {f.name for f in dataclasses.fields(cfg_mod.ApVastConfig)}
     unknown = set(fields) - known - set(UNPORTED_FIELDS)
     if unknown:
         raise ValueError(f"fields the port's config does not have: {sorted(unknown)}")
+    cfg_mod.check_not_run(fields)
     kwargs = {}
     for name, value in fields.items():
         if name in UNPORTED_FIELDS:
             accepted, where = UNPORTED_FIELDS[name]
             if value not in accepted:
                 raise NotImplementedError(
-                    f"{name}={value!r} is read by {where}; this slice "
+                    f"{name}={value!r} is read by {where}; the port "
                     f"takes it only at {accepted}"
                 )
             continue
@@ -167,22 +160,41 @@ def state_from_numpy(
     config: cfg_mod.ApVastConfig, arrays: dict, device=None
 ) -> ApVastState:
     """A port state from the leaves of a JAX ``ApVastState`` as NumPy arrays,
-    e.g. to continue a stream part-way through."""
+    e.g. to continue a stream part-way through. The tracking solver's
+    carry (``gevd_*``) is required for a tracking config and refused for
+    any other."""
     device = resolve_device(device)
     dtype = torch_dtype(config)
-    for name in _SUBSPACE_STATE:
-        if arrays.get(name) is not None:
-            raise NotImplementedError(
-                f"state field {name} belongs to the subspace solvers, "
-                "slice 2 of the port"
-            )
+    tracking = tracking_shapes(config)
+    if not tracking:
+        for name in _SUBSPACE_STATE:
+            if arrays.get(name) is not None:
+                if config.gevd_solver is cfg_mod.GevdSolver.SUBSPACE:
+                    raise NotImplementedError(
+                        f"state field {name} of subspace_whiten="
+                        f"{config.subspace_whiten!r} belongs to {_WHITEN}"
+                    )
+                raise ValueError(f"state field {name} belongs to no solver of this config")
     shapes = state_shapes(config)
     unknown = set(arrays) - set(shapes) - set(_SUBSPACE_STATE)
     if unknown:
         raise ValueError(f"state arrays the port does not have: {sorted(unknown)}")
-    return ApVastState(
+    carry = {}
+    for name, shape in tracking.items():
+        if name == "gevd_hop":
+            if arrays.get(name) is None:
+                raise ValueError("gevd_hop is required")
+            hop = np.asarray(arrays[name])
+            if hop.shape != ():
+                raise ValueError(f"gevd_hop: shape {hop.shape} != ()")
+            carry[name] = int(hop)
+        else:
+            dt = torch.float32 if name == "gevd_resid" else dtype
+            carry[name] = _tensor(name, arrays.get(name), shape, device, dt)
+    return (TrackingState if carry else ApVastState)(
         **{
             name: _tensor(name, arrays.get(name), shape, device, dtype)
             for name, shape in shapes.items()
-        }
+        },
+        **carry,
     )

@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py            # phases 0-3, needs one CUDA card
     python3 chip_smoke.py --profile  # also phase 4: a torch.profiler
-                                     # breakdown of 8 steady-state hops
+                                     # breakdown of 32 steady-state hops
 
 Phase 0  environment: card name and power limit, torch/CUDA versions,
          TF32 off for matmuls and cuDNN.
@@ -11,21 +11,38 @@ Phase 1  build: every kernel of apvast_torch/csrc with nvcc (one process
 Phase 2  each kernel against its plain PyTorch version on the card, at the
          north-star shapes and at ragged small shapes:
          max|kernel - plain| / max|plain| <= 1e-4 (fp32 sums taken in
-         another order). Times by CUDA events after warm-up, with the 50 MB
-         L2 flushed (a 64 MB read) before every launch; the bound is the
-         larger of bytes over 3.35 TB/s and fp32 operations over
-         67 TFLOP/s (H100 SXM published peaks).
-Phase 4  (``--profile``) device time by kernel and by stage over 8
-         steady-state hops, and the device's idle share.
-Phase 3  the slice's main path: ``ApVast`` on ``scale_scene(16)`` under
-         ``slice_overrides()`` (production config with the exact GEVD
-         solver) for 48 hops on the card, input and initial noise from a
-         seed. Checks every kernel ran once per hop, ``silenced == 0``,
-         finite outputs of the right shapes, and agreement of the first 8
-         hops with the same run on the CPU (plain versions): statistics
-         (R, r) to 1e-4 of their scale, target feeds to 1e-4 and loudspeaker
-         feeds to 5e-2 of the signal scale (the exact GEVD amplifies
-         summation-order noise of near-degenerate pencils).
+         another order). K3 in both forms; K4 at (2, 64, 64) with 2 sweeps
+         on a warm-start-like (near-diagonal) input and with 8 sweeps on a
+         cold random one (eigenvector columns compared up to sign: a
+         converged column's sign is the rotation history's choice). Times
+         by CUDA events after warm-up, with the 50 MB L2 flushed (a 64 MB
+         read) before every launch; the bound is the larger of bytes over
+         3.35 TB/s and fp32 operations over 67 TFLOP/s (H100 SXM published
+         peaks).
+Phase 3  the main path, ``ApVast`` on ``scale_scene(16)`` for 64 hops (two
+         rebuild periods) on the card, input and initial noise from a seed,
+         in two configurations:
+         production ``production_overrides()`` (the tracking GEVD solver
+                    with K4, half-form K3): K1-K5 each launched once per
+                    hop, ``silenced == 0``, the rebuild count and residual
+                    range, and each of the first 8 hops against the same
+                    hop on the CPU (plain versions) from the card's state:
+                    half-form statistics (M, r) to 1e-4 of their scale,
+                    target feeds to 1e-4, loudspeaker feeds to 5e-2 of
+                    signal scale. (Free-running, 2 unconverged Jacobi sweeps
+                    let rounding pick between +-45 degree rotations, so the
+                    comparison starts every hop from one state.)
+         exact      ``production_overrides() | {gevd_solver: EIGH}``: K1,
+                    K2, K3 (full form) and K5 once per hop, no K4, and the
+                    first 8 hops against a free-running CPU run with the
+                    same tolerances (R in full form).
+         Contrast gate: acoustic contrast of zone A over hops 7-64 at rank 1
+         and rank V (= 50), computed with ``apvast_torch.evaluation``; the
+         production path must be within 0.25 dB of the exact path at both
+         ranks (the JAX package's gate, tools/tracking_gate.py).
+Phase 4  (``--profile``) device time by kernel and by stage over 32
+         steady-state hops of the production path (one rebuild period),
+         and the device's idle share.
 
 The last line of output is ``{"ok": true, "device": {...}}``; any failure
 exits non-zero before it.
@@ -34,6 +51,7 @@ exits non-zero before it.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -48,8 +66,11 @@ TOL_KERNEL = 1e-4
 TOL_STATS = 1e-4
 TOL_TARGET = 1e-4
 TOL_FEEDS = 5e-2
-HOPS = 48
+TOL_CONTRAST_DB = 0.25
+HOPS = 64
 CPU_HOPS = 8
+TAIL_FROM = 6  # contrast over hops 7-64 (0-based 6-63)
+PROFILE_HOPS = 32
 SEED = 20261016
 
 
@@ -93,6 +114,30 @@ def _check(name: str, rel: float, tol: float) -> None:
         raise AssertionError(f"{name}: relative error {rel:.3e} > {tol:.0e}")
 
 
+def _errs(got, want, up_to_sign=False):
+    """[(max abs, relative)] per output; ``up_to_sign`` matches the sign of
+    each eigenvector column (the second output) to the plain version's."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    if up_to_sign:
+        sign = torch.sign((got[1] * want[1]).sum(-2, keepdim=True))
+        got = (got[0], got[1] * torch.where(sign == 0, 1.0, sign))
+    return [_rel(a, b) for a, b in zip(got, want)]
+
+
+def _warm(g, dev, b, n):
+    """A warm-start-like Rayleigh-Ritz matrix: spread diagonal plus a small
+    symmetric perturbation."""
+    e = 1e-2 * torch.randn((b, n, n), generator=g)
+    d = torch.diag_embed(torch.linspace(-3.0, 5.0, n).repeat(b, 1))
+    return (d + (e + e.transpose(1, 2)) / 2).to(dev).contiguous()
+
+
+def _cold(g, dev, b, n):
+    x = torch.randn((b, n, n), generator=g)
+    return ((x + x.transpose(1, 2)) / 2).to(dev).contiguous()
+
+
 def phase2(scene, dev, card):
     from apvast_torch.engine.plan import build_plan
     from apvast_torch.ops import kernels as K
@@ -129,6 +174,12 @@ def phase2(scene, dev, card):
 
     # K3 skew assembly: lhsT (4, J*S, 2M), rhs (4, 2M, S*J), c0 (4, S, S*J).
     lhs3, rhs3, c03 = rnd(4, j * s, 2 * m), rnd(4, 2 * m, s * j), rnd(4, s, s * j)
+
+    # K4 Jacobi: the tracking solver's (2, k, k) Rayleigh-Ritz matrices,
+    # k = V + oversample = 64, 2 sweeps (production_overrides()).
+    k4 = min(v + 14, cfg.jl)
+    npad = -(-k4 // 8) * 8
+    h_warm, h_cold = _warm(g, dev, 2, k4), _cold(g, dev, 2, k4)
 
     # K5 output filter: windowed block (2, block), V*S filter rows.
     x5 = (plan.window * rnd(2, block)).contiguous()
@@ -172,15 +223,50 @@ def phase2(scene, dev, card):
             name="skew_assembly", route="cuda",
             source="apvast_torch/csrc/skew_assembly.cu",
             replaces="apvast_tpu/ops/pallas/skew_assembly.py:118",
-            kernel=lambda: K.lag_skew_assemble(lhs3, rhs3, c03, j),
-            plain=lambda: K.lag_skew_assemble_plain(lhs3, rhs3, c03, j),
+            # The main path's form is the half form; the full form (the
+            # exact path's) is checked and timed beside it.
+            kernel=lambda: K.lag_skew_assemble(lhs3, rhs3, c03, j, half_scaled=True),
+            plain=lambda: K.lag_skew_assemble_plain(lhs3, rhs3, c03, j, half_scaled=True),
             library=None,
             flops=2 * 4 * (j * s) * (2 * m) * (s * j),
             bytes=4 * (lhs3.numel() + rhs3.numel() + c03.numel() + 4 * s * j * s * j),
             ragged=[
-                (lambda a, b, c: K.lag_skew_assemble(a, b, c, 9),
-                 lambda a, b, c: K.lag_skew_assemble_plain(a, b, c, 9),
-                 (rnd(4, 9 * 5, 6), rnd(4, 6, 5 * 9), rnd(4, 5, 5 * 9))),
+                (lambda a, b, c, hf=hf: K.lag_skew_assemble(a, b, c, 9, half_scaled=hf),
+                 lambda a, b, c, hf=hf: K.lag_skew_assemble_plain(a, b, c, 9, half_scaled=hf),
+                 (rnd(4, 9 * 5, 6), rnd(4, 6, 5 * 9), rnd(4, 5, 5 * 9)))
+                for hf in (False, True)
+            ] + [
+                (lambda a, b, c: K.lag_skew_assemble(a, b, c, 3, half_scaled=True),
+                 lambda a, b, c: K.lag_skew_assemble_plain(a, b, c, 3, half_scaled=True),
+                 (rnd(2, 33 * 3, 4), rnd(2, 4, 33 * 3), rnd(2, 33, 99))),
+            ],
+            extra=[
+                dict(label="full_form",
+                     kernel=lambda: K.lag_skew_assemble(lhs3, rhs3, c03, j),
+                     plain=lambda: K.lag_skew_assemble_plain(lhs3, rhs3, c03, j)),
+            ],
+        ),
+        dict(
+            name="jacobi_eigh", route="cuda",
+            source="apvast_torch/csrc/jacobi_eigh.cu",
+            replaces="apvast_tpu/ops/pallas/jacobi_eigh.py:158",
+            kernel=lambda: K.jacobi_eigh(h_warm, 2),
+            plain=lambda: K.jacobi_eigh_plain(h_warm, 2),
+            library=lambda: torch.linalg.eigh(h_warm),
+            # Per round: 6 flops per entry of A (two 2-term combinations),
+            # 3 per entry of V; (npad - 1) rounds per sweep.
+            flops=2 * 2 * (npad - 1) * 9 * npad * npad,
+            bytes=4 * (2 * k4 * k4 + 2 * k4 * k4 + 2 * k4),
+            ragged=[
+                (lambda a: K.jacobi_eigh(a, 2), lambda a: K.jacobi_eigh_plain(a, 2),
+                 (_warm(g, dev, 3, 10),)),
+                (lambda a: K.jacobi_eigh(a, 2), lambda a: K.jacobi_eigh_plain(a, 2),
+                 (_warm(g, dev, 5, 37),)),
+            ],
+            extra=[
+                dict(label="cold_8_sweeps", up_to_sign=True,
+                     kernel=lambda: K.jacobi_eigh(h_cold, 8),
+                     plain=lambda: K.jacobi_eigh_plain(h_cold, 8)),
             ],
         ),
         dict(
@@ -205,21 +291,25 @@ def phase2(scene, dev, card):
     ]
 
     for c in cases:
-        got, want = c["kernel"](), c["plain"]()
+        errs = _errs(c["kernel"](), c["plain"]())
         torch.cuda.synchronize()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        errs = [_rel(a, b) for a, b in zip(got, want)]
         max_abs = max(e[0] for e in errs)
         rel = max(e[1] for e in errs)
         _check(c["name"] + " (north-star shape)", rel, TOL_KERNEL)
         for kfn, pfn, args in c["ragged"]:
-            rg, rw = kfn(*args), pfn(*args)
-            rg = rg if isinstance(rg, tuple) else (rg,)
-            rw = rw if isinstance(rw, tuple) else (rw,)
             shapes = [tuple(a.shape) for a in args]
-            for a, b in zip(rg, rw):
-                _check(f"{c['name']} (ragged {shapes})", _rel(a, b)[1], TOL_KERNEL)
+            for _, r in _errs(kfn(*args), pfn(*args)):
+                _check(f"{c['name']} (ragged {shapes})", r, TOL_KERNEL)
+        extra_ms = {}
+        for x in c.get("extra", []):
+            x_errs = _errs(x["kernel"](), x["plain"](), x.get("up_to_sign", False))
+            x_rel = max(e[1] for e in x_errs)
+            _check(f"{c['name']} ({x['label']})", x_rel, TOL_KERNEL)
+            x_ms = _time_ms(x["kernel"], 50, flush)
+            extra_ms["ms_" + x["label"]] = x_ms
+            print(f"[phase 2] {c['name']} {x['label']}: rel_err={x_rel:.3e} "
+                  f"max_abs_err={max(e[0] for e in x_errs):.3e} "
+                  f"kernel_ms={x_ms:.5f} card={card}", flush=True)
         kernel_ms = _time_ms(c["kernel"], 50, flush)
         plain_ms = _time_ms(c["plain"], 10, flush)
         library_ms = _time_ms(c["library"], 50, flush) if c["library"] else None
@@ -239,7 +329,7 @@ def phase2(scene, dev, card):
             name=c["name"], route=c["route"], source=c["source"],
             replaces=c["replaces"], launches=0, max_abs_err=max_abs,
             ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by=bound_by, library_ms=library_ms,
+            bound_by=bound_by, library_ms=library_ms, **extra_ms,
         ))
     return results
 
@@ -252,8 +342,8 @@ def _noise(cfg, rng):
     )
 
 
-def _model(scene, device, noise):
-    from apvast_torch import ApVast, slice_overrides
+def _model(scene, device, noise, overrides):
+    from apvast_torch import ApVast
 
     c = scene.config
     return ApVast(
@@ -261,19 +351,47 @@ def _model(scene, device, noise):
         c.modeling_delay, c.reference_index_a, c.reference_index_b,
         c.num_eigenvectors, c.mu, c.statistics_buffer_length,
         sampling_rate=c.sampling_rate, perceptual=c.perceptual,
-        device=device, response_noise=noise, **slice_overrides(),
+        device=device, response_noise=noise, **overrides,
     )
 
 
-def phase3(scene, dev, card, results):
-    from apvast_torch.engine import hop_statistics
+def _to(state, device):
+    """A copy of a hop state on ``device``."""
+    return dataclasses.replace(state, **{
+        f.name: getattr(state, f.name).to(device)
+        for f in dataclasses.fields(state)
+        if isinstance(getattr(state, f.name), torch.Tensor)
+    })
+
+
+def _compare(label, name, got, want, tol):
+    rel = _rel(got, want)[1]
+    print(f"[phase 3] {label} {name}: rel_err={rel:.3e}", flush=True)
+    _check(f"{label} {name}", rel, tol)
+
+
+def _contrast(scene, tail_a):
+    """Zone-A acoustic contrast (dB) of each rank's tail feeds."""
+    from apvast_torch.evaluation import acoustic_contrast_db, predict_pressure
+
+    feeds = torch.cat(tail_a, dim=1).double()  # (ranks, T, srcs)
+    bright = predict_pressure(feeds, scene.rir_a)
+    dark = predict_pressure(feeds, scene.rir_b)
+    return [float(x) for x in acoustic_contrast_db(bright, dark)]
+
+
+def drive(scene, dev, card, label, overrides, want_counts, sig, noise):
+    """HOPS hops of one configuration on the card: launch counts, health,
+    steady-state time, the first CPU_HOPS hops against the CPU, and the
+    zone-A tail feeds at rank 1 and rank V for the contrast."""
+    from apvast_torch.config import uses_tracking_solver
+    from apvast_torch.engine import build_plan, hop_statistics, process_hop
+    from apvast_torch.engine.hop import half_form
     from apvast_torch.ops import kernels as K
 
-    rng = np.random.default_rng(SEED)
-    noise = _noise(scene.config, rng)
-    model = _model(scene, dev, noise)
+    model = _model(scene, dev, noise, overrides)
     cfg = model.config
-    sig = rng.standard_normal((2, HOPS * cfg.hop)).astype(np.float32)
+    tracking = uses_tracking_solver(cfg)
     hops_a = torch.as_tensor(sig[0]).reshape(HOPS, cfg.hop)
     hops_b = torch.as_tensor(sig[1]).reshape(HOPS, cfg.hop)
     hops_a_dev, hops_b_dev = hops_a.to(dev), hops_b.to(dev)
@@ -281,76 +399,133 @@ def phase3(scene, dev, card, results):
     torch.cuda.synchronize()
 
     K.reset_launch_counts()
-    first, state8 = [], None
+    states, outs, resid, tail_a = [model.state], [], [], []
     t_first = time.perf_counter()
-    for i in range(CPU_HOPS):
-        first.append(model.process_input_buffers(hops_a_dev[i], hops_b_dev[i]))
-    state8 = model.state
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    last = None
-    for i in range(CPU_HOPS, HOPS):
-        last = model.process_input_buffers(hops_a_dev[i], hops_b_dev[i])
+    for i in range(HOPS):
+        if i == CPU_HOPS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        out = model.process_input_buffers(hops_a_dev[i], hops_b_dev[i])
+        if i < CPU_HOPS:
+            outs.append(out)
+            states.append(model.state)
+        if tracking:
+            resid.append(model.state.gevd_resid)
+        if i >= TAIL_FROM:
+            tail_a.append(out[0][:: v - 1])  # a view of ranks 1 and V
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     counts = K.launch_counts()
-    print(f"[phase 3] launches over {HOPS} hops: {counts}", flush=True)
-    for name, n in counts.items():
-        if n != HOPS:
-            raise AssertionError(f"{name} launched {n} times in {HOPS} hops, want {HOPS}")
-    for r in results:
-        r["launches"] = counts[r["name"]]
+    print(f"[phase 3] {label}: launches over {HOPS} hops: {counts}", flush=True)
+    if counts != want_counts:
+        raise AssertionError(f"{label}: launches {counts}, want {want_counts}")
     silenced = int(model.silenced.item())
     if silenced != 0:
-        raise AssertionError(f"silenced = {silenced}")
-    for out in (*first, last):
-        for t, shape in zip(out, [(v, cfg.hop, s)] * 4):
-            if tuple(t.shape) != shape or not torch.isfinite(t).all():
-                raise AssertionError(f"bad output: shape {tuple(t.shape)}")
+        raise AssertionError(f"{label}: silenced = {silenced}")
+    for out in (*outs, out):
+        for t in out:
+            if tuple(t.shape) != (v, cfg.hop, s) or not torch.isfinite(t).all():
+                raise AssertionError(f"{label}: bad output, shape {tuple(t.shape)}")
     ms_hop = (t1 - t0) / (HOPS - CPU_HOPS) * 1e3
     print(
-        f"[phase 3] scale_scene(16) slice config: {HOPS} hops, silenced=0, "
-        f"first {CPU_HOPS} hops {(t0 - t_first) * 1e3 / CPU_HOPS:.3f} ms/hop, "
-        f"steady state {ms_hop:.3f} ms/hop over hops {CPU_HOPS + 1}-{HOPS} "
+        f"[phase 3] {label}: scale_scene(16), {HOPS} hops, silenced=0, half_form="
+        f"{half_form(cfg)}, first {CPU_HOPS} hops {(t0 - t_first) * 1e3 / CPU_HOPS:.3f} "
+        f"ms/hop, steady state {ms_hop:.3f} ms/hop over hops {CPU_HOPS + 1}-{HOPS} "
         f"(host clock, synchronized) card={card}",
         flush=True,
     )
+    if tracking:
+        r = torch.stack(resid).cpu()
+        print(f"[phase 3] {label}: {model.rebuilds} preconditioner rebuilds in {HOPS} hops; "
+              f"gevd_resid min {float(r.min()):.4f} max {float(r.max()):.4f} "
+              f"(hops 1-{HOPS}), hops {CPU_HOPS + 1}-{HOPS}: min "
+              f"{float(r[CPU_HOPS:].min()):.4f} max {float(r[CPU_HOPS:].max()):.4f}", flush=True)
 
-    # The same first hops through the port on the CPU (plain versions).
+    # The first hops through the port on the CPU (plain versions): from the
+    # card's state hop by hop under the tracking solver, free-running under
+    # the exact one.
     t2 = time.perf_counter()
-    cpu = _model(scene, "cpu", noise)
-    cpu_first = [
-        cpu.process_input_buffers(hops_a[i], hops_b[i]) for i in range(CPU_HOPS)
-    ]
-    r_gpu = hop_statistics(cfg, state8.wresp_stat, state8.wtarget_stat)
-    r_cpu = hop_statistics(cfg, cpu.state.wresp_stat, cpu.state.wtarget_stat)
-    for name, a, b in zip(("R", "r"), r_gpu, r_cpu):
-        rel = _rel(a.cpu(), b)[1]
-        print(f"[phase 3] hop {CPU_HOPS} statistics {name}: rel_err={rel:.3e}", flush=True)
-        _check(f"statistics {name}", rel, TOL_STATS)
+    if tracking:
+        plan = build_plan(cfg, scene.rir_a, scene.rir_b, "cpu")
+        cpu_outs = []
+        for i in range(CPU_HOPS):
+            cpu_state, o = process_hop(cfg, plan, _to(states[i], "cpu"), hops_a[i], hops_b[i])
+            cpu_outs.append((o.out_a, o.out_b, o.out_a_t, o.out_b_t))
+            for name, a, b in zip(
+                ("M", "r"),
+                hop_statistics(cfg, states[i + 1].wresp_stat, states[i + 1].wtarget_stat),
+                hop_statistics(cfg, cpu_state.wresp_stat, cpu_state.wtarget_stat),
+            ):
+                _check(f"{label} hop {i + 1} statistics {name}", _rel(a.cpu(), b)[1], TOL_STATS)
+        print(f"[phase 3] {label}: statistics (M, r) of hops 1-{CPU_HOPS} within "
+              f"{TOL_STATS:.0e} of the CPU", flush=True)
+    else:
+        cpu = _model(scene, "cpu", noise, overrides)
+        cpu_outs = [cpu.process_input_buffers(hops_a[i], hops_b[i]) for i in range(CPU_HOPS)]
+        for name, a, b in zip(
+            ("R", "r"),
+            hop_statistics(cfg, states[-1].wresp_stat, states[-1].wtarget_stat),
+            hop_statistics(cfg, cpu.state.wresp_stat, cpu.state.wtarget_stat),
+        ):
+            _compare(label, f"hop {CPU_HOPS} statistics {name}", a.cpu(), b, TOL_STATS)
     for f, name in enumerate(("out_a", "out_b", "out_a_t", "out_b_t")):
-        g = torch.stack([o[f] for o in first]).cpu()
-        c = torch.stack([o[f] for o in cpu_first])
-        rel = _rel(g, c)[1]
+        g = torch.stack([o[f] for o in outs]).cpu()
+        c = torch.stack([o[f].expand_as(g[0]) for o in cpu_outs])
         per_hop = [f"{_rel(g[i], c[i])[1]:.1e}" for i in range(CPU_HOPS)]
-        print(f"[phase 3] {name} vs CPU, hops 1-{CPU_HOPS}: rel_err={rel:.3e} "
-              f"(per hop {per_hop})", flush=True)
-        _check(f"{name} vs CPU", rel, TOL_TARGET if name.endswith("_t") else TOL_FEEDS)
-    print(f"[phase 3] CPU comparison took {time.perf_counter() - t2:.1f} s", flush=True)
-    return model, hops_a_dev, hops_b_dev, ms_hop
+        print(f"[phase 3] {label} {name} vs CPU, hops 1-{CPU_HOPS}: per hop {per_hop}",
+              flush=True)
+        _check(f"{label} {name} vs CPU", _rel(g, c)[1],
+               TOL_TARGET if name.endswith("_t") else TOL_FEEDS)
+    print(f"[phase 3] {label}: CPU comparison took {time.perf_counter() - t2:.1f} s", flush=True)
+    contrast = _contrast(scene, tail_a)
+    print(f"[phase 3] {label}: zone-A contrast over hops {TAIL_FROM + 1}-{HOPS}: rank 1 "
+          f"{contrast[0]:.4f} dB, rank {v} {contrast[1]:.4f} dB", flush=True)
+    return model, hops_a_dev, hops_b_dev, ms_hop, counts, contrast
+
+
+def phase3(scene, dev, card, results):
+    from apvast_torch import GevdSolver, production_overrides
+    from apvast_torch.ops import kernels as K
+
+    rng = np.random.default_rng(SEED)
+    noise = _noise(scene.config, rng)
+    sig = rng.standard_normal((2, HOPS * scene.config.hop)).astype(np.float32)
+    all_once = {name: HOPS for name in K.WRAPPERS}
+    prod = drive(scene, dev, card, "production", production_overrides(), all_once, sig, noise)
+    for r in results:
+        r["launches"] = prod[4][r["name"]]
+    exact = drive(
+        scene, dev, card, "exact", production_overrides() | {"gevd_solver": GevdSolver.EIGH},
+        all_once | {"jacobi_eigh": 0}, sig, noise,
+    )
+    for rank, p, e in zip((1, scene.config.num_eigenvectors), prod[5], exact[5]):
+        delta = p - e
+        print(f"[phase 3] contrast gate rank {rank}: production {p:.4f} dB, exact {e:.4f} dB, "
+              f"delta {delta:+.4f} dB (limit {TOL_CONTRAST_DB} dB)", flush=True)
+        if not abs(delta) <= TOL_CONTRAST_DB:
+            raise AssertionError(f"contrast gate failed at rank {rank}: {delta:+.4f} dB")
+    print(f"[phase 3] steady state: production {prod[3]:.3f} ms/hop, exact {exact[3]:.3f} "
+          f"ms/hop card={card}", flush=True)
+    return prod[:4]
 
 
 def phase4(model, hops_a, hops_b, card, wall_ms_hop):
-    """Device time by kernel over 8 steady-state hops, and the device's
-    idle share against the unprofiled steady-state hop time."""
+    """Device time by kernel and by stage over PROFILE_HOPS steady-state hops
+    of the production path (one rebuild period), and the device's idle
+    share against the unprofiled steady-state hop time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    n = 8
+    from apvast_torch.ops import kernels as K
+
+    n = PROFILE_HOPS
+    jl = model.config.jl
+    rebuilds = model.rebuilds
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         for i in range(n):
-            model.process_input_buffers(hops_a[i], hops_b[i])
+            model.process_input_buffers(hops_a[i % HOPS], hops_b[i % HOPS])
         torch.cuda.synchronize()
     rows = sorted(
         (
@@ -360,25 +535,38 @@ def phase4(model, hops_a, hops_b, card, wall_ms_hop):
         ),
         reverse=True,
     )
-    busy_ms = sum(r[0] for r in rows) / n / 1e3
-    print(f"[phase 4] kernel time {busy_ms:.3f} ms/hop over {n} hops "
-          f"({sum(r[2] for r in rows) // n} kernels/hop); idle share "
+    busy_ms = max(sum(r[0] for r in rows) / n / 1e3, 1e-9)
+    print(f"[phase 4] production path, hops {HOPS + 1}-{HOPS + n} "
+          f"({model.rebuilds - rebuilds} preconditioner rebuilds): kernel time "
+          f"{busy_ms:.3f} ms/hop ({sum(r[2] for r in rows) // n} kernels/hop); idle share "
           f"{1 - busy_ms / wall_ms_hop:.3f} of the {wall_ms_hop:.3f} ms/hop "
           f"steady state; card={card}", flush=True)
-    # Device time by stage: the kernels each library op launched, and the
-    # four port kernels by name; "other" is the elementwise rest.
-    averages = prof.key_averages()
+    # Device time by stage: the kernels each library op launched (the
+    # (2, JL, JL) factorization of a rebuild apart from the small ones of
+    # every hop), and the five port kernels by name; "other" is the
+    # elementwise rest.
+    by_shape = prof.key_averages(group_by_input_shape=True)
 
-    def op_ms(*keys):
-        return sum(e.device_time_total for e in averages if e.key in keys) / n / 1e3
+    def op_ms(keys, rebuild=None):
+        total = 0.0
+        for e in by_shape:
+            if e.key not in keys:
+                continue
+            big = any(list(sh)[-2:] == [jl, jl] for sh in e.input_shapes if sh)
+            if rebuild is None or big == rebuild:
+                total += e.device_time_total
+        return total / n / 1e3
 
+    chol, tri = ("aten::linalg_cholesky_ex",), ("aten::linalg_solve_triangular",)
     stages = {
-        "eigh (torch.linalg.eigh)": op_ms("aten::_linalg_eigh"),
-        "Cholesky (linalg.cholesky_ex)": op_ms("aten::linalg_cholesky_ex"),
-        "triangular solves": op_ms("aten::linalg_solve_triangular"),
-        "matmuls (aten::mm, aten::bmm)": op_ms("aten::mm", "aten::bmm"),
+        "rebuild: Cholesky of the (2, JL, JL) dark matrices": op_ms(chol, True),
+        "rebuild: triangular inverse (2, JL, JL)": op_ms(tri, True),
+        "small Cholesky (RR pencil, CholeskyQR2)": op_ms(chol, False),
+        "small triangular inverse (RR pencil)": op_ms(tri, False),
+        "eigh (torch.linalg.eigh)": op_ms(("aten::_linalg_eigh",)),
+        "matmuls (aten::mm, aten::bmm)": op_ms(("aten::mm", "aten::bmm")),
     }
-    for name in ("streaming_conv", "lag_corr", "skew_assembly", "output_filter"):
+    for name in K.WRAPPERS:
         stages[f"kernel {name}"] = sum(
             r[0] for r in rows if f"{name}_kernel" in r[1]
         ) / n / 1e3
@@ -393,7 +581,7 @@ def phase4(model, hops_a, hops_b, card, wall_ms_hop):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="add phase 4, a torch.profiler breakdown of 8 hops")
+                    help="add phase 4, a torch.profiler breakdown of the production path")
     args = ap.parse_args()
 
     # ---- phase 0: environment ------------------------------------------

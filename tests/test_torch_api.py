@@ -1,18 +1,22 @@
 """The port's public surface: ``ApVast`` hop by hop against whole signals,
-the device rule, and the configurations this slice of the port refuses."""
+the device rule, the configurations the port refuses, and the evaluation
+metrics against the JAX package's."""
 
 import dataclasses
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from apvast_torch import ApVast, GevdSolver, build_plan, production_overrides, slice_overrides
+from apvast_torch import ApVast, GevdSolver, build_plan, production_overrides
 from apvast_torch.config import RegularizationVariant
 from apvast_torch.engine import init_state, process_hop
+from apvast_torch.evaluation import acoustic_contrast_db, normalized_mse, predict_pressure
 from apvast_torch.utils.convert import config_from_jax
 from apvast_torch.utils.rir import synthetic_rirs
 from apvast_torch.utils.scenes import reference_scene, scale_scene
+from apvast_tpu import evaluation as jax_evaluation
 
 _SCENE = dict(
     block_size=128, filter_length=16, modeling_delay=5, reference_index_a=1,
@@ -31,9 +35,16 @@ def _model(**overrides):
     return ApVast(rir_a=rir_a, rir_b=rir_b, **kwargs)
 
 
-@pytest.mark.parametrize("config", ["f64-default", "f32-slice"])
+_EXACT = production_overrides() | {"gevd_solver": GevdSolver.EIGH}
+
+
+@pytest.mark.parametrize("config", ["f64-default", "f32-slice", "f32-production"])
 def test_hop_by_hop_equals_process_signals(config):
-    overrides = {} if config == "f64-default" else dict(slice_overrides(), perceptual=True)
+    overrides = {
+        "f64-default": {},
+        "f32-slice": dict(_EXACT, perceptual=True),
+        "f32-production": dict(production_overrides(), perceptual=True),
+    }[config]
     rng = np.random.default_rng(42)
     noise = (1e-3 * rng.standard_normal((4, 3, 4, 128)), 1e-3 * rng.standard_normal((2, 3, 128)))
     hop = 64
@@ -50,6 +61,7 @@ def test_hop_by_hop_equals_process_signals(config):
         assert outs[f].shape == (6, 6 * hop, 4)
         torch.testing.assert_close(outs[f], want, rtol=0, atol=0)
     assert int(whole.silenced) == 0 and int(stepped.silenced) == 0
+    assert whole.rebuilds == stepped.rebuilds == (6 if config == "f32-production" else 0)
     torch.testing.assert_close(whole.state.out_overlap, stepped.state.out_overlap, rtol=0, atol=0)
 
 
@@ -79,16 +91,21 @@ def test_default_device_is_cuda():
 @pytest.mark.parametrize(
     "overrides",
     [
-        production_overrides(),
+        production_overrides() | {"subspace_whiten": "newton"},
         dict(gevd_solver=GevdSolver.SUBSPACE),
         dict(weighting_conv_taps=31),
         dict(use_pallas_statistics=True),
         dict(use_lag_statistics=True, lag_assembly="wide"),
         dict(regularization=RegularizationVariant.MATLAB),
         dict(regularization=RegularizationVariant.PYTHON_NORM),
+        production_overrides() | {"tracking_li_bf16": True},
+        production_overrides() | {"tracking_residual_precision": "default"},
+        dict(use_pallas_subspace=True),
+        dict(use_pallas_whiten=True),
     ],
-    ids=["production", "subspace", "weighting-conv", "dense-pallas-statistics",
-         "wide-assembly", "matlab-loading", "python-norm-loading"],
+    ids=["production-newton", "subspace", "weighting-conv", "dense-pallas-statistics",
+         "wide-assembly", "matlab-loading", "python-norm-loading", "bf16-preconditioner",
+         "bf16-residual", "subspace-kernel", "whiten-kernel"],
 )
 def test_out_of_slice_configs_raise(overrides):
     with pytest.raises(NotImplementedError):
@@ -101,8 +118,45 @@ def test_out_of_slice_config_raises_in_the_hop(small_scene):
     plan, state = build_plan(tc, rir_a, rir_b, "cpu"), init_state(tc, "cpu")
     sub = dataclasses.replace(tc, gevd_solver=GevdSolver.SUBSPACE)
     hop = torch.zeros(tc.hop, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(NotImplementedError, match="later slice"):
         process_hop(sub, plan, state, hop, hop)
+
+
+def test_jacobi_refuses_float64():
+    """small_eigh="jacobi" is a float32 kernel: a float64 hop raises, as in
+    JAX (engine/hop.py)."""
+    m = _model(gevd_solver=GevdSolver.SUBSPACE, subspace_whiten="tracking", small_eigh="jacobi")
+    with pytest.raises(ValueError, match="float32 kernel"):
+        m.process_input_buffers(np.ones(64), np.ones(64))
+
+
+def test_production_hop_with_a_disabled_zone():
+    """run_b=False under the production config: the half-form filler
+    (0.5 I, so M + M^T = I) keeps zone B's pencil factorizable."""
+    m = _model(run_b=False, perceptual=True, **production_overrides())
+    for _ in range(3):
+        out_a, out_b, _, _ = m.process_input_buffers(np.ones(64), np.ones(64))
+    assert out_b is None and torch.isfinite(out_a).all() and int(m.silenced) == 0
+
+
+def test_metrics_equal_jax():
+    rng = np.random.default_rng(3)
+    feeds = rng.standard_normal((2, 300, 4))
+    rir_a, rir_b = _rirs()
+    got = predict_pressure(torch.from_numpy(feeds), rir_a)
+    want = np.asarray(jax_evaluation.predict_pressure(jnp.asarray(feeds), jnp.asarray(rir_a)))
+    assert got.shape == want.shape == (2, 300, 3)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-10, atol=1e-14)
+    dark = predict_pressure(torch.from_numpy(feeds), rir_b)
+    jdark = jax_evaluation.predict_pressure(jnp.asarray(feeds), jnp.asarray(rir_b))
+    np.testing.assert_allclose(
+        acoustic_contrast_db(got, dark).numpy(),
+        np.asarray(jax_evaluation.acoustic_contrast_db(jnp.asarray(want), jdark)), rtol=1e-10,
+    )
+    np.testing.assert_allclose(
+        normalized_mse(got, dark).numpy(),
+        np.asarray(jax_evaluation.normalized_mse(jnp.asarray(want), jdark)), rtol=1e-10,
+    )
 
 
 def test_scenes_match_their_published_geometry():

@@ -1,23 +1,28 @@
 """The port on a CUDA device: each kernel wrapper against its plain version
 at ragged shapes, its launch count, its input checks on the card, and the
-slice's hop on the card against the same hop on the CPU.
+hop on the card (exact and production solver) against the same hop on
+the CPU.
 
 Needs a card: every test is marked ``cuda`` and skips without one. This
 file imports neither JAX nor the shared fixtures, so on a machine without
 JAX it runs with ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
 
 Tolerances: kernel and plain version both sum in float32 and may order
-the sums differently (1e-4 of the output scale); hop outputs as in
+the sums differently (1e-4 of the output scale; K4 on warm-start-like
+inputs, where no rotation pair sits at theta ~ 0); hop outputs as in
 tests/test_torch_hop.py (statistics 1e-4, target feeds 1e-5, loudspeaker
-feeds 5e-2 of the signal scale).
+feeds 5e-2 of the signal scale), the production hop compared hop by hop
+from the card's state (tests/test_torch_tracking.py says why).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
-from apvast_torch import ApVast, slice_overrides
-from apvast_torch.engine import hop_statistics
+from apvast_torch import ApVast, GevdSolver, production_overrides
+from apvast_torch.engine import hop_statistics, process_hop
 from apvast_torch.ops import kernels as K
 from apvast_torch.utils.rir import synthetic_rirs
 
@@ -38,6 +43,13 @@ def _rel(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
+def _warm(rnd, b, n):
+    e = 1e-2 * rnd(b, n, n)
+    return torch.diag_embed(torch.linspace(-3.0, 5.0, n, device=e.device).repeat(b, 1)) + (
+        e + e.transpose(1, 2)
+    ) / 2
+
+
 def _cases(rnd):
     return {
         "streaming_conv": [
@@ -48,6 +60,14 @@ def _cases(rnd):
         "skew_assembly": [
             (rnd(4, 45, 6), rnd(4, 6, 45), rnd(4, 5, 45), 9),
             (rnd(2, 33 * 3, 4), rnd(2, 4, 33 * 3), rnd(2, 33, 99), 3),
+            (rnd(4, 45, 6), rnd(4, 6, 45), rnd(4, 5, 45), 9, True),
+            (rnd(2, 33 * 3, 4), rnd(2, 4, 33 * 3), rnd(2, 33, 99), 3, True),
+        ],
+        "jacobi_eigh": [
+            (_warm(rnd, 2, 64), 2),
+            (_warm(rnd, 3, 10), 2),
+            (_warm(rnd, 5, 37), 8),
+            (_warm(rnd, 1, 128), 2),
         ],
         "output_filter": [
             (rnd(2, 100), rnd(2, 37, 9), rnd(100), rnd(2, 37, 70), 30),
@@ -61,6 +81,7 @@ _PLAIN = {
     "streaming_conv": K.streaming_conv_plain,
     "lag_corr": K.lag_corr_plain,
     "skew_assembly": K.lag_skew_assemble_plain,
+    "jacobi_eigh": K.jacobi_eigh_plain,
     "output_filter": K.circular_filter_overlap_plain,
 }
 
@@ -91,21 +112,25 @@ def test_kernels_refuse_float64_on_the_card(dev):
         K.streaming_conv(torch.zeros(2, 100, device=dev), torch.zeros(2, 3, 20), 40)
 
 
-def test_slice_hop_on_the_card_matches_cpu(dev):
+def _s8_kwargs(rng, overrides):
     rir_a, rir_b = synthetic_rirs(96, 8, 3, seed=81), synthetic_rirs(96, 8, 3, seed=82)
-    rng = np.random.default_rng(9)
     noise = (1e-3 * rng.standard_normal((4, 3, 8, 128)), 1e-3 * rng.standard_normal((2, 3, 128)))
-    kwargs = dict(
+    return dict(
         block_size=128, rir_a=rir_a, rir_b=rir_b, filter_length=12, modeling_delay=4,
         reference_index_a=0, reference_index_b=5, number_of_eigenvectors=8, mu=1.0,
         statistics_buffer_length=128, sampling_rate=8000, perceptual=True,
-        response_noise=noise, **slice_overrides(),
+        response_noise=noise, **overrides,
     )
+
+
+def test_slice_hop_on_the_card_matches_cpu(dev):
+    rng = np.random.default_rng(9)
+    kwargs = _s8_kwargs(rng, production_overrides() | {"gevd_solver": GevdSolver.EIGH})
     card, cpu = ApVast(device=dev, **kwargs), ApVast(device="cpu", **kwargs)
     K.reset_launch_counts()
     hops = rng.standard_normal((6, 2, 64)).astype(np.float32)
     got = [card.process_input_buffers(a, b) for a, b in hops]
-    assert K.launch_counts() == {name: 6 for name in K.WRAPPERS}
+    assert K.launch_counts() == {name: 0 if name == "jacobi_eigh" else 6 for name in K.WRAPPERS}
     want = [cpu.process_input_buffers(a, b) for a, b in hops]
     assert int(card.silenced) == 0
     for f in range(4):
@@ -118,3 +143,42 @@ def test_slice_hop_on_the_card_matches_cpu(dev):
         hop_statistics(cpu.config, cpu.state.wresp_stat, cpu.state.wtarget_stat),
     ):
         assert _rel(a, b) <= 1e-4
+
+
+def _state_to(state, device):
+    return dataclasses.replace(
+        state,
+        **{
+            f.name: getattr(state, f.name).to(device)
+            for f in dataclasses.fields(state)
+            if isinstance(getattr(state, f.name), torch.Tensor)
+        },
+    )
+
+
+def test_production_hop_on_the_card_matches_cpu(dev):
+    """The production configuration launches all five kernels every hop;
+    each card hop equals the CPU hop from the same state."""
+    rng = np.random.default_rng(10)
+    kwargs = _s8_kwargs(rng, production_overrides())
+    card = ApVast(device=dev, **kwargs)
+    cpu = ApVast(device="cpu", **kwargs)
+    K.reset_launch_counts()
+    for a, b in rng.standard_normal((8, 2, 64)).astype(np.float32):
+        start = _state_to(card.state, "cpu")
+        got = card.process_input_buffers(a, b)
+        cpu.state, want = process_hop(
+            cpu.config, cpu.plan, start, torch.from_numpy(a), torch.from_numpy(b)
+        )
+        for f, name in enumerate(("out_a", "out_b", "out_a_t", "out_b_t")):
+            w = getattr(want, name)
+            assert torch.isfinite(got[f]).all()
+            assert _rel(got[f], w) <= (1e-5 if name.endswith("_t") else 5e-2), name
+        # The card's buffers, through the CPU statistics (no launches).
+        for x, y in zip(
+            hop_statistics(card.config, card.state.wresp_stat.cpu(), card.state.wtarget_stat.cpu()),
+            hop_statistics(cpu.config, cpu.state.wresp_stat, cpu.state.wtarget_stat),
+        ):
+            assert _rel(x, y) <= 1e-4
+    assert K.launch_counts() == {name: 8 for name in K.WRAPPERS}
+    assert int(card.silenced) == 0 and card.rebuilds >= 6  # warmup, then the residual trigger

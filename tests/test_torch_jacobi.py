@@ -1,0 +1,123 @@
+"""K4: the plain version of the port's Jacobi eigensolver against the JAX
+Pallas kernel (interpret mode) and against a float64 NumPy oracle.
+
+At the production count of 2 sweeps the result is not a converged
+eigendecomposition and depends on the rotation order, so it is compared
+element for element with the Pallas kernel on warm-start-like inputs
+(a spread diagonal plus a small symmetric perturbation, as the tracking
+solver's Rayleigh-Ritz matrices are in steady state). On a cold random
+matrix an unconverged sweep can meet a pair with theta ~ 0, where the
+angle's sign rule makes float32 rounding choose between two +-45 degree
+rotations; there the two implementations (and the Pallas kernel under a
+1e-7 input perturbation) part ways, so cold inputs are compared at 8
+sweeps, converged, with eigenvector columns up to sign.
+
+Tolerances: float32 rotations with sums taken in another order agree to
+1e-5 of the eigenvalue scale (warm, 2 sweeps) and 1e-4 (cold, 8
+sweeps: 504 rounds of rounding); the float64 oracle holds the converged
+eigenvalues to 2e-4 of their scale and the eigenpair residual to 5e-4.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from apvast_torch.ops import kernels as K
+from apvast_torch.ops.kernels.jacobi_eigh import padded_size, tournament_schedule
+from apvast_tpu.ops.pallas.jacobi_eigh import jacobi_eigh as jax_jacobi_eigh
+from apvast_tpu.ops.pallas.jacobi_eigh import tournament_schedule as jax_schedule
+
+
+def _rel(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def _warm(rng, b, n):
+    """Near-diagonal symmetric matrices with a spread diagonal."""
+    e = 1e-2 * rng.standard_normal((b, n, n))
+    return (np.linspace(-3.0, 5.0, n) * np.eye(n) + (e + np.swapaxes(e, 1, 2)) / 2).astype(
+        np.float32
+    )
+
+
+def _cold(rng, b, n):
+    x = rng.standard_normal((b, n, n))
+    return ((x + np.swapaxes(x, 1, 2)) / 2).astype(np.float32)
+
+
+def _sign_aligned(v, ref):
+    """v with each column's sign matched to ref's."""
+    s = np.sign(np.sum(np.asarray(v, np.float64) * np.asarray(ref, np.float64), axis=-2))
+    return np.asarray(v) * s[..., None, :]
+
+
+@pytest.mark.parametrize("n", [8, 16, 24, 40, 64, 128])
+def test_schedule_equals_jax(n):
+    np.testing.assert_array_equal(tournament_schedule(n), jax_schedule(n))
+
+
+@pytest.mark.parametrize("n", [64, 22, 10])
+def test_plain_matches_pallas_at_two_sweeps(n):
+    """The production count on warm-start-like inputs: eigenvalues and
+    eigenvectors element for element (n = 22 and 10 pad to 24 and 16)."""
+    a = _warm(np.random.default_rng(n), 3, n)
+    w, v = K.jacobi_eigh(torch.from_numpy(a), 2)
+    jw, jv = jax_jacobi_eigh(jnp.asarray(a), sweeps=2, interpret=True)
+    assert w.shape == (3, n) and v.shape == (3, n, n)
+    assert _rel(w, jw) <= 1e-5 and _rel(v, jv) <= 1e-5
+
+
+@pytest.mark.parametrize("n", [64, 22, 10])
+def test_plain_matches_pallas_at_eight_sweeps(n):
+    a = _cold(np.random.default_rng(100 + n), 3, n)
+    w, v = K.jacobi_eigh(torch.from_numpy(a), 8)
+    jw, jv = jax_jacobi_eigh(jnp.asarray(a), sweeps=8, interpret=True)
+    assert _rel(w, jw) <= 1e-4
+    assert _rel(_sign_aligned(v, jv), jv) <= 1e-4
+
+
+def test_zero_pencils_are_exact():
+    """All-zero matrices (the pad pencils of the TPU wrapper's batch
+    chunking): every angle is 0 through the 1e-30 guard, so w = 0 and
+    v = I exactly, in both implementations."""
+    a = np.zeros((4, 10, 10), np.float32)
+    w, v = K.jacobi_eigh(torch.from_numpy(a), 2)
+    jw, jv = jax_jacobi_eigh(jnp.asarray(a), sweeps=2, interpret=True)
+    np.testing.assert_array_equal(w.numpy(), 0.0)
+    np.testing.assert_array_equal(v.numpy(), np.broadcast_to(np.eye(10), (4, 10, 10)))
+    np.testing.assert_array_equal(np.asarray(jv), v.numpy())
+
+
+@pytest.mark.parametrize("spectrum", ["random", "clustered"])
+def test_eight_sweeps_against_float64_oracle(spectrum):
+    rng = np.random.default_rng(7)
+    n = 40
+    if spectrum == "random":
+        a = _cold(rng, 2, n)
+    else:
+        q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+        lam = np.concatenate([np.full(8, 5.0), np.full(8, 5.0 + 1e-4), rng.uniform(-1, 1, n - 16)])
+        a = ((q * lam) @ q.T).astype(np.float32)[None]
+        a = (a + np.swapaxes(a, 1, 2)) / 2
+    w, v = (x.numpy().astype(np.float64) for x in K.jacobi_eigh(torch.from_numpy(a), 8))
+    w_ref = np.linalg.eigh(a.astype(np.float64))[0]
+    assert _rel(w, w_ref) <= 2e-4
+    res = a.astype(np.float64) @ v - w[:, None, :] * v
+    assert np.abs(res).max() <= 5e-4 * np.abs(w_ref).max()
+    gram = np.swapaxes(v, 1, 2) @ v
+    assert np.abs(gram - np.eye(n)).max() <= 1e-4
+
+
+def test_padding_and_input_checks():
+    assert [padded_size(n) for n in (1, 8, 10, 37, 64, 65)] == [8, 8, 16, 40, 64, 72]
+    with pytest.raises(ValueError, match="square"):
+        K.jacobi_eigh(torch.zeros(2, 4, 5), 2)
+    with pytest.raises(ValueError, match="slots"):
+        K.jacobi_eigh(torch.zeros(1, 130, 130), 2)
+    with pytest.raises(ValueError, match="float32"):
+        K.jacobi_eigh(torch.zeros(2, 4, 4, dtype=torch.float64), 2)
+    K.reset_launch_counts()
+    K.jacobi_eigh(torch.zeros(2, 4, 4), 2)
+    assert K.launch_counts()["jacobi_eigh"] == 0  # a CPU tensor takes the plain version

@@ -1,4 +1,5 @@
-"""The plain PyTorch version of each ported kernel (K1, K2, K3, K5) against
+"""The plain PyTorch version of each ported kernel (K1, K2, K3 in both
+forms, K5; K4 is in tests/test_torch_jacobi.py) against
 the JAX Pallas function it replaces, run in interpret mode, and against a
 float64 NumPy oracle — at small shapes, ragged ones included (source
 counts that are not a multiple of 8, row counts that fill no tile).
@@ -146,6 +147,55 @@ def test_skew_assembly_plain(s, j, c):
     assert _rel(got[mask], _skew_oracle(lhs_t, rhs_sm, c0_sm, j)[mask]) <= TOL
 
 
+@pytest.mark.parametrize("s,j,c", [(5, 9, 6), (3, 7, 4), (9, 4, 2)])
+def test_skew_assembly_half_plain(s, j, c):
+    """The half form M (R = M + M^T): strict-upper-tap lanes zero and
+    tap-diagonal lanes halved, against the Pallas function with
+    ``half_scaled=True`` (which zeroes those lanes too) and the float64
+    oracle."""
+    rng = np.random.default_rng(100 + s * j + c)
+    lhs_t, rhs_sm, c0_sm = _skew_inputs(rng, s, j, c)
+    lhs_t[:, :s] = 0.0
+    got = K.lag_skew_assemble(
+        torch.from_numpy(lhs_t), torch.from_numpy(rhs_sm), torch.from_numpy(c0_sm), j,
+        half_scaled=True,
+    ).numpy()
+    want = np.asarray(
+        lag_skew_assemble(
+            jnp.asarray(lhs_t), jnp.asarray(rhs_sm), jnp.asarray(c0_sm), j,
+            interpret=True, half_scaled=True,
+        )
+    )
+    assert _rel(got, want) <= TOL
+    t2 = np.arange(s * j) % j
+    scale = np.where(t2[None, :] == np.arange(j)[:, None], 0.5, 1.0)
+    oracle = _skew_oracle(lhs_t, rhs_sm, c0_sm, j) * scale
+    assert _rel(got, oracle) <= TOL
+    assert np.all(got[np.broadcast_to(~_valid_lanes(s, j)[None, None], got.shape)] == 0.0)
+
+
+@pytest.mark.parametrize("s", [3, 8])
+def test_skew_statistics_half_form(s):
+    """form="half" returns M with M + M^T equal to the full-form R, the
+    JAX half form, and the float64 dense Gram after completion."""
+    rng = np.random.default_rng(60 + s)
+    m, n, j = 2, 50, 6
+    k = n - j + 1
+    buf, d = 1e-2 * _f32(rng, 4, m, s, n), 1e-2 * _f32(rng, 2, m, k)
+    tb, td = torch.from_numpy(buf), torch.from_numpy(d)
+    half, r_half = covariance_via_lags_skew(tb, td, j, form="half")
+    full, r_full = covariance_via_lags_skew(tb, td, j)
+    jm, jv = jax_covariance_via_lags_skew(jnp.asarray(buf), jnp.asarray(d), j, form="half")
+    assert _rel(half, jm) <= TOL and _rel(r_half, jv) <= TOL
+    torch.testing.assert_close(r_half, r_full, rtol=0, atol=0)
+    assert _rel(half + half.transpose(-1, -2), full) <= TOL
+    frames = np.stack([buf[..., t : t + k] for t in range(j)], axis=-1)
+    y = frames[..., ::-1].transpose(0, 1, 2, 4, 3).reshape(4, m, s * j, k).astype(np.float64)
+    assert _rel(half + half.transpose(-1, -2), np.einsum("pmak,pmbk->pab", y, y)) <= TOL
+    with pytest.raises(ValueError, match="form"):
+        covariance_via_lags_skew(tb, td, j, form="quarter")
+
+
 @pytest.mark.parametrize("s", [3, 8])
 def test_skew_statistics_after_completion(s):
     """The completed (R, r) of the skew path equal the JAX path's and the
@@ -209,6 +259,8 @@ def test_cpu_tensors_launch_nothing():
     K.streaming_conv(t(2, 100), t(2, 3, 20), 40)
     K.lag_corr(t(4, 2, 3, 30), 5)
     K.lag_skew_assemble(t(4, 15, 4), t(4, 4, 15), t(4, 3, 15), 5)
+    K.lag_skew_assemble(t(4, 15, 4), t(4, 4, 15), t(4, 3, 15), 5, half_scaled=True)
+    K.jacobi_eigh(t(2, 6, 6), 2)
     K.circular_filter_overlap(t(2, 32), t(2, 3, 4), t(32), t(2, 3, 16), 16)
     assert K.launch_counts() == {name: 0 for name in K.WRAPPERS}
 

@@ -80,15 +80,19 @@ def test_config_converts_field_for_field(small_scene, name):
 
 
 def test_production_overrides_equal_jax():
+    """Every port field of JAX's production_overrides("tpu") at its JAX
+    value; the one JAX knob the tracking solver does not read
+    (subspace_iters) is accepted at its production value."""
     want = jcfg.production_overrides("tpu")
     got = tcfg.production_overrides()
     assert set(got) | set(UNPORTED_FIELDS) >= set(want)
     for key, value in want.items():
         if key in got:
             assert getattr(got[key], "value", got[key]) == getattr(value, "value", value), key
-        else:  # a solver knob: accepted at its production value
+        else:
             assert value in UNPORTED_FIELDS[key][0], key
-    assert tcfg.slice_overrides()["gevd_solver"] is tcfg.GevdSolver.EIGH
+    assert set(want) - set(got) == {"subspace_iters"}
+    assert tcfg.uses_tracking_solver(tcfg.ApVastConfig(10, 2, 2, **got))
 
 
 @pytest.mark.parametrize(
@@ -121,14 +125,8 @@ def test_config_validation_errors_match_jax(small_scene, bad):
 
 
 _UNPORTED_JAX_INVALID = [
-    dict(subspace_whiten="qr"),
-    dict(tracking_rebuild_period=0),
     dict(tracking_li_bf16=True),
-    dict(tracking_rr_basis="x"),
-    dict(tracking_residual_precision="x"),
     dict(tracking_residual_precision="default"),
-    dict(tracking_outer_steps=0),
-    dict(tracking_residual_rebuild=-1.0),
     dict(fd_frame_taps=0),
     dict(fd_bin_coupling=2),
     dict(fd_span="x"),
@@ -142,9 +140,10 @@ _UNPORTED_JAX_INVALID = [
     dict(fd_group_size=2, fd_span="full"),
 ]
 _UNPORTED_JAX_VALID = [
-    dict(subspace_oversample=20),
-    dict(tracking_rebuild_period=8),
     dict(use_pallas_subspace=True),
+    dict(use_pallas_whiten=True),
+    dict(subspace_iters=5),
+    dict(subspace_orth="qr"),
     dict(fd_span="full"),
     dict(fd_eigh="jacobi"),
     dict(regularization=jcfg.RegularizationVariant.MATLAB, dark_loading=1e-2),
@@ -159,8 +158,9 @@ _UNPORTED_JAX_VALID = [
 )
 def test_unported_config_values_raise(small_scene, unported, jax_valid):
     """A JAX field that no ported path reads converts only at the values
-    the slice runs with; any other value, valid in JAX or not, names the
-    slice that brings it."""
+    the port runs with, and a value of a ported field that the port does
+    not run (``config.NOT_RUN``) is refused: any such value, valid in JAX
+    or not, names the slice that brings it."""
     jc, _, _ = small_scene
     fields = dataclasses.asdict(dataclasses.replace(jc)) | unported
     if jax_valid:
@@ -170,6 +170,43 @@ def test_unported_config_values_raise(small_scene, unported, jax_valid):
             jcfg.ApVastConfig(**fields)
     with pytest.raises(NotImplementedError, match="slice"):
         config_from_jax(fields)
+
+
+_SOLVER_KNOBS_INVALID = [
+    dict(subspace_whiten="qr"),
+    dict(tracking_rebuild_period=0),
+    dict(tracking_rr_basis="x"),
+    dict(tracking_residual_precision="x"),
+    dict(tracking_outer_steps=0),
+    dict(tracking_residual_rebuild=-1.0),
+]
+_SOLVER_KNOBS_VALID = [
+    dict(subspace_oversample=20),
+    dict(tracking_rebuild_period=8),
+]
+
+
+@pytest.mark.parametrize(
+    "knob,jax_valid",
+    [(d, False) for d in _SOLVER_KNOBS_INVALID] + [(d, True) for d in _SOLVER_KNOBS_VALID],
+    ids=lambda d: "-".join(f"{k}={v}" for k, v in d.items()) if isinstance(d, dict) else None,
+)
+def test_ported_solver_knobs_validate_as_jax(small_scene, knob, jax_valid):
+    """The tracking solver's knobs are port fields: an invalid value raises
+    the JAX package's ValueError, word for word, and a valid one converts."""
+    jc, _, _ = small_scene
+    fields = dataclasses.asdict(dataclasses.replace(jc)) | knob
+    if jax_valid:
+        jcfg.ApVastConfig(**fields)
+        tc = config_from_jax(fields)
+        for name, value in knob.items():
+            assert getattr(tc, name) == value
+        return
+    with pytest.raises(ValueError) as jax_err:
+        jcfg.ApVastConfig(**fields)
+    with pytest.raises(ValueError) as torch_err:
+        config_from_jax(fields)
+    assert str(torch_err.value) == str(jax_err.value)
 
 
 def test_rir_shape_errors_match_jax(small_scene):
@@ -255,6 +292,42 @@ def test_init_state_equals_jax(small_scene, name):
         device="cpu",
     )
     np.testing.assert_array_equal(carried.resp.numpy(), np.asarray(want.resp))
+
+
+def test_tracking_init_state_equals_jax(small_scene):
+    """The tracking carry of a fresh state: the cold basis injected from the
+    JAX state (JAX draws it from jax.random.key(7)), identity factor, zero
+    Ritz values, hop 0, residual 0 in float32; and it carries across."""
+    jc, _, _ = small_scene
+    jc = dataclasses.replace(jc, **jcfg.production_overrides("tpu"))
+    tc = config_from_jax(dataclasses.asdict(jc))
+    want = jax_init_state(jc)
+    got = init_state(tc, device="cpu", subspace_init=np.array(want.gevd_q))
+    for name in ("gevd_q", "gevd_minv", "gevd_lam", "gevd_resid"):
+        w, g = np.asarray(getattr(want, name)), getattr(got, name).numpy()
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        np.testing.assert_array_equal(g, w, err_msg=name)
+    assert got.gevd_hop == int(want.gevd_hop) == 0
+    assert got.gevd_q.shape == (2, tc.jl, tc.subspace_rank) == (2, 64, 20)
+    drawn = init_state(tc, device="cpu")
+    again = init_state(tc, device="cpu")
+    torch.testing.assert_close(drawn.gevd_q, again.gevd_q, rtol=0, atol=0)  # seeded draw
+    assert torch.linalg.matrix_rank(drawn.gevd_q[0].double()) == tc.subspace_rank
+    arrays = {f.name: None if getattr(want, f.name) is None else np.asarray(getattr(want, f.name))
+              for f in dataclasses.fields(want)}
+    carried = state_from_numpy(tc, arrays, device="cpu")
+    np.testing.assert_array_equal(carried.gevd_q.numpy(), np.asarray(want.gevd_q))
+    with pytest.raises(ValueError, match="subspace_init"):
+        init_state(tc, device="cpu", subspace_init=np.zeros((2, 64, 3)))
+    with pytest.raises(ValueError, match="gevd_q"):
+        state_from_numpy(tc, arrays | {"gevd_q": arrays["gevd_q"][..., 1:]}, device="cpu")
+    # An 'invert' (not ported) or exact-solver config refuses a subspace carry.
+    invert = dataclasses.replace(tc, subspace_whiten="invert")
+    with pytest.raises(NotImplementedError, match="slice"):
+        state_from_numpy(invert, arrays, device="cpu")
+    exact = dataclasses.replace(tc, gevd_solver=tcfg.GevdSolver.EIGH)
+    with pytest.raises(ValueError, match="gevd_q"):
+        state_from_numpy(exact, arrays, device="cpu")
 
 
 def test_init_state_from_generator_and_zero(small_scene):
