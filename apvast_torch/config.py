@@ -4,18 +4,19 @@ The fields are those of ``apvast_tpu/config.py`` that a ported path
 reads, with their JAX names, defaults and validation, so a configuration
 of the JAX package converts field for field
 (``apvast_torch.utils.convert.config_from_jax``). The JAX fields that no
-ported path reads yet (the 'invert'/'newton' solvers' iteration knobs,
-the frequency-domain engine's, the MATLAB loading factors) are not fields
-here; each comes with the slice that first reads it. In this package a
+ported path reads yet (the frequency-domain engine's, the MATLAB loading
+factors) are not fields here; each comes with the slice that first reads
+it. In this package a
 ``use_pallas_*`` flag means "use the hand-written Hopper kernel"
 (``apvast_torch/csrc/*.cu``, wrapped in ``apvast_torch/ops/kernels/``),
 and ``use_matmul_dft`` means the WOLA transforms run as ``torch`` matmuls
 against DFT matrices.
 
 The port runs the time-domain hop of the JAX engine: the exact GEVD
-solver (``GevdSolver.EIGH``) or the tracking subspace solver
-(``GevdSolver.SUBSPACE`` with ``subspace_whiten="tracking"``, the
-production solver), the FFT or kernel streaming convolution, dense or
+solver (``GevdSolver.EIGH``) or a subspace solver (``GevdSolver.SUBSPACE``
+with any ``subspace_whiten``: "tracking", the production solver, or the
+round-3 "invert", "solve" and "newton" solvers), the FFT or kernel
+streaming convolution, dense or
 skew-assembled lag statistics (full or half form) and the FFT or kernel
 output synthesis. :func:`check_port_slice` rejects every other value with
 ``NotImplementedError`` naming the slice that brings it; no such
@@ -67,8 +68,7 @@ class TargetFilterVariant(enum.Enum):
 
 class GevdSolver(enum.Enum):
     """EIGH: exact dense eigendecomposition after Cholesky whitening.
-    SUBSPACE: the warm-started top-V solvers; the port runs the tracking
-    one (``subspace_whiten="tracking"``)."""
+    SUBSPACE: the warm-started top-V solvers (``subspace_whiten``)."""
 
     EIGH = "eigh"
     SUBSPACE = "subspace"
@@ -135,14 +135,22 @@ class ApVastConfig:
     perceptual_frontend: PerceptualFrontend = PerceptualFrontend.MATLAB_MODEL
     perceptual_taps: int = 32
     gevd_solver: GevdSolver = GevdSolver.EIGH
-    # SUBSPACE solver: columns beyond num_eigenvectors, and the whitening.
-    # The port runs "tracking": a carried inverse Cholesky factor
-    # preconditions Rayleigh-Ritz tracking on the exact pencil
-    # (ops/jdiag.jdiag_topk_tracked), refreshed every
+    # SUBSPACE solver: columns beyond num_eigenvectors, power steps per
+    # hop and their orthonormalization ("cholqr2"; any other value is
+    # Householder QR, as in JAX, which does not validate it).
+    subspace_oversample: int = 30
+    subspace_iters: int = 3
+    subspace_orth: str = "cholqr2"
+    # Whitening. "invert": L^-1 of the loaded dark matrix once per hop
+    # (ops/jdiag.jdiag_topk_batched); "solve": triangular solves per
+    # application; "newton": a carried approximate inverse refreshed by
+    # a Newton step, rebuilt when its residual degrades
+    # (ops/jdiag.jdiag_topk_pencil_batched); "tracking": a carried
+    # inverse Cholesky factor preconditions Rayleigh-Ritz tracking on the
+    # exact pencil (ops/jdiag.jdiag_topk_tracked), refreshed every
     # tracking_rebuild_period hops, on the first tracking_warmup_hops hops
     # and whenever the carried Ritz residual exceeds
     # tracking_residual_rebuild (0 disables that trigger).
-    subspace_oversample: int = 30
     subspace_whiten: str = "invert"
     tracking_outer_steps: int = 2
     tracking_rebuild_period: int = 4
@@ -161,6 +169,8 @@ class ApVastConfig:
     # "lapack" is torch.linalg.eigh.
     small_eigh: str = "lapack"
     jacobi_sweeps: int = 4
+    # 'invert' only: the fused subspace iteration (K9) and the blocked
+    # Cholesky with the panel kernel (K10a, for ceil128(jl) <= 1024).
     use_pallas_subspace: bool = False
     use_pallas_whiten: bool = False
     # Dense framed statistics kernel; in production only a fallback that
@@ -332,18 +342,26 @@ def uses_tracking_solver(config: ApVastConfig) -> bool:
     )
 
 
+def uses_subspace_solver(config: ApVastConfig) -> bool:
+    """Whether the hop runs a subspace GEVD solver (and carries its basis
+    ``gevd_q``)."""
+    return config.gevd_solver is GevdSolver.SUBSPACE
+
+
 def production_overrides() -> dict:
     """The values of the JAX package's ``production_overrides("tpu")`` for
     the port's fields: float32, the tracking subspace solver with the
     Jacobi Rayleigh-Ritz kernel, skew-assembled half-form lag statistics
-    and every kernel flag on. (``subspace_iters=2``, a JAX field that the
-    tracking solver does not read, is accepted at that value by
-    ``utils/convert.py``.) The exact-solver oracle is
-    ``production_overrides() | {"gevd_solver": GevdSolver.EIGH}``."""
+    and every kernel flag on. The exact-solver oracle is
+    ``production_overrides() | {"gevd_solver": GevdSolver.EIGH}``; the
+    round-3 production solver adds ``{"subspace_whiten": "invert",
+    "jacobi_sweeps": 3, "use_pallas_subspace": True, "use_pallas_whiten":
+    True}``."""
     return dict(
         dtype="float32",
         gevd_solver=GevdSolver.SUBSPACE,
         subspace_oversample=14,
+        subspace_iters=2,
         subspace_whiten="tracking",
         tracking_outer_steps=1,
         tracking_rebuild_period=32,
@@ -362,10 +380,6 @@ def production_overrides() -> dict:
     )
 
 
-_WHITEN = (
-    "the 'invert'/'solve'/'newton' subspace solvers, a later slice of the "
-    "port (ROADMAP Queue 1 item 4)"
-)
 # Values of port fields that no ported path runs: field -> (value, the
 # slice of ROADMAP.md that brings it).
 NOT_RUN = {
@@ -373,8 +387,6 @@ NOT_RUN = {
     "tracking_residual_precision": (
         "default", "single-pass bf16 residual products of the TPU, a later slice of the port"
     ),
-    "use_pallas_subspace": (True, f"kernel K9 with {_WHITEN}"),
-    "use_pallas_whiten": (True, f"kernel K10 with {_WHITEN}"),
 }
 
 
@@ -391,11 +403,6 @@ def check_port_slice(config: ApVastConfig) -> None:
     naming the slice of ``ROADMAP.md`` that brings it."""
     if config.dtype not in ("float32", "float64"):
         raise ValueError(f"dtype must be 'float32' or 'float64', got {config.dtype!r}")
-    if config.gevd_solver is GevdSolver.SUBSPACE and config.subspace_whiten != "tracking":
-        raise NotImplementedError(
-            f"subspace_whiten={config.subspace_whiten!r} comes with {_WHITEN}; "
-            "use 'tracking'"
-        )
     check_not_run(vars(config))
     if config.weighting_conv_taps is not None:
         raise NotImplementedError(

@@ -9,8 +9,10 @@ the reference a batch axis:
 4. statistics                   (framed Gram, or lag statistics: K2 + K3,
                                  half form M with R = M + M^T for the
                                  tracking solver)
-5. GEVD + filter synthesis      (exact Cholesky-whitened eigh, or the
-                                 tracking solver with K4)
+5. GEVD + filter synthesis      (exact Cholesky-whitened eigh, the
+                                 tracking solver with K4, or the
+                                 'invert'/'solve'/'newton' subspace
+                                 solvers: K10a, K9, K4)
 6. input block slide
 7. output synthesis             (FFT, or kernel K5 + the target roll)
 """
@@ -26,12 +28,18 @@ from apvast_torch.config import (
     TargetFilterVariant,
     ToeplitzVariant,
     check_port_slice,
+    uses_subspace_solver,
     uses_tracking_solver,
 )
 from apvast_torch.engine.plan import ApVastPlan
-from apvast_torch.engine.state import ApVastState, TrackingState
+from apvast_torch.engine.state import ApVastState, SubspaceState, TrackingState
 from apvast_torch.ops.framing import framed_statistics
-from apvast_torch.ops.jdiag import jdiag, jdiag_topk_tracked
+from apvast_torch.ops.jdiag import (
+    jdiag,
+    jdiag_topk_batched,
+    jdiag_topk_pencil_batched,
+    jdiag_topk_tracked,
+)
 from apvast_torch.ops.kernels import circular_filter_overlap, streaming_conv
 from apvast_torch.ops.lag_statistics import covariance_via_lags_skew
 from apvast_torch.ops.synthesis import variable_span_filters
@@ -59,7 +67,8 @@ class HopOutputs:
     zone; the target feeds are one (hop, srcs) copy; ``silenced`` counts
     the non-finite solver outputs of the hop (int32 scalar, 0 = healthy);
     ``rebuilt`` says whether the tracking solver refreshed its
-    preconditioner this hop (a host bool, False for the exact solver)."""
+    preconditioner, or the 'newton' solver rebuilt its carried inverse,
+    this hop (a host bool, False for the other solvers)."""
 
     out_a: torch.Tensor | None
     out_b: torch.Tensor | None
@@ -171,6 +180,43 @@ def rebuild_predicate(config: ApVastConfig, state: ApVastState) -> bool:
     return threshold > 0 and bool(state.gevd_resid > threshold)
 
 
+_JACOBI_F64 = (
+    "small_eigh='jacobi' is a float32 kernel — it would "
+    "silently degrade a float64 parity config"
+)
+
+
+def _refuse_kernel_flags(config: ApVastConfig, dtype: torch.dtype) -> None:
+    """Stage 5's refusals of the JAX engine, in its order and wording per
+    whitening: a float32 kernel flag on a float64 config, or a kernel flag
+    under a whitening that does not run its kernel."""
+    if not uses_subspace_solver(config):
+        return
+    f64 = dtype != torch.float32
+    jacobi = config.small_eigh == "jacobi"
+    subspace, whiten = config.use_pallas_subspace, config.use_pallas_whiten
+    checks = {
+        "tracking": [
+            (f64 and jacobi, _JACOBI_F64),
+            (subspace or whiten, "use_pallas_subspace/use_pallas_whiten require "
+             "subspace_whiten='invert'"),
+        ],
+        "newton": [
+            (subspace, "use_pallas_subspace requires subspace_whiten='invert'"),
+            (f64 and jacobi, _JACOBI_F64),
+        ],
+    }.get(config.subspace_whiten, [
+        (f64 and (jacobi or subspace), "small_eigh='jacobi' and use_pallas_subspace are "
+         "float32 kernels — they would silently degrade a float64 parity config to "
+         "float32 precision"),
+        (f64 and whiten, "use_pallas_whiten is a float32 kernel — it would silently "
+         "degrade a float64 parity config"),
+    ])
+    for refused, message in checks:
+        if refused:
+            raise ValueError(message)
+
+
 def hop_statistics(config: ApVastConfig, wresp_stat, wtarget_stat):
     """Stage 4: the spatial statistics (R (4, SJ, SJ), or its half form M
     when :func:`half_form`; r (2, SJ)) of the statistics buffers as a
@@ -265,12 +311,17 @@ def process_hop(
         b_stack = torch.stack([b_stack[0], filler])
     carry = {}
     rebuilt = False
-    if uses_tracking_solver(config):
-        if dtype != torch.float32 and config.small_eigh == "jacobi":
-            raise ValueError(
-                "small_eigh='jacobi' is a float32 kernel — it would "
-                "silently degrade a float64 parity config"
-            )
+    whiten = config.subspace_whiten
+    _refuse_kernel_flags(config, dtype)
+    if not uses_subspace_solver(config):
+        u, lam = jdiag(a_stack, b_stack, reg)  # (2, jl, jl), (2, jl)
+        # The exact path has no zeroing guard (parity semantics); it counts
+        # the non-finite outputs so a blowup stays visible.
+        silenced = (
+            (~torch.isfinite(u)).sum(dtype=torch.int32)
+            + (~torch.isfinite(lam)).sum(dtype=torch.int32)
+        )
+    elif whiten == "tracking":
         rebuilt = (
             rebuild_predicate(config, state)
             if rebuild_override is None
@@ -289,14 +340,33 @@ def process_hop(
             half_form=half,
         )  # u (2, jl, v), lam (2, v)
         carry["gevd_hop"] = state.gevd_hop + 1
-    else:
-        u, lam = jdiag(a_stack, b_stack, reg)  # (2, jl, jl), (2, jl)
-        # The exact path has no zeroing guard (parity semantics); it counts
-        # the non-finite outputs so a blowup stays visible.
-        silenced = (
-            (~torch.isfinite(u)).sum(dtype=torch.int32)
-            + (~torch.isfinite(lam)).sum(dtype=torch.int32)
+    elif whiten == "newton":
+        # JAX's lax.cond on the carried inverse's residual is a host
+        # decision here: one device read per hop, and only the branch
+        # taken runs.
+        u, lam, carry["gevd_q"], carry["gevd_minv"], silenced, rebuilt = (
+            jdiag_topk_pencil_batched(
+                a_stack, b_stack, reg, v, config.subspace_iters,
+                state.gevd_q, state.gevd_minv, config.subspace_orth,
+                config.small_eigh, config.jacobi_sweeps,
+            )
         )
+    else:
+        # The JAX engine's rule for the whitening kernel (its VMEM bound):
+        # 'invert' and a 128-padded jl of at most 1024.
+        whiten_kernel = (
+            config.use_pallas_whiten
+            and whiten == "invert"
+            and -(-config.jl // 128) * 128 <= 1024
+        )
+        u, lam, carry["gevd_q"], silenced = jdiag_topk_batched(
+            a_stack, b_stack, reg, v, config.subspace_iters, state.gevd_q,
+            config.subspace_orth, whiten, config.small_eigh,
+            config.jacobi_sweeps,
+            fused_iteration=config.use_pallas_subspace,
+            whiten_kernel=whiten_kernel,
+        )  # (2, jl, v), (2, v), (2, jl, k), int32
+        carry["gevd_minv"] = None
     w_family = variable_span_filters(u, lam, r_vecs, config.mu, v)  # (2, v, jl)
     zone_gate = torch.tensor(
         [float(config.run_a), float(config.run_b)], dtype=dtype, device=device
@@ -350,7 +420,11 @@ def process_hop(
 
     out_vhs = out_emit.permute(0, 1, 3, 2)  # (2, v, hop, s)
     t_vhs = t_emit.permute(0, 2, 1)  # (2, hop, s)
-    new_state = (TrackingState if carry else ApVastState)(
+    if not carry:
+        state_cls = ApVastState
+    else:
+        state_cls = TrackingState if "gevd_lam" in carry else SubspaceState
+    new_state = state_cls(
         conv_history=conv_history,
         resp=slide_tail(resp[0], resp[1], hop),
         target_resp=slide_tail(target_resp[0], target_resp[1], hop),

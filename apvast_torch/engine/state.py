@@ -14,7 +14,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from apvast_torch.config import ApVastConfig, check_port_slice, uses_tracking_solver
+from apvast_torch.config import (
+    ApVastConfig,
+    check_port_slice,
+    uses_subspace_solver,
+    uses_tracking_solver,
+)
 from apvast_torch.utils.device import resolve_device, torch_dtype
 
 
@@ -44,15 +49,24 @@ class ApVastState:
 
 
 @dataclasses.dataclass
-class TrackingState(ApVastState):
-    """The state of a hop that runs the tracking GEVD solver: the data path
+class SubspaceState(ApVastState):
+    """The state of a hop that runs a subspace GEVD solver: the data path
     plus the solver's carry (the JAX state's ``gevd_*`` leaves)."""
 
-    # Ritz vectors (2, jl, k) and values (2, k).
+    # The warm-start basis (Ritz vectors), (2, jl, k).
     gevd_q: torch.Tensor
+    # (2, jl, jl): the carried approximate inverse of the loaded dark matrix
+    # under 'newton', its inverse Cholesky factor under 'tracking'; None
+    # under 'invert' and 'solve'.
+    gevd_minv: torch.Tensor | None
+
+
+@dataclasses.dataclass
+class TrackingState(SubspaceState):
+    """The state of a hop that runs the tracking GEVD solver."""
+
+    # Ritz values (2, k).
     gevd_lam: torch.Tensor
-    # Inverse Cholesky factor of the loaded dark matrix, (2, jl, jl).
-    gevd_minv: torch.Tensor
     # Hop counter of the rebuild cadence: a host int, so the cadence reads
     # nothing from the device.
     gevd_hop: int
@@ -60,19 +74,18 @@ class TrackingState(ApVastState):
     gevd_resid: torch.Tensor
 
 
-def tracking_shapes(config: ApVastConfig) -> dict[str, tuple[int, ...]]:
-    """Shape of every tracking-solver state tensor (none for the exact
-    solver)."""
-    if not uses_tracking_solver(config):
+def subspace_shapes(config: ApVastConfig) -> dict[str, tuple[int, ...]]:
+    """Shape of every subspace-solver state tensor of ``config`` (none for
+    the exact solver)."""
+    if not uses_subspace_solver(config):
         return {}
     jl, k = config.jl, config.subspace_rank
-    return {
-        "gevd_q": (2, jl, k),
-        "gevd_minv": (2, jl, jl),
-        "gevd_lam": (2, k),
-        "gevd_hop": (),
-        "gevd_resid": (),
-    }
+    shapes = {"gevd_q": (2, jl, k)}
+    if config.subspace_whiten in ("newton", "tracking"):
+        shapes["gevd_minv"] = (2, jl, jl)
+    if uses_tracking_solver(config):
+        shapes |= {"gevd_lam": (2, k), "gevd_hop": (), "gevd_resid": ()}
+    return shapes
 
 
 def state_shapes(config: ApVastConfig) -> dict[str, tuple[int, ...]]:
@@ -110,12 +123,13 @@ def init_state(
     drawn from ``generator`` (scaled by ``noise_init_scale``), or zero
     when neither is given (the MATLAB behavior).
 
-    The tracking solver's cold basis (2, jl, subspace_rank), a fixed
+    A subspace solver's cold basis (2, jl, subspace_rank), a fixed
     full-rank random block in JAX (``jax.random.key(7)``), is likewise
     injected (``subspace_init``), drawn from ``generator`` after the noise,
-    or drawn from a ``torch.Generator`` seeded with 7. Its carried factor
-    starts as the identity, its Ritz values at zero and its hop counter at
-    0, inside the warmup window, so the first hop rebuilds the factor.
+    or drawn from a ``torch.Generator`` seeded with 7. The carried inverse
+    of 'newton' and 'tracking' starts as the identity, so the first hop
+    rebuilds it; the tracking solver's Ritz values start at zero and its
+    hop counter at 0, inside the warmup window.
     """
     check_port_slice(config)
     device = resolve_device(device)
@@ -153,24 +167,29 @@ def init_state(
         target_resp=target_resp[..., config.hop :].contiguous(),
         **zeros,
     )
-    if uses_tracking_solver(config):
-        jl, k = config.jl, config.subspace_rank
-        if subspace_init is not None:
-            q = torch.as_tensor(subspace_init, device=device).to(dtype)
-            if tuple(q.shape) != (2, jl, k):
-                raise ValueError(
-                    f"subspace_init shape {tuple(q.shape)} != {(2, jl, k)}"
-                )
-        else:
-            gen = generator or torch.Generator().manual_seed(7)
-            q = torch.randn((2, jl, k), generator=gen, dtype=dtype,
-                            device=gen.device).to(device)
-        return TrackingState(
-            **data,
-            gevd_q=q.contiguous(),
-            gevd_lam=torch.zeros((2, k), dtype=dtype, device=device),
-            gevd_minv=torch.eye(jl, dtype=dtype, device=device).repeat(2, 1, 1),
-            gevd_hop=0,
-            gevd_resid=torch.zeros((), dtype=torch.float32, device=device),
-        )
-    return ApVastState(**data)
+    if not uses_subspace_solver(config):
+        return ApVastState(**data)
+    jl, k = config.jl, config.subspace_rank
+    if subspace_init is not None:
+        q = torch.as_tensor(subspace_init, device=device).to(dtype)
+        if tuple(q.shape) != (2, jl, k):
+            raise ValueError(
+                f"subspace_init shape {tuple(q.shape)} != {(2, jl, k)}"
+            )
+    else:
+        gen = generator or torch.Generator().manual_seed(7)
+        q = torch.randn((2, jl, k), generator=gen, dtype=dtype,
+                        device=gen.device).to(device)
+    minv = None
+    if "gevd_minv" in subspace_shapes(config):
+        minv = torch.eye(jl, dtype=dtype, device=device).repeat(2, 1, 1)
+    if not uses_tracking_solver(config):
+        return SubspaceState(**data, gevd_q=q.contiguous(), gevd_minv=minv)
+    return TrackingState(
+        **data,
+        gevd_q=q.contiguous(),
+        gevd_minv=minv,
+        gevd_lam=torch.zeros((2, k), dtype=dtype, device=device),
+        gevd_hop=0,
+        gevd_resid=torch.zeros((), dtype=torch.float32, device=device),
+    )

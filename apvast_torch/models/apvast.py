@@ -44,7 +44,7 @@ class ApVast:
         arguments flow into :class:`ApVastConfig`. Runs on ``"cuda"``
         unless ``device`` says otherwise (raises if no card is present).
         The initial response noise is injected (``response_noise``), drawn
-        from ``generator``, or zero; the tracking solver's cold basis is
+        from ``generator``, or zero; a subspace solver's cold basis is
         injected (``subspace_init``, (2, jl, subspace_rank)) or drawn
         (``engine.state.init_state``)."""
         self.config = ApVastConfig.for_rirs(
@@ -81,7 +81,8 @@ class ApVast:
         # Non-finite solver outputs summed over every hop since the reset
         # (an int32 tensor on the device, read without a sync until asked).
         self.silenced = torch.zeros((), dtype=torch.int32, device=self.device)
-        # Hops on which the tracking solver refreshed its preconditioner.
+        # Hops on which the tracking solver refreshed its preconditioner or
+        # the 'newton' solver rebuilt its carried inverse.
         self.rebuilds = 0
 
     def _signal(self, x) -> torch.Tensor:

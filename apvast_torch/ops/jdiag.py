@@ -1,7 +1,9 @@
 """Joint diagonalization of a symmetric-PSD pencil (A, B) (port of
 ``apvast_tpu/ops/jdiag.py``): the exact solver ``jdiag`` (batched over any
-leading axes, so also ``jdiag_batched``) and the production tracking
-solver ``jdiag_topk_tracked`` with its CholeskyQR2 ``_cholqr2``.
+leading axes, so also ``jdiag_batched``), the round-3 subspace solvers
+``jdiag_topk_batched`` ('invert'/'solve' whitening, with kernels K9 and
+K10a) and ``jdiag_topk_pencil_batched`` ('newton'), and the production
+tracking solver ``jdiag_topk_tracked``, with their CholeskyQR2 ``_cholqr2``.
 
 Contract of both:
     U^T A U = diag(d)   with d descending,   U^T B U = I.
@@ -16,7 +18,11 @@ from __future__ import annotations
 
 import torch
 
-from apvast_torch.ops.kernels import jacobi_eigh
+from apvast_torch.ops.kernels import (
+    blocked_cholesky,
+    jacobi_eigh,
+    subspace_iterate,
+)
 from apvast_torch.ops.trisolve import neumann_tri_inverse, triangular_inverse
 
 
@@ -75,6 +81,221 @@ def _sym(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * (x + x.transpose(-1, -2))
 
 
+def _orthonormalizer(orth: str):
+    """CholeskyQR2 for "cholqr2", Householder QR for any other value."""
+    if orth == "cholqr2":
+        return _cholqr2
+    return lambda q: torch.linalg.qr(q)[0]
+
+
+def _small_eigh(h: torch.Tensor, small_eigh: str, jacobi_sweeps: int):
+    """Ascending eigenpairs of the small Rayleigh-Ritz matrices: kernel K4
+    for "jacobi", else ``eigh``."""
+    if small_eigh == "jacobi":
+        return jacobi_eigh(h.contiguous(), jacobi_sweeps)
+    return eigh(h)
+
+
+def _topk_project(A, B, reg, iters, q_init, orth, whiten, li_pre=None):
+    """Subspace-iteration front half of :func:`jdiag_topk_batched`, batched
+    over the leading pencil axis: whitening setup, ``iters`` power steps
+    on the whitened operator, and the small Rayleigh-Ritz projection.
+    Returns ``(small, q, wmat)`` with ``wmat`` the inverse Cholesky factor
+    ('invert') or the Cholesky factor (any other whitening: 'solve').
+    ``li_pre`` is a precomputed inverse Cholesky factor for 'invert'."""
+    n = A.shape[-1]
+    eye = torch.eye(n, dtype=A.dtype, device=A.device)
+    if whiten == "invert":
+        li = li_pre if li_pre is not None else triangular_inverse(cholesky(B + reg * eye))
+        li_t = li.transpose(-1, -2)
+
+        def apply_white(x):
+            return li @ (A @ (li_t @ x))
+
+        wmat = li
+    else:
+        # The whitened operator L^-1 A L^-T applied implicitly: triangular
+        # solves against the k-column subspace only.
+        chol = cholesky(B + reg * eye)
+        chol_t = chol.transpose(-1, -2)
+
+        def apply_white(x):
+            y = torch.linalg.solve_triangular(chol_t, x, upper=True)
+            return torch.linalg.solve_triangular(chol, A @ y, upper=False)
+
+        wmat = chol
+    orthonormalize = _orthonormalizer(orth)
+    q = q_init
+    for _ in range(iters):
+        q = orthonormalize(apply_white(q))
+    small = q.transpose(-1, -2) @ apply_white(q)
+    return _sym(small), q, wmat
+
+
+def _topk_extract(small_d, small_v, q, wmat, num_vectors, q_init, whiten):
+    """Ritz extraction and back-transform, back half of
+    :func:`jdiag_topk_batched`; ``small_d``/``small_v`` are the ASCENDING
+    eigenpairs of the projected matrices. Returns ``(u, d, ritz,
+    silenced)``: non-finite entries of u and d are zeroed and counted,
+    and a non-finite carry entry falls back to ``q_init``'s."""
+    d = small_d.flip(-1)[..., :num_vectors]
+    ritz = q @ small_v.flip(-1)
+    if whiten == "invert":
+        u = wmat.transpose(-1, -2) @ ritz[..., :num_vectors]
+    else:
+        u = torch.linalg.solve_triangular(
+            wmat.transpose(-1, -2), ritz[..., :num_vectors], upper=True
+        )
+    bad_u = ~torch.isfinite(u)
+    bad_d = ~torch.isfinite(d)
+    silenced = bad_u.sum(dtype=torch.int32) + bad_d.sum(dtype=torch.int32)
+    ritz = torch.where(torch.isfinite(ritz), ritz, q_init)
+    u = torch.where(bad_u, torch.zeros_like(u), u)
+    d = torch.where(bad_d, torch.zeros_like(d), d)
+    return u, d, ritz, silenced
+
+
+def jdiag_topk_batched(
+    A: torch.Tensor,
+    B: torch.Tensor,
+    reg: float,
+    num_vectors: int,
+    iters: int,
+    q_init: torch.Tensor,
+    orth: str = "qr",
+    whiten: str = "solve",
+    small_eigh: str = "lapack",
+    jacobi_sweeps: int = 4,
+    fused_iteration: bool = False,
+    whiten_kernel: bool = False,
+):
+    """Top-k generalized eigenpairs of a (z, n, n) pencil batch by blocked
+    subspace iteration, warm-started from ``q_init`` (z, n, k).
+
+    ``whiten_kernel`` ('invert' only, float32) factors the loaded dark
+    matrices with :func:`blocked_cholesky` (kernel K10a per panel).
+    ``fused_iteration`` runs the power steps, CholeskyQR2 and the
+    Rayleigh-Ritz projection as kernel K9; it requires whiten='invert' and
+    orth='cholqr2'. ``small_eigh="jacobi"`` solves the projections with K4.
+
+    Returns ``(u, d, q, silenced)``: u (z, n, num_vectors) and d descending,
+    the carry, and the count of non-finite outputs zeroed (int32).
+    """
+    n = A.shape[-1]
+    eye = torch.eye(n, dtype=A.dtype, device=A.device)
+    li_pre = None
+    if whiten_kernel and whiten == "invert":
+        li_pre = triangular_inverse(blocked_cholesky(B + reg * eye))
+    if fused_iteration:
+        if whiten != "invert" or orth != "cholqr2":
+            raise ValueError("fused_iteration requires whiten='invert', orth='cholqr2'")
+        wmat = li_pre if li_pre is not None else triangular_inverse(cholesky(B + reg * eye))
+        q, small = subspace_iterate(
+            A.contiguous(), wmat.contiguous(), q_init.contiguous(), iters
+        )
+    else:
+        small, q, wmat = _topk_project(A, B, reg, iters, q_init, orth, whiten, li_pre)
+    d, v = _small_eigh(small, small_eigh, jacobi_sweeps)
+    return _topk_extract(d, v, q, wmat, num_vectors, q_init, whiten)
+
+
+def jdiag_topk(A, B, reg, num_vectors, iters, q_init, orth="qr", whiten="solve"):
+    """One pencil of :func:`jdiag_topk_batched` (LAPACK Rayleigh-Ritz, no
+    kernels). Returns ``(u, d, q)``."""
+    u, d, q, _ = jdiag_topk_batched(
+        A[None], B[None], reg, num_vectors, iters, q_init[None], orth, whiten
+    )
+    return u[0], d[0], q[0]
+
+
+def _basis_healthy(q: torch.Tensor) -> torch.Tensor:
+    """Per batch element: all finite and no column underflowed to zero (a
+    zero warm start is absorbing)."""
+    fin = torch.isfinite(q).all(dim=-1).all(dim=-1)
+    cn = (q * q).sum(-2).min(-1).values
+    return fin & (cn > 1e-20)
+
+
+def jdiag_topk_pencil_batched(
+    A: torch.Tensor,
+    B: torch.Tensor,
+    reg: float,
+    num_vectors: int,
+    iters: int,
+    q_init: torch.Tensor,
+    m_init: torch.Tensor,
+    orth: str = "cholqr2",
+    small_eigh: str = "lapack",
+    jacobi_sweeps: int = 4,
+    newton_steps: int = 1,
+    resid_max: float = 0.7,
+):
+    """Top-k GEVD with a carried approximate inverse M ~ (B + reg I)^-1
+    ('newton' whitening) in place of a per-hop Cholesky.
+
+    M is refreshed by ``newton_steps`` Newton-Schulz steps
+    M <- M (2I - B M) while the worst Frobenius residual ||I - B M|| of the
+    batch stays below ``resid_max``, and rebuilt from a fresh Cholesky
+    otherwise (cold start, onsets, a non-finite M). JAX takes that decision
+    on the device with ``lax.cond``; here it is a host bool (one device
+    read per hop), so only the branch taken runs. The subspace iterates on
+    M A, and the small problem is the projected pencil (q^T A q, q^T B q).
+
+    Returns ``(u, d, q_next, m_next, silenced, rebuilt)``.
+    """
+    z, n, _ = A.shape
+    eye = torch.eye(n, dtype=A.dtype, device=A.device)
+    b_l = B + reg * eye
+    resid = eye - b_l @ m_init
+    worst = torch.sqrt(resid.square().sum((-2, -1))).max()
+    rebuilt = not bool(torch.isfinite(worst) & (worst < resid_max))
+    if rebuilt:
+        li = triangular_inverse(cholesky(b_l))
+        m = li.transpose(-1, -2) @ li
+    else:
+        m = m_init + m_init @ resid
+        for _ in range(newton_steps - 1):
+            m = m + m @ (eye - b_l @ m)
+    m = _sym(m)
+
+    orthonormalize = _orthonormalizer(orth)
+    q = q_init
+    for _ in range(iters):
+        q = orthonormalize(m @ (A @ q))
+
+    # Pencil Rayleigh-Ritz on the exact A, B.
+    k = q.shape[-1]
+    qt = q.transpose(-1, -2)
+    abar = _sym(qt @ (A @ q))
+    bbar = _sym(qt @ (b_l @ q))
+    eyek = torch.eye(k, dtype=A.dtype, device=A.device)
+    # Trace-relative, dtype-scaled jitter: bbar is PD in exact arithmetic.
+    tr = torch.diagonal(bbar, dim1=-2, dim2=-1).sum(-1) / k
+    jit_rel = 8.0 * torch.finfo(A.dtype).eps
+    lib = neumann_tri_inverse(cholesky(bbar + (jit_rel * tr)[:, None, None] * eyek))
+    white = _sym((lib @ abar) @ lib.transpose(-1, -2))
+    d, v = _small_eigh(white, small_eigh, jacobi_sweeps)
+    ubar = lib.transpose(-1, -2) @ v
+    d_desc = d.flip(-1)[..., :num_vectors]
+    u = q @ ubar.flip(-1)[..., :num_vectors]
+    # Carry: the Ritz-rotated (euclidean-orthonormal) subspace, descending.
+    ritz = q @ v.flip(-1)
+
+    bad_u = ~torch.isfinite(u)
+    bad_d = ~torch.isfinite(d_desc)
+    silenced = bad_u.sum(dtype=torch.int32) + bad_d.sum(dtype=torch.int32)
+    ritz = torch.where(torch.isfinite(ritz), ritz, q_init)
+    # Zone-wise degeneracy guard: a zone whose carry underflowed to zero
+    # restarts from q_init, or from identity columns if q_init is bad too.
+    eye_nk = eye[:, :k].expand_as(ritz)
+    fallback = torch.where(_basis_healthy(q_init)[:, None, None], q_init, eye_nk)
+    ritz = torch.where(_basis_healthy(ritz)[:, None, None], ritz, fallback)
+    u = torch.where(bad_u, torch.zeros_like(u), u)
+    d_desc = torch.where(bad_d, torch.zeros_like(d_desc), d_desc)
+    # A non-finite M self-heals: its residual forces the next rebuild.
+    return u, d_desc, ritz, m, silenced, rebuilt
+
+
 def jdiag_topk_tracked(
     A: torch.Tensor,
     B: torch.Tensor,
@@ -127,13 +348,7 @@ def jdiag_topk_tracked(
     # rebuild threshold). A basis is healthy iff all-finite and no column
     # has underflowed; unhealthy zones restart from identity columns.
     eye_nk = eye[:, :k].expand(z, n, k)
-
-    def basis_healthy(qz):
-        fin = torch.isfinite(qz).all(dim=-1).all(dim=-1)
-        cn = (qz * qz).sum(-2).min(-1).values
-        return fin & (cn > 1e-20)
-
-    healthy0 = basis_healthy(q_init)
+    healthy0 = _basis_healthy(q_init)
     q_init = torch.where(healthy0[:, None, None], q_init, eye_nk)
     lam_init = torch.where(healthy0[:, None], lam_init, torch.zeros_like(lam_init))
 
@@ -162,11 +377,6 @@ def jdiag_topk_tracked(
     if rebuild:
         fresh = triangular_inverse(cholesky(b_full()))
         li = torch.where(torch.isfinite(fresh), fresh, li_carry)
-
-    def small_solve(h):
-        if small_eigh == "jacobi":
-            return jacobi_eigh(h.contiguous(), jacobi_sweeps)
-        return eigh(h)
 
     q, lam = q_init, lam_init
     resid_rel = None
@@ -216,7 +426,7 @@ def jdiag_topk_tracked(
         for _ in range(2):
             y = _cholqr2(wbar @ y)
         h = _sym(y.transpose(-1, -2) @ (wbar @ y))
-        d, v = small_solve(h)  # ascending
+        d, v = _small_eigh(h, small_eigh, jacobi_sweeps)  # ascending
         # Pencil coordinates, descending, c^T bbar c = I.
         c = libar.transpose(-1, -2) @ (y @ v.flip(-1))
         q = s @ c  # B-orthonormal Ritz vectors
@@ -234,7 +444,7 @@ def jdiag_topk_tracked(
     # the sanitized entry basis. (Li is healed inside the rebuild.)
     q = torch.where(torch.isfinite(q), q, q_init)
     lam = torch.where(torch.isfinite(lam), lam, torch.zeros_like(lam))
-    healthy1 = basis_healthy(q)
+    healthy1 = _basis_healthy(q)
     q = torch.where(healthy1[:, None, None], q, q_init)
     lam = torch.where(healthy1[:, None], lam, lam_init)
     # A degenerate hop must force the caller's rebuild: report +inf, not

@@ -21,12 +21,16 @@ from apvast_torch.ops.kernels.streaming_conv import (
     streaming_conv,
     streaming_conv_plain,
 )
+from apvast_torch.ops.kernels.subspace import subspace_iterate, subspace_iterate_plain
+from apvast_torch.ops.kernels.whiten import blocked_cholesky, chol_panel, chol_panel_plain
 
 # name -> wrapper, in the hop's stage order.
 WRAPPERS = {
     "streaming_conv": streaming_conv,
     "lag_corr": lag_corr,
     "skew_assembly": lag_skew_assemble,
+    "whiten": chol_panel,
+    "subspace": subspace_iterate,
     "jacobi_eigh": jacobi_eigh,
     "output_filter": circular_filter_overlap,
 }
@@ -43,6 +47,9 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "WRAPPERS",
+    "blocked_cholesky",
+    "chol_panel",
+    "chol_panel_plain",
     "circular_filter_overlap",
     "circular_filter_overlap_plain",
     "jacobi_eigh",
@@ -55,4 +62,6 @@ __all__ = [
     "reset_launch_counts",
     "streaming_conv",
     "streaming_conv_plain",
+    "subspace_iterate",
+    "subspace_iterate_plain",
 ]

@@ -31,7 +31,8 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
 KERNEL_SOURCES = (
-    "streaming_conv", "lag_corr", "skew_assembly", "jacobi_eigh", "output_filter",
+    "streaming_conv", "lag_corr", "skew_assembly", "whiten", "subspace", "jacobi_eigh",
+    "output_filter",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -102,14 +103,18 @@ def library(name: str) -> ctypes.CDLL:
 
 def launch(name: str, entry: str, *args) -> None:
     """Call the C entry point ``entry`` of ``csrc/<name>.cu`` on the current
-    CUDA stream. ``args`` are tensors (passed as device pointers) and
-    Python ints (passed as C ints); raises if the launch reports an error."""
+    CUDA stream. ``args`` are tensors (passed as device pointers), Python
+    ints (passed as C ints) and Python floats (passed as C floats); raises
+    if the launch reports an error."""
     fn = getattr(library(name), entry)
     argtypes, values = [], []
     for a in args:
         if isinstance(a, torch.Tensor):
             argtypes.append(ctypes.c_void_p)
             values.append(a.data_ptr())
+        elif isinstance(a, float):
+            argtypes.append(ctypes.c_float)
+            values.append(a)
         else:
             argtypes.append(ctypes.c_int)
             values.append(int(a))

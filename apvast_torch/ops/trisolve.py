@@ -3,10 +3,12 @@
 ``neumann_tri_inverse`` is the matmul-only inverse of a small lower
 factor, kept as written: CholeskyQR2 (``ops/jdiag._cholqr2``) uses it, and
 its zero-diagonal guard decides what a collapsed (silent) pencil gives.
-``triangular_inverse`` inverts a large Cholesky factor. The JAX function
-splits it into blocks to dodge the TPU's latency-bound substitution; on
-the card one batched ``solve_triangular`` against the identity is the
-same inverse (the JAX function's own path for blocks it cannot split).
+``clamped_cholesky`` is the column Cholesky of the TPU kernels K9 and K10a,
+which their plain versions share. ``triangular_inverse`` inverts a large
+Cholesky factor. The JAX function splits it into blocks to dodge the
+TPU's latency-bound substitution; on the card one batched
+``solve_triangular`` against the identity is the same inverse (the JAX
+function's own path for blocks it cannot split).
 """
 
 from __future__ import annotations
@@ -35,6 +37,24 @@ def neumann_tri_inverse(l: torch.Tensor, refine: int = 2) -> torch.Tensor:
     for _ in range(refine):
         x = x + x @ (eye - l @ x)
     return x
+
+
+def clamped_cholesky(g: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of (batched) ``g`` by the TPU kernels' column
+    algorithm (``subspace.py::_chol_2d``, ``whiten.py::_chol_sub``): step c
+    scales column c by ``rsqrt(max(pivot, 1e-30))`` and subtracts its outer
+    product from the trailing matrix. Only the lower triangle of ``g`` is
+    read. A pivot <= 0 scales its column by 1e15, so an indefinite ``g``
+    gives a non-finite factor, where ``cholesky_ex`` would report it."""
+    p = g.shape[-1]
+    g = g.clone()
+    l = torch.zeros_like(g)
+    for c in range(p):
+        isr = torch.rsqrt(g[..., c, c].clamp_min(1e-30))
+        col = g[..., c:, c] * isr[..., None]
+        l[..., c:, c] = col
+        g[..., c + 1 :, c + 1 :] -= col[..., 1:, None] * col[..., None, 1:]
+    return l
 
 
 def triangular_inverse(chol: torch.Tensor) -> torch.Tensor:

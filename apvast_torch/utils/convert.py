@@ -17,9 +17,10 @@ from apvast_torch import config as cfg_mod
 from apvast_torch.engine.plan import ApVastPlan
 from apvast_torch.engine.state import (
     ApVastState,
+    SubspaceState,
     TrackingState,
     state_shapes,
-    tracking_shapes,
+    subspace_shapes,
 )
 from apvast_torch.utils.device import resolve_device, torch_dtype
 
@@ -32,19 +33,13 @@ _ENUM_FIELDS = {
     "perceptual_frontend": cfg_mod.PerceptualFrontend,
     "gevd_solver": cfg_mod.GevdSolver,
 }
-_WHITEN = "the 'invert'/'newton' subspace solvers, a later slice of the port"
 _FD = "the frequency-domain engine, a later slice of the port"
 _MATLAB = "MATLAB regularization, a later slice of the port"
 # JAX config fields that no ported path reads yet: the values the port
-# accepts for each, and the slice that brings it. The power-iteration
-# knobs of the 'invert'/'newton' solvers are accepted at their JAX
-# default and at the value of JAX's production_overrides("tpu"); the
-# tracking solver does not read them.
+# accepts for each (its JAX default), and the slice that brings it.
 UNPORTED_FIELDS = {
     "bright_loading": ((1e-8,), _MATLAB),
     "dark_loading": ((5e-3,), _MATLAB),
-    "subspace_iters": ((3, 2), _WHITEN),
-    "subspace_orth": (("cholqr2",), _WHITEN),
     "fd_frame_taps": ((1,), _FD),
     "fd_bin_coupling": ((1,), _FD),
     "fd_eigh": (("lapack",), _FD),
@@ -160,27 +155,21 @@ def state_from_numpy(
     config: cfg_mod.ApVastConfig, arrays: dict, device=None
 ) -> ApVastState:
     """A port state from the leaves of a JAX ``ApVastState`` as NumPy arrays,
-    e.g. to continue a stream part-way through. The tracking solver's
-    carry (``gevd_*``) is required for a tracking config and refused for
-    any other."""
+    e.g. to continue a stream part-way through. The subspace solver's
+    carry (the ``gevd_*`` leaves its whitening has) is required, and a
+    ``gevd_*`` leaf of another solver is refused."""
     device = resolve_device(device)
     dtype = torch_dtype(config)
-    tracking = tracking_shapes(config)
-    if not tracking:
-        for name in _SUBSPACE_STATE:
-            if arrays.get(name) is not None:
-                if config.gevd_solver is cfg_mod.GevdSolver.SUBSPACE:
-                    raise NotImplementedError(
-                        f"state field {name} of subspace_whiten="
-                        f"{config.subspace_whiten!r} belongs to {_WHITEN}"
-                    )
-                raise ValueError(f"state field {name} belongs to no solver of this config")
+    solver = subspace_shapes(config)
+    for name in _SUBSPACE_STATE:
+        if name not in solver and arrays.get(name) is not None:
+            raise ValueError(f"state field {name} belongs to no solver of this config")
     shapes = state_shapes(config)
     unknown = set(arrays) - set(shapes) - set(_SUBSPACE_STATE)
     if unknown:
         raise ValueError(f"state arrays the port does not have: {sorted(unknown)}")
     carry = {}
-    for name, shape in tracking.items():
+    for name, shape in solver.items():
         if name == "gevd_hop":
             if arrays.get(name) is None:
                 raise ValueError("gevd_hop is required")
@@ -191,10 +180,12 @@ def state_from_numpy(
         else:
             dt = torch.float32 if name == "gevd_resid" else dtype
             carry[name] = _tensor(name, arrays.get(name), shape, device, dt)
-    return (TrackingState if carry else ApVastState)(
-        **{
-            name: _tensor(name, arrays.get(name), shape, device, dtype)
-            for name, shape in shapes.items()
-        },
-        **carry,
-    )
+    data = {
+        name: _tensor(name, arrays.get(name), shape, device, dtype)
+        for name, shape in shapes.items()
+    }
+    if not carry:
+        return ApVastState(**data)
+    if "gevd_lam" in carry:
+        return TrackingState(**data, **carry)
+    return SubspaceState(**data, **({"gevd_minv": None} | carry))

@@ -7,21 +7,29 @@
 Phase 0  environment: card name and power limit, torch/CUDA versions,
          TF32 off for matmuls and cuDNN.
 Phase 1  build: every kernel of apvast_torch/csrc with nvcc (one process
-         per source, all at once).
+         per source, all at once): K1-K5, K9 and K10a.
 Phase 2  each kernel against its plain PyTorch version on the card, at the
          north-star shapes and at ragged small shapes:
          max|kernel - plain| / max|plain| <= 1e-4 (fp32 sums taken in
          another order). K3 in both forms; K4 at (2, 64, 64) with 2 sweeps
          on a warm-start-like (near-diagonal) input and with 8 sweeps on a
          cold random one (eigenvector columns compared up to sign: a
-         converged column's sign is the rotation history's choice). Times
+         converged column's sign is the rotation history's choice), and at
+         3 sweeps on the invert path's own Rayleigh-Ritz matrices (captured
+         from its first hops on the card), where rounding picks rotations
+         and the eigenvectors are chaotic: there the eigenvalues, their
+         agreement with diag(V^T h V), V's orthonormality and the
+         off-diagonal remainder (within 1.5x the plain version's) are held.
+         K10a also on an ill-conditioned panel (its whitening residual
+         within 2x that of cholesky_ex + solve_triangular) and on a non-PD
+         one (non-finite output). Times
          by CUDA events after warm-up, with the 50 MB L2 flushed (a 64 MB
          read) before every launch; the bound is the larger of bytes over
          3.35 TB/s and fp32 operations over 67 TFLOP/s (H100 SXM published
          peaks).
 Phase 3  the main path, ``ApVast`` on ``scale_scene(16)`` for 64 hops (two
          rebuild periods) on the card, input and initial noise from a seed,
-         in two configurations:
+         in three configurations:
          production ``production_overrides()`` (the tracking GEVD solver
                     with K4, half-form K3): K1-K5 each launched once per
                     hop, ``silenced == 0``, the rebuild count and residual
@@ -36,13 +44,28 @@ Phase 3  the main path, ``ApVast`` on ``scale_scene(16)`` for 64 hops (two
                     K2, K3 (full form) and K5 once per hop, no K4, and the
                     first 8 hops against a free-running CPU run with the
                     same tolerances (R in full form).
+         invert     ``production_overrides() | {subspace_whiten: "invert",
+                    jacobi_sweeps: 3, use_pallas_subspace: True,
+                    use_pallas_whiten: True}`` (the round-3 solver): K1-K5
+                    and K9 once per hop, K10a 7 times (JL = 800 pads to 7
+                    panels), full-form K3.
+         Then 8 hops each of ``production_overrides() | {subspace_whiten:
+         "solve"}`` and ``{... "newton"}`` (K4 at 2 sweeps, no K9 or K10a).
+         Under these three solvers K4's 2-3 sweeps are unconverged on a
+         Rayleigh-Ritz matrix that is not near-diagonal, and the loudspeaker
+         feeds of single hops part from the CPU's by rounding (up to 0.6 of
+         scale). So each of the three is compared with the CPU, as the
+         production path (hop by hop from the card's state, to the same
+         tolerances), in a second run of 8 hops with K4 at 8 sweeps
+         (converged).
          Contrast gate: acoustic contrast of zone A over hops 7-64 at rank 1
          and rank V (= 50), computed with ``apvast_torch.evaluation``; the
-         production path must be within 0.25 dB of the exact path at both
-         ranks (the JAX package's gate, tools/tracking_gate.py).
+         production and the invert path must each be within 0.25 dB of the
+         exact path at both ranks (the JAX package's gate,
+         tools/tracking_gate.py and tests/test_jacobi_eigh.py).
 Phase 4  (``--profile``) device time by kernel and by stage over 32
-         steady-state hops of the production path (one rebuild period),
-         and the device's idle share.
+         steady-state hops of the production and of the invert path, and
+         the device's idle share.
 
 The last line of output is ``{"ok": true, "device": {...}}``; any failure
 exits non-zero before it.
@@ -141,6 +164,7 @@ def _cold(g, dev, b, n):
 def phase2(scene, dev, card):
     from apvast_torch.engine.plan import build_plan
     from apvast_torch.ops import kernels as K
+    from apvast_torch.ops.jdiag import _topk_project
 
     cfg = scene.config
     g = torch.Generator(device="cpu").manual_seed(SEED)
@@ -180,6 +204,28 @@ def phase2(scene, dev, card):
     k4 = min(v + 14, cfg.jl)
     npad = -(-k4 // 8) * 8
     h_warm, h_cold = _warm(g, dev, 2, k4), _cold(g, dev, 2, k4)
+
+    # K10a: random SPD panels of the main path's shape (2, 128, 128); an
+    # ill-conditioned and a non-PD panel beside them.
+    def spd(b, n, boost=0.0):
+        x = torch.randn((b, n, n), generator=g, dtype=torch.float32)
+        out = x @ x.transpose(1, 2) / n + torch.eye(n)
+        if boost:
+            out[0] += boost * torch.outer(x[0, 0], x[0, 0]) / n
+        return out.to(dev).contiguous()
+
+    panel = spd(2, 128)
+    eye128 = torch.eye(128, device=dev)
+
+    # K9: random SPD matrices and inverse Cholesky factors (lower triangular)
+    # of the main path's shapes (2, 800, 800), a (2, 800, 64) warm start, 2
+    # iterations (production_overrides()' subspace_iters).
+    jl, k9 = cfg.jl, min(v + 14, cfg.jl)
+    a9 = spd(2, jl)
+    li9 = torch.linalg.inv(torch.linalg.cholesky(spd(2, jl))).contiguous()
+    q9 = rnd(2, jl, k9)
+    r200 = (spd(2, 200), torch.linalg.inv(torch.linalg.cholesky(spd(2, 200))).contiguous(),
+            rnd(2, 200, 24))
 
     # K5 output filter: windowed block (2, block), V*S filter rows.
     x5 = (plan.window * rnd(2, block)).contiguous()
@@ -247,6 +293,45 @@ def phase2(scene, dev, card):
             ],
         ),
         dict(
+            name="whiten", route="cuda",
+            source="apvast_torch/csrc/whiten.cu",
+            replaces="apvast_tpu/ops/pallas/whiten.py:204",
+            kernel=lambda: K.chol_panel(panel),
+            plain=lambda: K.chol_panel_plain(panel),
+            library=None,
+            # Context: the library factorization and inverse of the same batch.
+            context=lambda: torch.linalg.solve_triangular(
+                torch.linalg.cholesky_ex(panel)[0], eye128.expand(2, 128, 128), upper=False),
+            # Per panel n^3 / 3 flops for the factor and n^3 / 3 for its
+            # triangular inverse; the panel read once, both factors written.
+            flops=2 * 2 * 128**3 // 3,
+            bytes=4 * 3 * 2 * 128 * 128,
+            ragged=[
+                (K.chol_panel, K.chol_panel_plain, (spd(1, 128),)),
+                (K.chol_panel, K.chol_panel_plain, (spd(3, 128),)),
+            ],
+        ),
+        dict(
+            name="subspace", route="cuda",
+            source="apvast_torch/csrc/subspace.cu",
+            replaces="apvast_tpu/ops/pallas/subspace.py:130",
+            kernel=lambda: K.subspace_iterate(a9, li9, q9, 2),
+            plain=lambda: K.subspace_iterate_plain(a9, li9, q9, 2),
+            library=None,
+            # Context: the unfused 'invert' chain of the solver (power steps
+            # with CholeskyQR2, and the projection) on the same inputs.
+            context=lambda: _topk_project(a9, a9, 0.0, 2, q9, "cholqr2", "invert", li9),
+            # Per pencil (iters + 1) applications of Li A Li^T, 4 n^2 k flops
+            # (Li triangular), and (4 iters + 1) n k^2 for the symmetric Grams
+            # and triangular L^-T products; a, li read and q0, q written once.
+            flops=2 * (3 * 4 * jl * jl * k9 + 9 * jl * k9 * k9),
+            bytes=4 * 2 * (2 * jl * jl + 2 * jl * k9),
+            ragged=[
+                (lambda a, b, c: K.subspace_iterate(a, b, c, 2),
+                 lambda a, b, c: K.subspace_iterate_plain(a, b, c, 2), r200),
+            ],
+        ),
+        dict(
             name="jacobi_eigh", route="cuda",
             source="apvast_torch/csrc/jacobi_eigh.cu",
             replaces="apvast_tpu/ops/pallas/jacobi_eigh.py:158",
@@ -290,6 +375,8 @@ def phase2(scene, dev, card):
         ),
     ]
 
+    _whiten_conditioning(K, spd, eye128)
+    _jacobi_on_invert_hops(scene, dev, card)
     for c in cases:
         errs = _errs(c["kernel"](), c["plain"]())
         torch.cuda.synchronize()
@@ -313,6 +400,10 @@ def phase2(scene, dev, card):
         kernel_ms = _time_ms(c["kernel"], 50, flush)
         plain_ms = _time_ms(c["plain"], 10, flush)
         library_ms = _time_ms(c["library"], 50, flush) if c["library"] else None
+        if "context" in c:
+            extra_ms["context_ms"] = _time_ms(c["context"], 50, flush)
+            print(f"[phase 2] {c['name']}: context (see the docstring) "
+                  f"{extra_ms['context_ms']:.5f} ms card={card}", flush=True)
         t_ops = c["flops"] / PEAK_FP32_FLOPS * 1e3
         t_bytes = c["bytes"] / PEAK_BYTES * 1e3
         bound_ms = max(t_ops, t_bytes)
@@ -334,12 +425,115 @@ def phase2(scene, dev, card):
     return results
 
 
-def _noise(cfg, rng):
+def _whiten_conditioning(K, spd, eye):
+    """K10a on an ill-conditioned panel (a 1e5 rank-one boost): its whitening
+    residual max |X d X^T - I| within twice that of cholesky_ex +
+    solve_triangular (plus 1e-5), as tests/test_whiten_kernel.py holds the
+    TPU kernel; and a panel with a negative pivot gives non-finite output."""
+    d = spd(2, 128, boost=1e5)
+    _, x = K.chol_panel(d)
+    ref = torch.linalg.solve_triangular(
+        torch.linalg.cholesky_ex(d)[0], eye.expand(2, 128, 128), upper=False)
+
+    def residual(x):
+        x = x.double()
+        return float((x @ d.double() @ x.transpose(1, 2) - eye.double()).abs().max())
+
+    res, res_ref = residual(x), residual(ref)
+    print(f"[phase 2] whiten ill-conditioned panel: whitening residual {res:.3e}, "
+          f"cholesky_ex + solve_triangular {res_ref:.3e}", flush=True)
+    if not res <= 2.0 * res_ref + 1e-5:
+        raise AssertionError(f"whiten: residual {res:.3e} > 2 x {res_ref:.3e} + 1e-5")
+    bad = spd(2, 128)
+    bad[1, 70, 70] = -1.0
+    l, x = K.chol_panel(bad)
+    torch.cuda.synchronize()
+    if torch.isfinite(l[1]).all() or torch.isfinite(x[1]).all() or not torch.isfinite(l[0]).all():
+        raise AssertionError("whiten: a non-PD panel must give non-finite output, a PD one finite")
+    print("[phase 2] whiten non-PD panel: non-finite factor and inverse (PD panel beside it "
+          "finite)", flush=True)
+
+
+def _inputs(scene):
+    """The seeded initial response noise and the (2, HOPS * hop) program
+    signals of every phase-3 path."""
+    cfg = scene.config
     m, s, block = cfg.num_mics, cfg.num_srcs, cfg.block_size
-    return (
+    rng = np.random.default_rng(SEED)
+    noise = (
         1e-3 * rng.standard_normal((4, m, s, block)),
         1e-3 * rng.standard_normal((2, m, block)),
     )
+    return noise, rng.standard_normal((2, HOPS * cfg.hop)).astype(np.float32)
+
+
+def _jacobi_state(h, d, v):
+    """In float64, per matrix: the off-diagonal remainder ||off(V^T h V)||
+    over ||h|| (Frobenius); and over the batch: |sorted diag(V^T h V) - d|
+    over max |d|, and max |V^T V - I|."""
+    h, d, v = h.double(), d.double(), v.double()
+    a = v.transpose(1, 2) @ h @ v
+    diag = torch.diagonal(a, dim1=-2, dim2=-1)
+    off = (a - torch.diag_embed(diag)).norm(dim=(-2, -1)) / h.norm(dim=(-2, -1))
+    eye = torch.eye(v.shape[-1], dtype=v.dtype, device=v.device)
+    return (off, _rel(torch.sort(diag, -1)[0], d)[1],
+            float((v.transpose(1, 2) @ v - eye).abs().max()))
+
+
+def _jacobi_on_invert_hops(scene, dev, card):
+    """K4 at the invert path's sweeps on its own Rayleigh-Ritz matrices:
+    those of the path's first WITNESS_HOPS hops on the card (phase 3's
+    input), captured where the solver calls K4. These matrices are far from
+    diagonal, and where two diagonal entries are close a rounding-sized
+    change picks the other of two +-45 degree rotations, so the unconverged
+    eigenvectors of the plain version itself move by O(1) under ULP_REL
+    changes of the input (reported, the most of 3 draws). What does not
+    move is held: the eigenvalues against the plain version's (TOL_KERNEL),
+    the kernel's eigenvalues against the diagonal of V^T h V and V's
+    orthonormality (TOL_KERNEL), and its off-diagonal remainder within
+    JACOBI_REMAINDER times the plain version's on every matrix (one sweep
+    fewer leaves 3-8 times as much)."""
+    from apvast_torch import production_overrides
+    from apvast_torch.ops import jdiag
+    from apvast_torch.ops import kernels as K
+
+    noise, sig = _inputs(scene)
+    model = _model(scene, dev, noise, production_overrides() | INVERT)
+    sig = torch.as_tensor(sig).to(dev).reshape(2, HOPS, -1)
+    captured = []
+    solve = jdiag.jacobi_eigh
+    jdiag.jacobi_eigh = lambda h, sweeps: (captured.append(h.clone()), solve(h, sweeps))[1]
+    try:
+        for i in range(WITNESS_HOPS):
+            model.process_input_buffers(sig[0, i], sig[1, i])
+    finally:
+        jdiag.jacobi_eigh = solve
+    h = torch.cat(captured)
+    sweeps = INVERT["jacobi_sweeps"]
+    got, want = K.jacobi_eigh(h, sweeps), K.jacobi_eigh_plain(h, sweeps)
+    (_, d_rel), (_, v_rel) = _errs(got, want)
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    spread = 0.0
+    for _ in range(3):
+        hp = h * (1 + ULP_REL * torch.randn(h.shape, generator=g).to(dev))
+        spread = max(spread, _errs(K.jacobi_eigh_plain((hp + hp.transpose(1, 2)) / 2,
+                                                       sweeps), want)[1][1])
+    off, consistency, orth = _jacobi_state(h, *got)
+    off_plain = _jacobi_state(h, *want)[0]
+    ratio = float((off / off_plain).max())
+    print(f"[phase 2] jacobi_eigh, {sweeps} sweeps, on the invert path's Rayleigh-Ritz "
+          f"matrices {tuple(h.shape)} (hops 1-{WITNESS_HOPS}): eigenvalues rel_err={d_rel:.3e}; "
+          f"eigenvalues against diag(V^T h V) {consistency:.3e}; max |V^T V - I| {orth:.3e}; "
+          f"off-diagonal remainder {[round(x, 5) for x in off.tolist()]}, plain "
+          f"{[round(x, 5) for x in off_plain.tolist()]} (most {ratio:.3f} x); eigenvectors "
+          f"rel_err={v_rel:.3e}, the plain version's own under {ULP_REL:.0e} input changes "
+          f"{spread:.3e} (reported) card={card}", flush=True)
+    _check("jacobi_eigh on the invert hops, eigenvalues", d_rel, TOL_KERNEL)
+    _check("jacobi_eigh on the invert hops, eigenvalues against V^T h V", consistency, TOL_KERNEL)
+    _check("jacobi_eigh on the invert hops, orthonormality", orth, TOL_KERNEL)
+    if not ratio <= JACOBI_REMAINDER:
+        raise AssertionError(f"jacobi_eigh on the invert hops: off-diagonal remainder "
+                             f"{ratio:.3f} x the plain version's > {JACOBI_REMAINDER}")
 
 
 def _model(scene, device, noise, overrides):
@@ -380,28 +574,75 @@ def _contrast(scene, tail_a):
     return [float(x) for x in acoustic_contrast_db(bright, dark)]
 
 
-def drive(scene, dev, card, label, overrides, want_counts, sig, noise):
-    """HOPS hops of one configuration on the card: launch counts, health,
-    steady-state time, the first CPU_HOPS hops against the CPU, and the
-    zone-A tail feeds at rank 1 and rank V for the contrast."""
-    from apvast_torch.config import uses_tracking_solver
+def _compare_with_cpu(scene, label, cfg, overrides, noise, states, outs, hops_a, hops_b):
+    """The first CPU_HOPS hops through the port on the CPU (plain versions):
+    from the card's state hop by hop under a subspace solver (unconverged
+    Jacobi sweeps make a free-running stream drift), free-running under the
+    exact one. Statistics to TOL_STATS, target feeds to TOL_TARGET and
+    loudspeaker feeds to TOL_FEEDS."""
+    from apvast_torch.config import uses_subspace_solver
     from apvast_torch.engine import build_plan, hop_statistics, process_hop
+    from apvast_torch.engine.hop import half_form
+
+    t2 = time.perf_counter()
+    if uses_subspace_solver(cfg):
+        plan = build_plan(cfg, scene.rir_a, scene.rir_b, "cpu")
+        cpu_outs = []
+        for i in range(CPU_HOPS):
+            cpu_state, o = process_hop(cfg, plan, _to(states[i], "cpu"), hops_a[i], hops_b[i])
+            cpu_outs.append((o.out_a, o.out_b, o.out_a_t, o.out_b_t))
+            for name, a, b in zip(
+                ("M" if half_form(cfg) else "R", "r"),
+                hop_statistics(cfg, states[i + 1].wresp_stat, states[i + 1].wtarget_stat),
+                hop_statistics(cfg, cpu_state.wresp_stat, cpu_state.wtarget_stat),
+            ):
+                _check(f"{label} hop {i + 1} statistics {name}", _rel(a.cpu(), b)[1], TOL_STATS)
+        print(f"[phase 3] {label}: statistics ({'M' if half_form(cfg) else 'R'}, r) of "
+              f"hops 1-{CPU_HOPS} within {TOL_STATS:.0e} of the CPU", flush=True)
+    else:
+        cpu = _model(scene, "cpu", noise, overrides)
+        cpu_outs = [cpu.process_input_buffers(hops_a[i], hops_b[i]) for i in range(CPU_HOPS)]
+        for name, a, b in zip(
+            ("R", "r"),
+            hop_statistics(cfg, states[-1].wresp_stat, states[-1].wtarget_stat),
+            hop_statistics(cfg, cpu.state.wresp_stat, cpu.state.wtarget_stat),
+        ):
+            _compare(label, f"hop {CPU_HOPS} statistics {name}", a.cpu(), b, TOL_STATS)
+    for f, name in enumerate(("out_a", "out_b", "out_a_t", "out_b_t")):
+        g = torch.stack([o[f] for o in outs]).cpu()
+        c = torch.stack([o[f].expand_as(g[0]) for o in cpu_outs])
+        per_hop = [f"{_rel(g[i], c[i])[1]:.1e}" for i in range(CPU_HOPS)]
+        target = name.endswith("_t")
+        print(f"[phase 3] {label} {name} vs CPU, hops 1-{CPU_HOPS}: per hop {per_hop}",
+              flush=True)
+        _check(f"{label} {name} vs CPU", _rel(g, c)[1], TOL_TARGET if target else TOL_FEEDS)
+    print(f"[phase 3] {label}: CPU comparison took {time.perf_counter() - t2:.1f} s", flush=True)
+
+
+def drive(scene, dev, card, label, overrides, want_counts, sig, noise, hops=None,
+          compare_cpu=True):
+    """``hops`` (default HOPS) hops of one configuration on the card: launch
+    counts, health, steady-state time, the first CPU_HOPS hops against the
+    CPU (unless ``compare_cpu`` is false), and the zone-A tail feeds at rank
+    1 and rank V for the contrast."""
+    from apvast_torch.config import uses_tracking_solver
     from apvast_torch.engine.hop import half_form
     from apvast_torch.ops import kernels as K
 
+    hops = HOPS if hops is None else hops
     model = _model(scene, dev, noise, overrides)
     cfg = model.config
     tracking = uses_tracking_solver(cfg)
-    hops_a = torch.as_tensor(sig[0]).reshape(HOPS, cfg.hop)
-    hops_b = torch.as_tensor(sig[1]).reshape(HOPS, cfg.hop)
+    hops_a = torch.as_tensor(sig[0][: hops * cfg.hop]).reshape(hops, cfg.hop)
+    hops_b = torch.as_tensor(sig[1][: hops * cfg.hop]).reshape(hops, cfg.hop)
     hops_a_dev, hops_b_dev = hops_a.to(dev), hops_b.to(dev)
     v, s = cfg.num_solutions, cfg.num_srcs
     torch.cuda.synchronize()
 
     K.reset_launch_counts()
     states, outs, resid, tail_a = [model.state], [], [], []
-    t_first = time.perf_counter()
-    for i in range(HOPS):
+    t_first = t0 = time.perf_counter()
+    for i in range(hops):
         if i == CPU_HOPS:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -416,7 +657,7 @@ def drive(scene, dev, card, label, overrides, want_counts, sig, noise):
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     counts = K.launch_counts()
-    print(f"[phase 3] {label}: launches over {HOPS} hops: {counts}", flush=True)
+    print(f"[phase 3] {label}: launches over {hops} hops: {counts}", flush=True)
     if counts != want_counts:
         raise AssertionError(f"{label}: launches {counts}, want {want_counts}")
     silenced = int(model.silenced.item())
@@ -426,93 +667,97 @@ def drive(scene, dev, card, label, overrides, want_counts, sig, noise):
         for t in out:
             if tuple(t.shape) != (v, cfg.hop, s) or not torch.isfinite(t).all():
                 raise AssertionError(f"{label}: bad output, shape {tuple(t.shape)}")
-    ms_hop = (t1 - t0) / (HOPS - CPU_HOPS) * 1e3
+    first = min(hops, CPU_HOPS)
+    first_s = (t0 if hops > CPU_HOPS else t1) - t_first
+    ms_hop = (t1 - t0) / (hops - CPU_HOPS) * 1e3 if hops > CPU_HOPS else None
+    steady = (f"steady state {ms_hop:.3f} ms/hop over hops {CPU_HOPS + 1}-{hops}"
+              if ms_hop is not None else "no steady-state window")
     print(
-        f"[phase 3] {label}: scale_scene(16), {HOPS} hops, silenced=0, half_form="
-        f"{half_form(cfg)}, first {CPU_HOPS} hops {(t0 - t_first) * 1e3 / CPU_HOPS:.3f} "
-        f"ms/hop, steady state {ms_hop:.3f} ms/hop over hops {CPU_HOPS + 1}-{HOPS} "
-        f"(host clock, synchronized) card={card}",
+        f"[phase 3] {label}: scale_scene(16), {hops} hops, silenced=0, half_form="
+        f"{half_form(cfg)}, first {first} hops {first_s * 1e3 / first:.3f} "
+        f"ms/hop, {steady} (host clock, synchronized), {model.rebuilds} rebuilds "
+        f"card={card}",
         flush=True,
     )
     if tracking:
         r = torch.stack(resid).cpu()
-        print(f"[phase 3] {label}: {model.rebuilds} preconditioner rebuilds in {HOPS} hops; "
+        print(f"[phase 3] {label}: {model.rebuilds} preconditioner rebuilds in {hops} hops; "
               f"gevd_resid min {float(r.min()):.4f} max {float(r.max()):.4f} "
-              f"(hops 1-{HOPS}), hops {CPU_HOPS + 1}-{HOPS}: min "
+              f"(hops 1-{hops}), hops {CPU_HOPS + 1}-{hops}: min "
               f"{float(r[CPU_HOPS:].min()):.4f} max {float(r[CPU_HOPS:].max()):.4f}", flush=True)
 
-    # The first hops through the port on the CPU (plain versions): from the
-    # card's state hop by hop under the tracking solver, free-running under
-    # the exact one.
-    t2 = time.perf_counter()
-    if tracking:
-        plan = build_plan(cfg, scene.rir_a, scene.rir_b, "cpu")
-        cpu_outs = []
-        for i in range(CPU_HOPS):
-            cpu_state, o = process_hop(cfg, plan, _to(states[i], "cpu"), hops_a[i], hops_b[i])
-            cpu_outs.append((o.out_a, o.out_b, o.out_a_t, o.out_b_t))
-            for name, a, b in zip(
-                ("M", "r"),
-                hop_statistics(cfg, states[i + 1].wresp_stat, states[i + 1].wtarget_stat),
-                hop_statistics(cfg, cpu_state.wresp_stat, cpu_state.wtarget_stat),
-            ):
-                _check(f"{label} hop {i + 1} statistics {name}", _rel(a.cpu(), b)[1], TOL_STATS)
-        print(f"[phase 3] {label}: statistics (M, r) of hops 1-{CPU_HOPS} within "
-              f"{TOL_STATS:.0e} of the CPU", flush=True)
-    else:
-        cpu = _model(scene, "cpu", noise, overrides)
-        cpu_outs = [cpu.process_input_buffers(hops_a[i], hops_b[i]) for i in range(CPU_HOPS)]
-        for name, a, b in zip(
-            ("R", "r"),
-            hop_statistics(cfg, states[-1].wresp_stat, states[-1].wtarget_stat),
-            hop_statistics(cfg, cpu.state.wresp_stat, cpu.state.wtarget_stat),
-        ):
-            _compare(label, f"hop {CPU_HOPS} statistics {name}", a.cpu(), b, TOL_STATS)
-    for f, name in enumerate(("out_a", "out_b", "out_a_t", "out_b_t")):
-        g = torch.stack([o[f] for o in outs]).cpu()
-        c = torch.stack([o[f].expand_as(g[0]) for o in cpu_outs])
-        per_hop = [f"{_rel(g[i], c[i])[1]:.1e}" for i in range(CPU_HOPS)]
-        print(f"[phase 3] {label} {name} vs CPU, hops 1-{CPU_HOPS}: per hop {per_hop}",
-              flush=True)
-        _check(f"{label} {name} vs CPU", _rel(g, c)[1],
-               TOL_TARGET if name.endswith("_t") else TOL_FEEDS)
-    print(f"[phase 3] {label}: CPU comparison took {time.perf_counter() - t2:.1f} s", flush=True)
+    if compare_cpu:
+        _compare_with_cpu(scene, label, cfg, overrides, noise, states, outs, hops_a, hops_b)
     contrast = _contrast(scene, tail_a)
-    print(f"[phase 3] {label}: zone-A contrast over hops {TAIL_FROM + 1}-{HOPS}: rank 1 "
+    print(f"[phase 3] {label}: zone-A contrast over hops {TAIL_FROM + 1}-{hops}: rank 1 "
           f"{contrast[0]:.4f} dB, rank {v} {contrast[1]:.4f} dB", flush=True)
     return model, hops_a_dev, hops_b_dev, ms_hop, counts, contrast
+
+
+INVERT = {"subspace_whiten": "invert", "jacobi_sweeps": 3,
+          "use_pallas_subspace": True, "use_pallas_whiten": True}
+ROUND3_KERNELS = ("whiten", "subspace")
+# The round-3 solvers' Rayleigh-Ritz matrices are not near-diagonal (the
+# CholeskyQR2 of each power step mixes the carried Ritz vectors), so K4 at
+# their 2-3 sweeps leaves close eigenvectors unconverged, and a rounding-sized
+# change of its input moves them (phase 2 holds K4 there against its plain
+# version on the invert path's own matrices): the card and the CPU then part
+# by up to 0.6 of signal scale on single hops (PERF.md, section 6). So each
+# round-3 path runs as configured (launches, health, timing, contrast) and is
+# compared with the CPU in a second run of CPU_HOPS hops with K4 at
+# CONVERGED_SWEEPS. Statistics and target feeds come before the solver, so
+# that run holds them on the configured path's inputs as well.
+CONVERGED_SWEEPS = 8
+WITNESS_HOPS = 3  # invert hops whose Rayleigh-Ritz matrices phase 2 takes
+ULP_REL = 1e-7  # a relative change of about one float32 ulp
+JACOBI_REMAINDER = 1.5  # K4's off-diagonal remainder against its plain version's
 
 
 def phase3(scene, dev, card, results):
     from apvast_torch import GevdSolver, production_overrides
     from apvast_torch.ops import kernels as K
 
-    rng = np.random.default_rng(SEED)
-    noise = _noise(scene.config, rng)
-    sig = rng.standard_normal((2, HOPS * scene.config.hop)).astype(np.float32)
-    all_once = {name: HOPS for name in K.WRAPPERS}
-    prod = drive(scene, dev, card, "production", production_overrides(), all_once, sig, noise)
-    for r in results:
-        r["launches"] = prod[4][r["name"]]
+    noise, sig = _inputs(scene)
+    counts = {name: HOPS for name in K.WRAPPERS} | {name: 0 for name in ROUND3_KERNELS}
+    prod = drive(scene, dev, card, "production", production_overrides(), counts, sig, noise)
     exact = drive(
         scene, dev, card, "exact", production_overrides() | {"gevd_solver": GevdSolver.EIGH},
-        all_once | {"jacobi_eigh": 0}, sig, noise,
+        counts | {"jacobi_eigh": 0}, sig, noise,
     )
-    for rank, p, e in zip((1, scene.config.num_eigenvectors), prod[5], exact[5]):
-        delta = p - e
-        print(f"[phase 3] contrast gate rank {rank}: production {p:.4f} dB, exact {e:.4f} dB, "
-              f"delta {delta:+.4f} dB (limit {TOL_CONTRAST_DB} dB)", flush=True)
-        if not abs(delta) <= TOL_CONTRAST_DB:
-            raise AssertionError(f"contrast gate failed at rank {rank}: {delta:+.4f} dB")
+    panels = -(-scene.config.jl // 128)
+    invert = None
+    for whiten, extra in (("invert", INVERT), ("solve", {}), ("newton", {})):
+        config = production_overrides() | {"subspace_whiten": whiten} | extra
+        hops = HOPS if whiten == "invert" else CPU_HOPS
+        want = {name: hops for name in K.WRAPPERS} | (
+            {"whiten": panels * hops} if whiten == "invert"
+            else {name: 0 for name in ROUND3_KERNELS})
+        path = drive(scene, dev, card, whiten, config, want, sig, noise, hops=hops,
+                     compare_cpu=False)
+        invert = path if whiten == "invert" else invert
+        converged = {name: n * CPU_HOPS // hops for name, n in want.items()}
+        drive(scene, dev, card, f"{whiten} ({CONVERGED_SWEEPS} sweeps)",
+              config | {"jacobi_sweeps": CONVERGED_SWEEPS}, converged, sig, noise,
+              hops=CPU_HOPS)
+    for r in results:
+        r["launches"] = (invert if r["name"] in ROUND3_KERNELS else prod)[4][r["name"]]
+    for label, path in (("production", prod), ("invert", invert)):
+        for rank, p, e in zip((1, scene.config.num_eigenvectors), path[5], exact[5]):
+            delta = p - e
+            print(f"[phase 3] contrast gate rank {rank}: {label} {p:.4f} dB, exact {e:.4f} dB, "
+                  f"delta {delta:+.4f} dB (limit {TOL_CONTRAST_DB} dB)", flush=True)
+            if not abs(delta) <= TOL_CONTRAST_DB:
+                raise AssertionError(f"contrast gate failed for {label} at rank {rank}: "
+                                     f"{delta:+.4f} dB")
     print(f"[phase 3] steady state: production {prod[3]:.3f} ms/hop, exact {exact[3]:.3f} "
-          f"ms/hop card={card}", flush=True)
-    return prod[:4]
+          f"ms/hop, invert {invert[3]:.3f} ms/hop card={card}", flush=True)
+    return {"production": prod[:4], "invert": invert[:4]}
 
 
-def phase4(model, hops_a, hops_b, card, wall_ms_hop):
+def phase4(label, model, hops_a, hops_b, card, wall_ms_hop):
     """Device time by kernel and by stage over PROFILE_HOPS steady-state hops
-    of the production path (one rebuild period), and the device's idle
-    share against the unprofiled steady-state hop time."""
+    of one path (for the production path one rebuild period), and the
+    device's idle share against the unprofiled steady-state hop time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -536,15 +781,15 @@ def phase4(model, hops_a, hops_b, card, wall_ms_hop):
         reverse=True,
     )
     busy_ms = max(sum(r[0] for r in rows) / n / 1e3, 1e-9)
-    print(f"[phase 4] production path, hops {HOPS + 1}-{HOPS + n} "
+    print(f"[phase 4] {label} path, hops {HOPS + 1}-{HOPS + n} "
           f"({model.rebuilds - rebuilds} preconditioner rebuilds): kernel time "
           f"{busy_ms:.3f} ms/hop ({sum(r[2] for r in rows) // n} kernels/hop); idle share "
           f"{1 - busy_ms / wall_ms_hop:.3f} of the {wall_ms_hop:.3f} ms/hop "
           f"steady state; card={card}", flush=True)
     # Device time by stage: the kernels each library op launched (the
-    # (2, JL, JL) factorization of a rebuild apart from the small ones of
-    # every hop), and the five port kernels by name; "other" is the
-    # elementwise rest.
+    # (2, JL, JL) factorization, a rebuild's under the tracking solver and
+    # every hop's under 'invert', apart from the small ones), and the port
+    # kernels by name; "other" is the elementwise rest.
     by_shape = prof.key_averages(group_by_input_shape=True)
 
     def op_ms(keys, rebuild=None):
@@ -559,8 +804,8 @@ def phase4(model, hops_a, hops_b, card, wall_ms_hop):
 
     chol, tri = ("aten::linalg_cholesky_ex",), ("aten::linalg_solve_triangular",)
     stages = {
-        "rebuild: Cholesky of the (2, JL, JL) dark matrices": op_ms(chol, True),
-        "rebuild: triangular inverse (2, JL, JL)": op_ms(tri, True),
+        "torch Cholesky of the (2, JL, JL) dark matrices": op_ms(chol, True),
+        "triangular inverse (2, JL, JL)": op_ms(tri, True),
         "small Cholesky (RR pencil, CholeskyQR2)": op_ms(chol, False),
         "small triangular inverse (RR pencil)": op_ms(tri, False),
         "eigh (torch.linalg.eigh)": op_ms(("aten::_linalg_eigh",)),
@@ -572,19 +817,22 @@ def phase4(model, hops_a, hops_b, card, wall_ms_hop):
         ) / n / 1e3
     stages["other (elementwise ops, copies, reductions)"] = busy_ms - sum(stages.values())
     for name, ms in stages.items():
-        print(f"[phase 4] stage {ms:8.4f} ms/hop  {ms / busy_ms:6.1%}  {name}", flush=True)
-    for dev_us, key, count in rows[:25]:
-        print(f"[phase 4]   {dev_us / n / 1e3:8.4f} ms/hop  {count / n:5.1f}/hop  {key[:90]}",
+        print(f"[phase 4] {label} stage {ms:8.4f} ms/hop  {ms / busy_ms:6.1%}  {name}",
               flush=True)
+    for dev_us, key, count in rows[:25]:
+        print(f"[phase 4] {label}   {dev_us / n / 1e3:8.4f} ms/hop  {count / n:5.1f}/hop  "
+              f"{key[:90]}", flush=True)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="add phase 4, a torch.profiler breakdown of the production path")
+                    help="add phase 4, a torch.profiler breakdown of the production and the "
+                         "invert path")
     args = ap.parse_args()
 
     # ---- phase 0: environment ------------------------------------------
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("[phase 0] no CUDA device: chip_smoke.py needs one card", file=sys.stderr)
         return 1
@@ -617,10 +865,12 @@ def main() -> int:
     results = phase2(scene, dev, card)
 
     # ---- phase 3: the main path ----------------------------------------
-    model, hops_a, hops_b, ms_hop = phase3(scene, dev, card, results)
+    paths = phase3(scene, dev, card, results)
 
     if args.profile:
-        phase4(model, hops_a, hops_b, card, ms_hop)
+        for label, (model, hops_a, hops_b, ms_hop) in paths.items():
+            phase4(label, model, hops_a, hops_b, card, ms_hop)
+    print(f"[phase 4] chip_smoke.py took {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": results}))
     print(card)

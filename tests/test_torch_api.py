@@ -88,38 +88,50 @@ def test_default_device_is_cuda():
         init_state(cfg)
 
 
+_ROUND3 = dict(gevd_solver=GevdSolver.SUBSPACE, dtype="float32", subspace_oversample=10)
+
+
 @pytest.mark.parametrize(
-    "overrides",
+    "overrides,refused",
     [
-        production_overrides() | {"subspace_whiten": "newton"},
-        dict(gevd_solver=GevdSolver.SUBSPACE),
-        dict(weighting_conv_taps=31),
-        dict(use_pallas_statistics=True),
-        dict(use_lag_statistics=True, lag_assembly="wide"),
-        dict(regularization=RegularizationVariant.MATLAB),
-        dict(regularization=RegularizationVariant.PYTHON_NORM),
-        production_overrides() | {"tracking_li_bf16": True},
-        production_overrides() | {"tracking_residual_precision": "default"},
-        dict(use_pallas_subspace=True),
-        dict(use_pallas_whiten=True),
+        (production_overrides() | {"subspace_whiten": "newton"}, False),
+        (dict(gevd_solver=GevdSolver.SUBSPACE), False),
+        (dict(weighting_conv_taps=31), True),
+        (dict(use_pallas_statistics=True), True),
+        (dict(use_lag_statistics=True, lag_assembly="wide"), True),
+        (dict(regularization=RegularizationVariant.MATLAB), True),
+        (dict(regularization=RegularizationVariant.PYTHON_NORM), True),
+        (production_overrides() | {"tracking_li_bf16": True}, True),
+        (production_overrides() | {"tracking_residual_precision": "default"}, True),
+        (_ROUND3 | dict(use_pallas_subspace=True), False),
+        (_ROUND3 | dict(use_pallas_whiten=True), False),
     ],
     ids=["production-newton", "subspace", "weighting-conv", "dense-pallas-statistics",
          "wide-assembly", "matlab-loading", "python-norm-loading", "bf16-preconditioner",
          "bf16-residual", "subspace-kernel", "whiten-kernel"],
 )
-def test_out_of_slice_configs_raise(overrides):
-    with pytest.raises(NotImplementedError):
-        _model(**overrides)
+def test_out_of_slice_configs_raise(overrides, refused):
+    """A configuration the port does not run raises NotImplementedError. The
+    round-3 subspace solvers ('invert' by default, 'newton') and their
+    kernels, refused before the port ran them, convert and run a hop."""
+    if refused:
+        with pytest.raises(NotImplementedError):
+            _model(**overrides)
+        return
+    m = _model(**overrides)
+    assert config_from_jax(dataclasses.asdict(m.config)) == m.config
+    out = m.process_input_buffers(np.ones(64), np.ones(64))
+    assert all(torch.isfinite(o).all() for o in out) and int(m.silenced) == 0
 
 
 def test_out_of_slice_config_raises_in_the_hop(small_scene):
     jc, rir_a, rir_b = small_scene
     tc = config_from_jax(dataclasses.asdict(jc))
     plan, state = build_plan(tc, rir_a, rir_b, "cpu"), init_state(tc, "cpu")
-    sub = dataclasses.replace(tc, gevd_solver=GevdSolver.SUBSPACE)
+    refused = dataclasses.replace(tc, weighting_conv_taps=31)
     hop = torch.zeros(tc.hop, dtype=torch.float64)
     with pytest.raises(NotImplementedError, match="later slice"):
-        process_hop(sub, plan, state, hop, hop)
+        process_hop(refused, plan, state, hop, hop)
 
 
 def test_jacobi_refuses_float64():

@@ -17,7 +17,7 @@ import pytest
 import torch
 
 import apvast_torch.config as tcfg
-from apvast_torch.engine import build_plan, init_state
+from apvast_torch.engine import build_plan, init_state, process_hop
 from apvast_torch.perceptual import tables as ttables
 from apvast_torch.utils.convert import (
     UNPORTED_FIELDS,
@@ -80,18 +80,13 @@ def test_config_converts_field_for_field(small_scene, name):
 
 
 def test_production_overrides_equal_jax():
-    """Every port field of JAX's production_overrides("tpu") at its JAX
-    value; the one JAX knob the tracking solver does not read
-    (subspace_iters) is accepted at its production value."""
+    """Every field of JAX's production_overrides("tpu") is a port field at
+    its JAX value."""
     want = jcfg.production_overrides("tpu")
     got = tcfg.production_overrides()
-    assert set(got) | set(UNPORTED_FIELDS) >= set(want)
+    assert set(got) == set(want)
     for key, value in want.items():
-        if key in got:
-            assert getattr(got[key], "value", got[key]) == getattr(value, "value", value), key
-        else:
-            assert value in UNPORTED_FIELDS[key][0], key
-    assert set(want) - set(got) == {"subspace_iters"}
+        assert getattr(got[key], "value", got[key]) == getattr(value, "value", value), key
     assert tcfg.uses_tracking_solver(tcfg.ApVastConfig(10, 2, 2, **got))
 
 
@@ -140,10 +135,6 @@ _UNPORTED_JAX_INVALID = [
     dict(fd_group_size=2, fd_span="full"),
 ]
 _UNPORTED_JAX_VALID = [
-    dict(use_pallas_subspace=True),
-    dict(use_pallas_whiten=True),
-    dict(subspace_iters=5),
-    dict(subspace_orth="qr"),
     dict(fd_span="full"),
     dict(fd_eigh="jacobi"),
     dict(regularization=jcfg.RegularizationVariant.MATLAB, dark_loading=1e-2),
@@ -183,6 +174,10 @@ _SOLVER_KNOBS_INVALID = [
 _SOLVER_KNOBS_VALID = [
     dict(subspace_oversample=20),
     dict(tracking_rebuild_period=8),
+    dict(use_pallas_subspace=True),
+    dict(use_pallas_whiten=True),
+    dict(subspace_iters=5),
+    dict(subspace_orth="qr"),
 ]
 
 
@@ -192,15 +187,27 @@ _SOLVER_KNOBS_VALID = [
     ids=lambda d: "-".join(f"{k}={v}" for k, v in d.items()) if isinstance(d, dict) else None,
 )
 def test_ported_solver_knobs_validate_as_jax(small_scene, knob, jax_valid):
-    """The tracking solver's knobs are port fields: an invalid value raises
-    the JAX package's ValueError, word for word, and a valid one converts."""
-    jc, _, _ = small_scene
+    """The subspace solvers' knobs are port fields: an invalid value raises
+    the JAX package's ValueError, word for word, and a valid one converts
+    and runs a hop of the subspace solver it belongs to ('tracking' for
+    the tracking knobs, 'invert' in float32 with k = 16 for the others)."""
+    jc, rir_a, rir_b = small_scene
     fields = dataclasses.asdict(dataclasses.replace(jc)) | knob
     if jax_valid:
         jcfg.ApVastConfig(**fields)
         tc = config_from_jax(fields)
         for name, value in knob.items():
             assert getattr(tc, name) == value
+        if any(name.startswith("tracking") for name in knob):
+            solver = dict(subspace_whiten="tracking")
+        else:
+            solver = dict(subspace_whiten="invert", dtype="float32",
+                          subspace_oversample=knob.get("subspace_oversample", 10))
+        tc = dataclasses.replace(tc, gevd_solver=tcfg.GevdSolver.SUBSPACE, **solver)
+        state = init_state(tc, "cpu")
+        hop = torch.ones(tc.hop, dtype=torch.float64)
+        _, out = process_hop(tc, build_plan(tc, rir_a, rir_b, "cpu"), state, hop, hop)
+        assert torch.isfinite(out.out_a).all() and int(out.silenced) == 0
         return
     with pytest.raises(ValueError) as jax_err:
         jcfg.ApVastConfig(**fields)
@@ -321,9 +328,10 @@ def test_tracking_init_state_equals_jax(small_scene):
         init_state(tc, device="cpu", subspace_init=np.zeros((2, 64, 3)))
     with pytest.raises(ValueError, match="gevd_q"):
         state_from_numpy(tc, arrays | {"gevd_q": arrays["gevd_q"][..., 1:]}, device="cpu")
-    # An 'invert' (not ported) or exact-solver config refuses a subspace carry.
+    # An 'invert' config refuses the tracking solver's leaves, an
+    # exact-solver config any subspace carry.
     invert = dataclasses.replace(tc, subspace_whiten="invert")
-    with pytest.raises(NotImplementedError, match="slice"):
+    with pytest.raises(ValueError, match="belongs to no solver"):
         state_from_numpy(invert, arrays, device="cpu")
     exact = dataclasses.replace(tc, gevd_solver=tcfg.GevdSolver.EIGH)
     with pytest.raises(ValueError, match="gevd_q"):
