@@ -19,11 +19,12 @@ from apvast_torch.engine import (
     run_stream,
     stitch_outputs,
 )
-from apvast_torch.models import ApVast
+from apvast_torch.models import ApVast, ApVastFD
 
 __all__ = [
     "ApVast",
     "ApVastConfig",
+    "ApVastFD",
     "GevdSolver",
     "HopOutputs",
     "build_plan",

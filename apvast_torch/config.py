@@ -4,9 +4,8 @@ The fields are those of ``apvast_tpu/config.py`` that a ported path
 reads, with their JAX names, defaults and validation, so a configuration
 of the JAX package converts field for field
 (``apvast_torch.utils.convert.config_from_jax``). The JAX fields that no
-ported path reads yet (the frequency-domain engine's, the MATLAB loading
-factors) are not fields here; each comes with the slice that first reads
-it. In this package a
+ported path reads yet (the MATLAB loading factors) are not fields here;
+they come with the slice that first reads them. In this package a
 ``use_pallas_*`` flag means "use the hand-written Hopper kernel"
 (``apvast_torch/csrc/*.cu``, wrapped in ``apvast_torch/ops/kernels/``),
 and ``use_matmul_dft`` means the WOLA transforms run as ``torch`` matmuls
@@ -18,7 +17,8 @@ with any ``subspace_whiten``: "tracking", the production solver, or the
 round-3 "invert", "solve" and "newton" solvers), the FFT or kernel
 streaming convolution, dense or
 skew-assembled lag statistics (full or half form) and the FFT or kernel
-output synthesis. :func:`check_port_slice` rejects every other value with
+output synthesis; and the frequency-domain engine (``fd_*`` fields,
+``engine/fd_hop.py``) in every mode of the JAX engine. :func:`check_port_slice` rejects every other value with
 ``NotImplementedError`` naming the slice that brings it; no such
 configuration is run another way.
 """
@@ -182,6 +182,38 @@ class ApVastConfig:
     use_lag_statistics: bool = False
     lag_assembly: str = "wide"
     weighting_conv_taps: int | None = None
+    # Frequency-domain engine only (engine/fd_hop.py). Per-bin filters
+    # span this many STFT frames (cross-frame taps): the per-bin rank
+    # ceiling becomes num_srcs * fd_frame_taps.
+    fd_frame_taps: int = 1
+    # Leakage-aware per-bin design: each bin's pencil uses statistics
+    # smoothed over (C - 1) / 2 neighbor bins with the J-tap truncation's
+    # own Dirichlet weights. Odd; 1 = the classic per-bin design.
+    fd_bin_coupling: int = 1
+    # Per-bin Hermitian eigensolver: "lapack" is torch.linalg.eigh,
+    # "jacobi" is kernel K7 over the real 2S x 2S embedding (float32 only).
+    fd_eigh: str = "lapack"
+    # Cold-start Jacobi sweep count of fd_eigh="jacobi".
+    fd_jacobi_sweeps: int = 6
+    # "all": every cumulative rank 1..V per bin (per-bin eigendecomposition);
+    # "full": only the full span, w = (A + mu B_loaded)^-1 r, one batched
+    # Cholesky solve per bin and no eigendecomposition.
+    fd_span: str = "all"
+    # With fd_span="full": solve groups of this many adjacent bins jointly,
+    # keeping the within-group leakage coupling.
+    fd_group_size: int = 1
+    # With fd_span="full": exact-coupling refinement iterations on the
+    # global leakage-coupled normal equations, their relaxation factor
+    # ("richardson") and scheme ("cg" or "richardson").
+    fd_coupled_iters: int = 0
+    fd_coupled_relax: float = 0.5
+    fd_coupled_method: str = "cg"
+    # With fd_group_size > 1: relative eigenvalue cutoff of a truncated
+    # pseudo-inverse group solve; 0 = a plain solve.
+    fd_group_rank_tol: float = 0.0
+    # With fd_group_size > 1: also solve a half-group-shifted partition and
+    # keep each bin from the pass that places it nearest a group center.
+    fd_group_overlap: bool = False
     # Output synthesis through the circular-filter kernel (K5).
     use_pallas_output: bool = False
     # Stage-1 RIR convolution through the streaming-convolution kernel (K1).
@@ -255,6 +287,44 @@ class ApVastConfig:
             raise ValueError(
                 "lag_assembly must be one of 'wide', 'pair', 'tap', 'skew'"
             )
+        if self.fd_frame_taps < 1:
+            raise ValueError("fd_frame_taps must be >= 1")
+        if self.fd_bin_coupling < 1 or self.fd_bin_coupling % 2 != 1:
+            raise ValueError("fd_bin_coupling must be odd and >= 1")
+        if self.fd_span not in ("all", "full"):
+            raise ValueError("fd_span must be 'all' or 'full'")
+        if self.fd_group_size < 1:
+            raise ValueError("fd_group_size must be >= 1")
+        if self.fd_coupled_iters < 0:
+            raise ValueError("fd_coupled_iters must be >= 0")
+        if self.fd_coupled_iters > 0:
+            if self.fd_span != "full":
+                raise ValueError(
+                    "fd_coupled_iters refines the full-span solution — "
+                    "it requires fd_span='full'"
+                )
+            if self.fd_group_size > 1:
+                raise ValueError(
+                    "fd_coupled_iters and fd_group_size are alternative "
+                    "coupled formulations — enable only one"
+                )
+        if not 0.0 < self.fd_coupled_relax <= 1.0:
+            raise ValueError("fd_coupled_relax must be in (0, 1]")
+        if self.fd_coupled_method not in ("cg", "richardson"):
+            raise ValueError("fd_coupled_method must be 'cg' or 'richardson'")
+        if self.fd_group_size > 1:
+            if self.fd_span != "full":
+                raise ValueError(
+                    "fd_group_size > 1 is the group-coupled full-span "
+                    "solve — it requires fd_span='full' (the variable-"
+                    "span 'all' path has no group formulation)"
+                )
+            if self.fd_bin_coupling <= 1:
+                raise ValueError(
+                    "fd_group_size > 1 needs fd_bin_coupling > 1: the "
+                    "coupling window is the leakage sum the group blocks "
+                    "are built from"
+                )
         if self.output_spans is not None:
             if len(self.output_spans) == 0:
                 raise ValueError("output_spans must be non-empty")
@@ -309,6 +379,12 @@ class ApVastConfig:
             if self.output_spans is not None
             else self.num_eigenvectors
         )
+
+    @property
+    def fd_num_solutions(self) -> int:
+        """Leading output-rank axis of the FD engine: 1 in the full-span
+        mode, else every cumulative rank 1..V."""
+        return 1 if self.fd_span == "full" else self.num_eigenvectors
 
     @property
     def num_frames(self) -> int:

@@ -39,6 +39,24 @@
 // diagonal (pad slots keyed to +inf, ties to the lower index) and writes w
 // ascending and the matching columns of V, so the kernel runs once per
 // Rayleigh-Ritz solve.
+//
+// K7: batched small complex Hermitian eigensolver (the FD engine's per-bin
+// eigh), replacing apvast_tpu/ops/pallas/jacobi_eigh.py::
+// jacobi_eigh_hermitian, which runs K4 on the real embedding
+// T = [[X, -Y], [Y, X]] of H = X + iY (2n slots) and then picks one column
+// of every J-pair. Here the same kernel body is a template with the form as
+// its parameter (HERM), so K4's instantiations are the code they were and
+// K7 runs exactly K4's sweeps and ranking in one launch per batch: the
+// prologue builds T in shared memory from the interleaved complex input
+// (never in HBM), and the epilogue takes w = w2[0::2] and q = the even
+// columns as complex vectors, replaces a column whose overlap with the one
+// before exceeds 0.7 by its odd neighbour (and its eigenvalue by
+// w2[2j + 1]), and runs the one Gram-Schmidt pass of the TPU wrapper
+// against the previous, uncorrected column. Bound: latency again. At the FD
+// shape (1602, 16, 16) -> 32 slots, 6 sweeps: 186 dependent rounds per
+// block, ~2.7 GFLOP in all (0.04 ms at 67 TFLOP/s) against ~6.6 MB of
+// input and output (0.002 ms); 1602 blocks of 256 threads, several to an
+// SM (see dispatch_hermitian).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -86,14 +104,106 @@ __device__ __forceinline__ void pair_rotations(const float* A, float2* cs, int n
   }
 }
 
+// The Hermitian epilogue (K7) after the ranking: w (n) and q (n x n
+// complex, interleaved) of one pencil from the 2n real slots. S (2n x 2n,
+// row stride np) receives the ranked columns of V; w2 the ranked diagonal.
+__device__ void hermitian_pairs(const float* A, const float* V, const int* rank,
+                                const int* cnt, const int* first, float* S, float* w2,
+                                int* dup, float* ofs, int n, int np, int tid, int nt,
+                                float* w_out, float* q_out) {
+  const int nr = 2 * n;
+  for (int c = tid; c < nr; c += nt) {
+    float s = 0.f;
+    if (cnt[c] == 1) {
+      s = A[first[c] * (np + 1)];
+    } else if (cnt[c] > 1) {
+      for (int i = 0; i < np; ++i)
+        if (rank[i] == c) s += A[i * (np + 1)];
+    }
+    w2[c] = s;
+  }
+  __syncthreads();  // S may be A itself (np = 128: no second buffer)
+  for (int e = tid; e < nr * nr; e += nt) {
+    const int r = e / nr, c = e % nr;
+    float s = 0.f;
+    if (cnt[c] == 1) {
+      s = V[r * np + first[c]];
+    } else if (cnt[c] > 1) {
+      for (int i = 0; i < np; ++i)
+        if (rank[i] == c) s += V[r * np + i];
+    }
+    S[r * np + c] = s;
+  }
+  __syncthreads();
+  // Column j of q is S[:n, 2j] + i S[n:, 2j]; it duplicates column j - 1
+  // when |q_{j-1}^H q_j| > 0.7 (a NaN overlap is no duplicate).
+  for (int j = tid; j < n; j += nt) {
+    bool d = false;
+    if (j > 0) {
+      float re = 0.f, im = 0.f;
+      for (int r = 0; r < n; ++r) {
+        const float ar = S[r * np + 2 * j - 2], ai = S[(r + n) * np + 2 * j - 2];
+        const float br = S[r * np + 2 * j], bi = S[(r + n) * np + 2 * j];
+        re += ar * br + ai * bi;
+        im += ar * bi - ai * br;
+      }
+      d = sqrtf(re * re + im * im) > 0.7f;
+    }
+    dup[j] = d;
+    w_out[j] = w2[2 * j + d];
+  }
+  __syncthreads();
+  // One Gram-Schmidt pass: corr_j = q_j - q_{j-1} (q_{j-1}^H q_j) over
+  // max(|corr_j|, FLT_MIN), with q_{j-1} the selected, uncorrected column.
+  for (int j = 1 + tid; j < n; j += nt) {
+    const int cp = 2 * j - 2 + dup[j - 1], cq = 2 * j + dup[j];
+    float ore = 0.f, oim = 0.f;
+    for (int r = 0; r < n; ++r) {
+      const float ar = S[r * np + cp], ai = S[(r + n) * np + cp];
+      const float br = S[r * np + cq], bi = S[(r + n) * np + cq];
+      ore += ar * br + ai * bi;
+      oim += ar * bi - ai * br;
+    }
+    float ss = 0.f;
+    for (int r = 0; r < n; ++r) {
+      const float ar = S[r * np + cp], ai = S[(r + n) * np + cp];
+      const float cr = S[r * np + cq] - (ar * ore - ai * oim);
+      const float ci = S[(r + n) * np + cq] - (ar * oim + ai * ore);
+      ss += cr * cr + ci * ci;
+    }
+    const float nrm = sqrtf(ss);
+    ofs[3 * j] = ore;
+    ofs[3 * j + 1] = oim;
+    ofs[3 * j + 2] = isnan(nrm) ? nrm : fmaxf(nrm, 1.17549435e-38f);  // FLT_MIN
+  }
+  __syncthreads();
+  for (int e = tid; e < n * n; e += nt) {
+    const int r = e / n, j = e % n;
+    const int cq = 2 * j + dup[j];
+    float qr = S[r * np + cq], qi = S[(r + n) * np + cq];
+    if (j > 0) {
+      const int cp = 2 * j - 2 + dup[j - 1];
+      const float ar = S[r * np + cp], ai = S[(r + n) * np + cp];
+      const float ore = ofs[3 * j], oim = ofs[3 * j + 1], nrm = ofs[3 * j + 2];
+      qr = (qr - (ar * ore - ai * oim)) / nrm;
+      qi = (qi - (ar * oim + ai * ore)) / nrm;
+    }
+    q_out[2 * e] = qr;
+    q_out[2 * e + 1] = qi;
+  }
+}
+
 // PER entries per thread (np^2 <= PER * blockDim.x); DOUBLE: A and V have
-// a second buffer each in shared memory.
-template <int PER, bool DOUBLE>
+// a second buffer each in shared memory. HERM (K7): the input is a batch of
+// n x n complex Hermitian matrices, interleaved (re, im), embedded into 2n
+// real slots; the outputs are w (bz, n) and q (bz, n, n) interleaved.
+template <int PER, bool DOUBLE, bool HERM>
 __global__ void __launch_bounds__(kMaxThreads)
 jacobi_eigh_kernel(const float* __restrict__ a, const int* __restrict__ src_g,
                    float* __restrict__ w_out, float* __restrict__ v_out,
-                   int n, int np, int sweeps) {
+                   int n_in, int np, int sweeps) {
   extern __shared__ float smem[];
+  const int n = HERM ? 2 * n_in : n_in;  // real slots in use
   const int nn = np * np;
   float* A = smem;
   float* V = A + nn;
@@ -107,11 +217,27 @@ jacobi_eigh_kernel(const float* __restrict__ a, const int* __restrict__ src_g,
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x, nt = blockDim.x;
-  const float* ab = a + (size_t)b * n * n;
-  for (int e = tid; e < nn; e += nt) {
-    const int r = e / np, c = e % np;
-    A[e] = (r < n && c < n) ? ab[r * n + c] : 0.f;
-    V[e] = (r == c) ? 1.f : 0.f;
+  if constexpr (HERM) {
+    // T = [[X, -Y], [Y, X]] from H = X + iY, built here and never in HBM.
+    const float2* hb = reinterpret_cast<const float2*>(a) + (size_t)b * n_in * n_in;
+    for (int e = tid; e < nn; e += nt) {
+      const int r = e / np, c = e % np;
+      float t = 0.f;
+      if (r < n && c < n) {
+        const bool top = r < n_in, left = c < n_in;
+        const float2 z = hb[(top ? r : r - n_in) * n_in + (left ? c : c - n_in)];
+        t = top == left ? z.x : (top ? -z.y : z.y);
+      }
+      A[e] = t;
+      V[e] = (r == c) ? 1.f : 0.f;
+    }
+  } else {
+    const float* ab = a + (size_t)b * n * n;
+    for (int e = tid; e < nn; e += nt) {
+      const int r = e / np, c = e % np;
+      A[e] = (r < n && c < n) ? ab[r * n + c] : 0.f;
+      V[e] = (r == c) ? 1.f : 0.f;
+    }
   }
   for (int i = tid; i < np; i += nt) {
     src[i] = src_g[i];
@@ -175,6 +301,16 @@ jacobi_eigh_kernel(const float* __restrict__ a, const int* __restrict__ src_g,
     }
   }
   __syncthreads();
+  if constexpr (HERM) {
+    // A's diagonal is read into w2 before S overwrites A.
+    int* dup = first + np;
+    float* w2 = reinterpret_cast<float*>(dup + np);
+    float* ofs = w2 + np;  // (o_re, o_im, clamped norm) per column
+    hermitian_pairs(A, V, rank, cnt, first, DOUBLE ? A2 : A, w2, dup, ofs, n_in, np,
+                    tid, nt, w_out + (size_t)b * n_in,
+                    v_out + (size_t)b * n_in * n_in * 2);
+    return;
+  }
   // Output column c gathers the slots of rank c (the one-hot contraction
   // of the TPU wrapper: a sum when NaNs collide ranks, 0 when none).
   for (int c = tid; c < n; c += nt) {
@@ -201,20 +337,55 @@ jacobi_eigh_kernel(const float* __restrict__ a, const int* __restrict__ src_g,
   }
 }
 
-template <int PER, bool DOUBLE>
+template <int PER, bool DOUBLE, bool HERM>
 int launch(const float* a, const int* src, float* w, float* v, int bz, int n, int np,
            int sweeps, int threads, cudaStream_t stream) {
   const size_t nn = (size_t)np * np;
+  // HERM adds dup (np ints), w2 (np floats) and three floats per column.
   const size_t smem = (DOUBLE ? 4 : 2) * nn * sizeof(float) + (np / 2) * sizeof(float2) +
-                      4 * np * sizeof(int);
+                      4 * np * sizeof(int) + (HERM ? 5 * np * sizeof(float) : 0);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(jacobi_eigh_kernel<PER, DOUBLE>,
+    cudaError_t e = cudaFuncSetAttribute(jacobi_eigh_kernel<PER, DOUBLE, HERM>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  jacobi_eigh_kernel<PER, DOUBLE><<<bz, threads, smem, stream>>>(a, src, w, v, n, np, sweeps);
+  jacobi_eigh_kernel<PER, DOUBLE, HERM>
+      <<<bz, threads, smem, stream>>>(a, src, w, v, n, np, sweeps);
   return (int)cudaGetLastError();
+}
+
+// K4's launch shape for np slots: one entry of A and V per thread up to
+// 1024 threads, double buffers up to np = 64.
+template <bool HERM>
+int dispatch(const float* a, const int* src, float* w, float* v, int bz, int n, int np,
+             int sweeps, cudaStream_t stream) {
+  const int nn = np * np;
+  const int threads = nn < kMaxThreads ? nn : kMaxThreads;
+  if (nn <= threads)
+    return launch<1, true, HERM>(a, src, w, v, bz, n, np, sweeps, threads, stream);
+  if (nn <= 4 * threads)
+    return launch<4, true, HERM>(a, src, w, v, bz, n, np, sweeps, threads, stream);
+  return launch<16, false, HERM>(a, src, w, v, bz, n, np, sweeps, threads, stream);
+}
+
+// K7's launch shape. Its batch is thousands of pencils (2 * bins), not
+// K4's two, so its blocks are smaller where that costs few entries a
+// thread: kHermThreads threads with up to 4 entries each (double
+// buffered), so that several blocks share an SM and one block's barriers
+// overlap another's work; beyond that, K4's shape (16 entries a thread
+// were slower than it at 64 slots). At 32 slots (S = 16) 256 threads take
+// about half the time of 1024 (tools/k7_launch_shapes.py).
+constexpr int kHermThreads = 256;
+
+int dispatch_hermitian(const float* h, const int* src, float* w, float* q, int bz, int n,
+                       int np, int sweeps, cudaStream_t stream) {
+  const int nn = np * np;
+  const int t = kHermThreads;
+  if (nn <= t) return launch<1, true, true>(h, src, w, q, bz, n, np, sweeps, nn, stream);
+  if (nn <= 2 * t) return launch<2, true, true>(h, src, w, q, bz, n, np, sweeps, t, stream);
+  if (nn <= 4 * t) return launch<4, true, true>(h, src, w, q, bz, n, np, sweeps, t, stream);
+  return dispatch<true>(h, src, w, q, bz, n, np, sweeps, stream);
 }
 
 }  // namespace
@@ -226,9 +397,15 @@ extern "C" int jacobi_eigh_launch(const float* a, const int* src, float* w,
                                   float* v, int bz, int n, int np, int sweeps,
                                   cudaStream_t stream) {
   if (np % 8 || np < n || np > 128) return (int)cudaErrorInvalidValue;
-  const int nn = np * np;
-  const int threads = nn < kMaxThreads ? nn : kMaxThreads;
-  if (nn <= threads) return launch<1, true>(a, src, w, v, bz, n, np, sweeps, threads, stream);
-  if (nn <= 4 * threads) return launch<4, true>(a, src, w, v, bz, n, np, sweeps, threads, stream);
-  return launch<16, false>(a, src, w, v, bz, n, np, sweeps, threads, stream);
+  return dispatch<false>(a, src, w, v, bz, n, np, sweeps, stream);
+}
+
+// K7. h (bz, n, n, 2) complex Hermitian, interleaved; src (np,) int32 ->
+// w (bz, n) ascending, q (bz, n, n, 2) eigenvectors in columns; float32,
+// contiguous; np = max(8, ceil8(2n)) <= 128.
+extern "C" int jacobi_eigh_hermitian_launch(const float* h, const int* src, float* w,
+                                            float* q, int bz, int n, int np, int sweeps,
+                                            cudaStream_t stream) {
+  if (np % 8 || np < 2 * n || np > 128) return (int)cudaErrorInvalidValue;
+  return dispatch_hermitian(h, src, w, q, bz, n, np, sweeps, stream);
 }

@@ -1,5 +1,7 @@
-"""The time-domain engine: plan, state, hop transition, stream driver."""
+"""The engines: plan, time-domain state, hop transition and stream driver,
+and the frequency-domain hop."""
 
+from apvast_torch.engine.fd_hop import FdState, init_fd_state, process_hop_fd
 from apvast_torch.engine.hop import HopOutputs, hop_statistics, process_hop
 from apvast_torch.engine.plan import ApVastPlan, build_plan
 from apvast_torch.engine.state import ApVastState, SubspaceState, TrackingState, init_state
@@ -8,13 +10,16 @@ from apvast_torch.engine.stream import run_stream, stitch_outputs
 __all__ = [
     "ApVastPlan",
     "ApVastState",
+    "FdState",
     "HopOutputs",
     "SubspaceState",
     "TrackingState",
     "build_plan",
     "hop_statistics",
+    "init_fd_state",
     "init_state",
     "process_hop",
+    "process_hop_fd",
     "run_stream",
     "stitch_outputs",
 ]

@@ -2,7 +2,8 @@
 ``apvast_tpu/engine/plan.py``): the WOLA window, the RIR and target
 spectra of the streaming convolution, the raw kernel rows of K1, the delta
 target playback filters, the matmul-DFT matrices with the windows folded
-in, and the calibrated perceptual tables. All tensors live on one device.
+in, the frequency-domain engine's J-tap projection matrices, and the
+calibrated perceptual tables. All tensors live on one device.
 """
 
 from __future__ import annotations
@@ -39,6 +40,13 @@ class ApVastPlan:
     dft_sin: torch.Tensor | None
     idft_cos: torch.Tensor | None  # (bins, block), synthesis window folded in
     idft_sin: torch.Tensor | None
+    # The FD engine's J-tap truncation projection (use_matmul_dft): the
+    # first J samples of the inverse transform, (bins, J), and the forward
+    # transform of J samples, (J, bins); no windows.
+    proj_idft_cos: torch.Tensor | None
+    proj_idft_sin: torch.Tensor | None
+    proj_dft_cos: torch.Tensor | None
+    proj_dft_sin: torch.Tensor | None
     # Perceptual tables (None when config.perceptual is False); the four
     # scalars are 0-dim tensors of the config's dtype.
     cfmr_sq: torch.Tensor | None  # (bins, channels)
@@ -135,6 +143,7 @@ def build_plan(
 
     window = sine_window(config.block_size, dtype=dtype, device=device)
     dft_cos = dft_sin = idft_cos = idft_sin = None
+    proj_idft_cos = proj_idft_sin = proj_dft_cos = proj_dft_sin = None
     if config.use_matmul_dft:
         block = config.block_size
         ang = (
@@ -150,6 +159,11 @@ def build_plan(
         dft_sin = dev((win[:, None] * np.sin(ang)).astype(np_dtype))
         idft_cos = dev(((np.cos(ang) * inv_w).T * win[None, :]).astype(np_dtype))
         idft_sin = dev(((np.sin(ang) * inv_w).T * win[None, :]).astype(np_dtype))
+        j = config.filter_length
+        proj_idft_cos = dev((np.cos(ang[:j]) * inv_w).T.astype(np_dtype))
+        proj_idft_sin = dev((np.sin(ang[:j]) * inv_w).T.astype(np_dtype))
+        proj_dft_cos = dev(np.cos(ang[:j]).astype(np_dtype))
+        proj_dft_sin = dev(np.sin(ang[:j]).astype(np_dtype))
 
     return ApVastPlan(
         window=window,
@@ -163,6 +177,10 @@ def build_plan(
         dft_sin=dft_sin,
         idft_cos=idft_cos,
         idft_sin=idft_sin,
+        proj_idft_cos=proj_idft_cos,
+        proj_idft_sin=proj_idft_sin,
+        proj_dft_cos=proj_dft_cos,
+        proj_dft_sin=proj_dft_sin,
         cfmr_sq=cfmr_sq,
         cs=cs,
         ca=ca,

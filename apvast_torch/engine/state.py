@@ -106,6 +106,39 @@ def state_shapes(config: ApVastConfig) -> dict[str, tuple[int, ...]]:
     }
 
 
+def response_tails(config: ApVastConfig, device: torch.device, response_noise=None,
+                   generator: torch.Generator | None = None):
+    """The initial response and target blocks of either engine in tail
+    form, (4, m, s, block - hop) and (2, m, block - hop): the full-block
+    noise ``response_noise`` injected, drawn from ``generator`` (scaled by
+    ``noise_init_scale``), or zero (see :func:`init_state`)."""
+    dtype = torch_dtype(config)
+    m, s = config.num_mics, config.num_srcs
+    block = config.block_size
+    resp_shape = (4, m, s, block)
+    tgt_shape = (2, m, block)
+    if response_noise is not None:
+        resp, target_resp = (
+            torch.as_tensor(x, device=device).to(dtype) for x in response_noise
+        )
+        if tuple(resp.shape) != resp_shape or tuple(target_resp.shape) != tgt_shape:
+            raise ValueError("response_noise shapes do not match config")
+    elif generator is not None:
+        scale = config.noise_init_scale
+        gen_device = generator.device
+        resp = scale * torch.randn(resp_shape, generator=generator, dtype=dtype,
+                                   device=gen_device).to(device)
+        target_resp = scale * torch.randn(tgt_shape, generator=generator,
+                                          dtype=dtype, device=gen_device).to(device)
+    else:
+        resp = torch.zeros(resp_shape, dtype=dtype, device=device)
+        target_resp = torch.zeros(tgt_shape, dtype=dtype, device=device)
+    # Tail form: the head (first hop) is dropped by the first slide before
+    # anything reads it.
+    return (resp[..., config.hop :].contiguous(),
+            target_resp[..., config.hop :].contiguous())
+
+
 def init_state(
     config: ApVastConfig,
     device: str | torch.device | None = None,
@@ -134,39 +167,14 @@ def init_state(
     check_port_slice(config)
     device = resolve_device(device)
     dtype = torch_dtype(config)
-    m, s = config.num_mics, config.num_srcs
-    block = config.block_size
-    resp_shape = (4, m, s, block)
-    tgt_shape = (2, m, block)
-    if response_noise is not None:
-        resp, target_resp = (
-            torch.as_tensor(x, device=device).to(dtype) for x in response_noise
-        )
-        if tuple(resp.shape) != resp_shape or tuple(target_resp.shape) != tgt_shape:
-            raise ValueError("response_noise shapes do not match config")
-    elif generator is not None:
-        scale = config.noise_init_scale
-        gen_device = generator.device
-        resp = scale * torch.randn(resp_shape, generator=generator, dtype=dtype,
-                                   device=gen_device).to(device)
-        target_resp = scale * torch.randn(tgt_shape, generator=generator,
-                                          dtype=dtype, device=gen_device).to(device)
-    else:
-        resp = torch.zeros(resp_shape, dtype=dtype, device=device)
-        target_resp = torch.zeros(tgt_shape, dtype=dtype, device=device)
-    # Tail form: the head (first hop) is dropped by the first slide before
-    # anything reads it.
+    resp, target_resp = response_tails(config, device, response_noise, generator)
     shapes = state_shapes(config)
     zeros = {
         name: torch.zeros(shape, dtype=dtype, device=device)
         for name, shape in shapes.items()
         if name not in ("resp", "target_resp")
     }
-    data = dict(
-        resp=resp[..., config.hop :].contiguous(),
-        target_resp=target_resp[..., config.hop :].contiguous(),
-        **zeros,
-    )
+    data = dict(resp=resp, target_resp=target_resp, **zeros)
     if not uses_subspace_solver(config):
         return ApVastState(**data)
     jl, k = config.jl, config.subspace_rank

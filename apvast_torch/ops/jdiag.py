@@ -3,7 +3,9 @@
 leading axes, so also ``jdiag_batched``), the round-3 subspace solvers
 ``jdiag_topk_batched`` ('invert'/'solve' whitening, with kernels K9 and
 K10a) and ``jdiag_topk_pencil_batched`` ('newton'), and the production
-tracking solver ``jdiag_topk_tracked``, with their CholeskyQR2 ``_cholqr2``.
+tracking solver ``jdiag_topk_tracked``, with their CholeskyQR2 ``_cholqr2``;
+and the frequency-domain engine's complex Hermitian ``jdiag_hermitian`` and
+``jdiag_hermitian_batched`` (``torch.linalg.eigh``, or kernel K7).
 
 Contract of both:
     U^T A U = diag(d)   with d descending,   U^T B U = I.
@@ -21,8 +23,10 @@ import torch
 from apvast_torch.ops.kernels import (
     blocked_cholesky,
     jacobi_eigh,
+    jacobi_eigh_hermitian,
     subspace_iterate,
 )
+from apvast_torch.ops.small_chol import cholesky_small
 from apvast_torch.ops.trisolve import neumann_tri_inverse, triangular_inverse
 
 
@@ -36,10 +40,45 @@ def cholesky(x: torch.Tensor) -> torch.Tensor:
 
 def eigh(h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """``torch.linalg.eigh`` (ascending) that returns NaNs for a matrix
-    with a non-finite entry, as JAX's does; torch raises instead."""
+    with a non-finite entry, or one no solver converges on, as JAX's does
+    (it fills an element whose LAPACK or cuSOLVER info is not 0); torch
+    raises instead. cuSOLVER's single-precision solver also fails on
+    nearly scalar matrices (a loaded diagonal with couplings many orders
+    smaller, as the FD group solve meets at bins without statistics) that
+    LAPACK solves, so a batch that fails is solved again in double
+    precision and rounded back, and element by element where that fails."""
     bad = ~torch.isfinite(h).all(-1).all(-1)
-    d, v = torch.linalg.eigh(torch.where(bad[..., None, None], torch.zeros_like(h), h))
+    x = torch.where(bad[..., None, None], torch.zeros_like(h), h)
+    try:
+        d, v = torch.linalg.eigh(x)
+    except torch.linalg.LinAlgError:
+        d, v, failed = _eigh_wide(x)
+        bad = bad | failed
     return d.masked_fill(bad[..., None], torch.nan), v.masked_fill(bad[..., None, None], torch.nan)
+
+
+def _eigh_wide(x: torch.Tensor):
+    """Eigenpairs of ``x`` computed in double precision (rounded back to
+    ``x``'s dtype), and a mask of the matrices on which that fails too."""
+    wide = torch.complex128 if x.is_complex() else torch.float64
+    real = x.real.dtype
+    try:
+        d, v = torch.linalg.eigh(x.to(wide))
+        return d.to(real), v.to(x.dtype), torch.zeros(x.shape[:-2], dtype=torch.bool,
+                                                       device=x.device)
+    except torch.linalg.LinAlgError:
+        pass
+    flat = x.reshape(-1, *x.shape[-2:])
+    d = torch.zeros(flat.shape[:-1], dtype=real, device=x.device)
+    v = torch.zeros_like(flat)
+    failed = torch.zeros(flat.shape[0], dtype=torch.bool, device=x.device)
+    for i in range(flat.shape[0]):
+        try:
+            di, vi = torch.linalg.eigh(flat[i].to(wide))
+            d[i], v[i] = di.to(real), vi.to(x.dtype)
+        except torch.linalg.LinAlgError:
+            failed[i] = True
+    return d.reshape(x.shape[:-1]), v.reshape(x.shape), failed.reshape(x.shape[:-2])
 
 
 def jdiag(A: torch.Tensor, B: torch.Tensor, reg: float = 1e-7):
@@ -453,3 +492,47 @@ def jdiag_topk_tracked(
         healthy0.all() & healthy1.all(), resid_rel, torch.full_like(resid_rel, torch.inf)
     )
     return u, dd, q, lam, li, silenced, resid_rel
+
+
+def _whiten_hermitian(A, chol):
+    """L^-1 A L^-H of batched Hermitian ``A``, made exactly Hermitian."""
+    half = torch.linalg.solve_triangular(chol, A, upper=False)
+    white = torch.linalg.solve_triangular(
+        chol, half.conj().transpose(-1, -2), upper=False
+    ).conj().transpose(-1, -2)
+    return 0.5 * (white + white.conj().transpose(-1, -2))
+
+
+def jdiag_hermitian(A: torch.Tensor, B: torch.Tensor, reg: float = 1e-7):
+    """Joint diagonalization of complex Hermitian-PSD pencils (batched over
+    any leading axes): ``U^H A U = diag(d)`` with d real and descending,
+    ``U^H (B + reg I) U = I``. A failed factor or a non-finite pencil gives
+    NaNs, as in JAX."""
+    n = A.shape[-1]
+    eye = torch.eye(n, dtype=A.dtype, device=A.device)
+    chol = cholesky(B + reg * eye)
+    d, v = eigh(_whiten_hermitian(A, chol))  # ascending
+    u = torch.linalg.solve_triangular(chol.conj().transpose(-1, -2), v, upper=True)
+    return u.flip(-1), d.flip(-1)
+
+
+def jdiag_hermitian_batched(
+    A: torch.Tensor,
+    B: torch.Tensor,
+    reg: float = 1e-7,
+    eigh_impl: str = "lapack",
+    jacobi_sweeps: int = 8,
+):
+    """:func:`jdiag_hermitian` over a leading pencil axis, the FD engine's
+    per-bin GEVD. ``eigh_impl="lapack"`` is ``torch.linalg.eigh``;
+    "jacobi" factors with :func:`cholesky_small` and solves the whitened
+    matrices with kernel K7 (complex64 only)."""
+    if eigh_impl == "lapack":
+        return jdiag_hermitian(A, B, reg)
+    n = A.shape[-1]
+    eye = torch.eye(n, dtype=A.dtype, device=A.device)
+    chol = cholesky_small(B + reg * eye)
+    white = _whiten_hermitian(A, chol).contiguous()
+    d, v = jacobi_eigh_hermitian(white, jacobi_sweeps)  # ascending
+    u = torch.linalg.solve_triangular(chol.conj().transpose(-1, -2), v, upper=True)
+    return u.flip(-1), d.flip(-1)

@@ -14,6 +14,12 @@ import numpy as np
 import torch
 
 from apvast_torch import config as cfg_mod
+from apvast_torch.engine.fd_hop import (
+    COMPLEX_FIELDS,
+    FdState,
+    complex_dtype,
+    fd_state_shapes,
+)
 from apvast_torch.engine.plan import ApVastPlan
 from apvast_torch.engine.state import (
     ApVastState,
@@ -33,31 +39,16 @@ _ENUM_FIELDS = {
     "perceptual_frontend": cfg_mod.PerceptualFrontend,
     "gevd_solver": cfg_mod.GevdSolver,
 }
-_FD = "the frequency-domain engine, a later slice of the port"
 _MATLAB = "MATLAB regularization, a later slice of the port"
 # JAX config fields that no ported path reads yet: the values the port
 # accepts for each (its JAX default), and the slice that brings it.
 UNPORTED_FIELDS = {
     "bright_loading": ((1e-8,), _MATLAB),
     "dark_loading": ((5e-3,), _MATLAB),
-    "fd_frame_taps": ((1,), _FD),
-    "fd_bin_coupling": ((1,), _FD),
-    "fd_eigh": (("lapack",), _FD),
-    "fd_jacobi_sweeps": ((6,), _FD),
-    "fd_span": (("all",), _FD),
-    "fd_group_size": ((1,), _FD),
-    "fd_coupled_iters": ((0,), _FD),
-    "fd_coupled_relax": ((0.5,), _FD),
-    "fd_coupled_method": (("cg",), _FD),
-    "fd_group_rank_tol": ((0.0,), _FD),
-    "fd_group_overlap": ((False,), _FD),
 }
 # Plan arrays the JAX package builds for paths the port does not run yet:
-# the frequency-domain engine and the truncated weighting convolution.
-_NOT_PORTED_PLAN = (
-    "proj_idft_cos", "proj_idft_sin", "proj_dft_cos", "proj_dft_sin",
-    "idft_cos_plain",
-)
+# the truncated weighting convolution's inverse DFT.
+_NOT_PORTED_PLAN = ("idft_cos_plain",)
 # State fields of the JAX subspace solvers; None under GevdSolver.EIGH.
 _SUBSPACE_STATE = ("gevd_q", "gevd_minv", "gevd_lam", "gevd_hop", "gevd_resid")
 
@@ -122,6 +113,10 @@ def plan_from_numpy(
         "dft_sin": ((block, bins), dtype),
         "idft_cos": ((bins, block), dtype),
         "idft_sin": ((bins, block), dtype),
+        "proj_idft_cos": ((bins, j), dtype),
+        "proj_idft_sin": ((bins, j), dtype),
+        "proj_dft_cos": ((j, bins), dtype),
+        "proj_dft_sin": ((j, bins), dtype),
         "cfmr_sq": ((bins, None), dtype),
         "cs": ((), dtype),
         "ca": ((), dtype),
@@ -144,8 +139,8 @@ def plan_from_numpy(
                  "conv_kernels"):
         if out[name] is None:
             raise ValueError(f"plan array {name} is required")
-    if config.use_matmul_dft and out["dft_cos"] is None:
-        raise ValueError("use_matmul_dft needs the DFT matrices")
+    if config.use_matmul_dft and (out["dft_cos"] is None or out["proj_dft_cos"] is None):
+        raise ValueError("use_matmul_dft needs the DFT and projection matrices")
     if config.perceptual and out["cfmr_sq"] is None:
         raise ValueError("perceptual weighting needs the perceptual tables")
     return ApVastPlan(**out)
@@ -189,3 +184,25 @@ def state_from_numpy(
     if "gevd_lam" in carry:
         return TrackingState(**data, **carry)
     return SubspaceState(**data, **({"gevd_minv": None} | carry))
+
+
+def fd_state_from_numpy(config: cfg_mod.ApVastConfig, arrays: dict, device=None) -> FdState:
+    """A port FD state from the leaves of a JAX ``FdState`` as NumPy arrays
+    (None for an absent cross-frame history), e.g. to start both packages
+    from one state or to continue a stream part-way through."""
+    device = resolve_device(device)
+    shapes = fd_state_shapes(config)
+    unknown = set(arrays) - set(shapes)
+    if unknown:
+        raise ValueError(f"FD state arrays the port does not have: {sorted(unknown)}")
+    fields = {}
+    for name, shape in shapes.items():
+        arr = arrays.get(name)
+        if shape is None:
+            if arr is not None:
+                raise ValueError(f"{name} is carried only with fd_frame_taps > 1")
+            fields[name] = None
+            continue
+        dt = complex_dtype(config) if name in COMPLEX_FIELDS else torch_dtype(config)
+        fields[name] = _tensor(name, arr, shape, device, dt)
+    return FdState(**fields)

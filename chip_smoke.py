@@ -7,7 +7,8 @@
 Phase 0  environment: card name and power limit, torch/CUDA versions,
          TF32 off for matmuls and cuDNN.
 Phase 1  build: every kernel of apvast_torch/csrc with nvcc (one process
-         per source, all at once): K1-K5, K9 and K10a.
+         per source, all at once): K1-K5, K7 (a form of K4's source), K9
+         and K10a.
 Phase 2  each kernel against its plain PyTorch version on the card, at the
          north-star shapes and at ragged small shapes:
          max|kernel - plain| / max|plain| <= 1e-4 (fp32 sums taken in
@@ -22,7 +23,19 @@ Phase 2  each kernel against its plain PyTorch version on the card, at the
          off-diagonal remainder (within 1.5x the plain version's) are held.
          K10a also on an ill-conditioned panel (its whitening residual
          within 2x that of cholesky_ex + solve_triangular) and on a non-PD
-         one (non-finite output). Times
+         one (non-finite output). K7 at (1602, 16, 16) and (1602, 32, 32)
+         complex with 6 cold sweeps (the FD engine's per-bin pencils at B = 1
+         and 2), at a ragged (3, 5, 5), and on the degenerate-pairs spectrum
+         of tests/test_jacobi_eigh.py at 10 sweeps: its eigenvectors are
+         defined up to a phase that rounding picks inside every doubled
+         eigenvalue of the real embedding, so the eigenvalues are held
+         against the plain version's (1e-4 of scale), and the residual
+         max|Hq - qw| / max|H| and max|q^H q - I| of each matrix, averaged
+         over the batch, within 1e-4 or 1.5x the plain version's (six cold
+         sweeps leave the near-degenerate pairs of random matrices
+         unconverged on either device, so the worst matrix is reported
+         beside the plain version's own worst under 1e-7 input changes).
+         Times
          by CUDA events after warm-up, with the 50 MB L2 flushed (a 64 MB
          read) before every launch; the bound is the larger of bytes over
          3.35 TB/s and fp32 operations over 67 TFLOP/s (H100 SXM published
@@ -63,9 +76,30 @@ Phase 3  the main path, ``ApVast`` on ``scale_scene(16)`` for 64 hops (two
          production and the invert path must each be within 0.25 dB of the
          exact path at both ranks (the JAX package's gate,
          tools/tracking_gate.py and tests/test_jacobi_eigh.py).
+         Then the frequency-domain engine, ``ApVastFD`` on the same scene
+         with bench.py's FD settings (forgetting 0.97, mu 1, matmul DFT, K1),
+         V = 16 per bin:
+         fd-jacobi  ``fd_eigh="jacobi"`` (K7, 6 sweeps), every rank 1..16,
+                    64 hops: K1 and K7 once per hop, ``silenced == 0``; hops
+                    1-8 against the CPU from the card's state: per-bin
+                    statistics (cov, cross) to 1e-4 of scale, target feeds to
+                    1e-4, loudspeaker feeds to the larger of 1e-3 and 4x the
+                    spread of the CPU hop itself under 1e-7 relative changes
+                    of its state (at most 5e-2).
+         fd-lapack  the same with ``torch.linalg.eigh``: the oracle. fd-jacobi's
+                    zone-A contrast over hops 7-64 within 0.25 dB of it at rank
+                    1 and rank 16.
+         fd-full    ``fd_span="full"``, the low-cost point: K1 per hop, no K7.
+         fd-coupled ``fd_span="full"``, C = 7, B = 2, V = 32: the coupled
+                    quality point.
+         and 8 hops each of fd-full with C = 7, G = 4 and a 1e-3 rank cutoff,
+         and with 4 CG refinement steps. Contrast and NMSE (rank V) are
+         reported for every FD path, and every path's first 8 hops are held
+         against the CPU (loudspeaker feeds to 5e-2 of scale outside the
+         Jacobi path).
 Phase 4  (``--profile``) device time by kernel and by stage over 32
-         steady-state hops of the production and of the invert path, and
-         the device's idle share.
+         steady-state hops of the production, the invert, the fd-jacobi and
+         the fd-full path, and the device's idle share.
 
 The last line of output is ``{"ok": true, "device": {...}}``; any failure
 exits non-zero before it.
@@ -95,6 +129,16 @@ CPU_HOPS = 8
 TAIL_FROM = 6  # contrast over hops 7-64 (0-based 6-63)
 PROFILE_HOPS = 32
 SEED = 20261016
+# The frequency-domain engine: bench.py's FD settings, K7's cold sweeps
+# (config.fd_jacobi_sweeps), and the Jacobi path's loudspeaker-feed gate
+# against the CPU: the larger of FD_TOL_FLOOR and FD_SPREAD_FACTOR x the
+# CPU hop's own spread under ULP_REL changes of its state, at most TOL_FEEDS.
+FD_SETTINGS = {"use_matmul_dft": True, "use_pallas_conv": True}
+FD_FORGETTING = 0.97
+FD_SWEEPS = 6
+FD_TOL_FLOOR = 1e-3
+FD_SPREAD_FACTOR = 4.0
+HERM_RATIO = 1.5  # K7's residual and orthonormality against its plain version's
 
 
 def _nvidia_smi() -> str:
@@ -127,8 +171,9 @@ def _time_ms(fn, iters: int, flush: torch.Tensor) -> float:
 
 def _rel(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
     """(max abs difference, that over max |b|)."""
-    diff = (a.double() - b.double()).abs().max().item()
-    scale = b.double().abs().max().item()
+    a, b = (x.cdouble() if x.is_complex() else x.double() for x in (a, b))
+    diff = (a - b).abs().max().item()
+    scale = b.abs().max().item()
     return diff, diff / max(scale, 1e-30)
 
 
@@ -159,6 +204,68 @@ def _warm(g, dev, b, n):
 def _cold(g, dev, b, n):
     x = torch.randn((b, n, n), generator=g)
     return ((x + x.transpose(1, 2)) / 2).to(dev).contiguous()
+
+
+def _hermitian(g, dev, b, n):
+    x = torch.complex(torch.randn((b, n, n), generator=g), torch.randn((b, n, n), generator=g))
+    return ((x + x.conj().transpose(1, 2)) / 2).to(dev).contiguous()
+
+
+def _degenerate_pairs(dev):
+    """tests/test_jacobi_eigh.py's spectrum: two exact 2-fold degeneracies
+    and a pair 1 float32 ulp apart, (6, 8, 8) complex."""
+    rng = np.random.default_rng(SEED)
+    z = rng.standard_normal((6, 8, 8)) + 1j * rng.standard_normal((6, 8, 8))
+    q, _ = np.linalg.qr(z)
+    w0 = np.array([1.0, 1.0, 2.0, 2.0, 3.0, np.float32(3.0) + np.spacing(np.float32(3.0)),
+                   5.0, 8.0])
+    a = (q * w0.astype(q.dtype)) @ np.conj(q.swapaxes(-1, -2))
+    return torch.from_numpy((0.5 * (a + np.conj(a.swapaxes(-1, -2)))).astype(np.complex64)).to(dev)
+
+
+def _hermitian_state(h, w, q):
+    """Per matrix, in float64: max |Hq - qw| / max |H| and max |q^H q - I|."""
+    h, q = h.cdouble(), q.cdouble()
+    res = (h @ q - q * w.double()[:, None, :]).abs().amax((1, 2)) / h.abs().amax((1, 2))
+    eye = torch.eye(q.shape[-1], dtype=q.dtype, device=q.device)
+    return res, (q.conj().transpose(1, 2) @ q - eye).abs().amax((1, 2))
+
+
+def _hermitian_checks(K, cases, card):
+    """K7 against its plain version on (label, h, sweeps) cases: the
+    eigenvalues to TOL_KERNEL of scale; the kernel's residual and
+    orthonormality, per matrix and then averaged over the batch, within
+    the larger of TOL_KERNEL and HERM_RATIO x the plain version's. The
+    worst matrix is reported with the plain version's own worst under
+    ULP_REL input changes (3 draws): after six cold sweeps the
+    near-degenerate pairs of a random matrix are unconverged, and rounding
+    picks their basis (PERF.md, section 6)."""
+    g = torch.Generator().manual_seed(SEED)
+    for label, h, sweeps in cases:
+        w, q = K.jacobi_eigh_hermitian(h, sweeps)
+        wp, qp = K.jacobi_eigh_hermitian_plain(h, sweeps)
+        d_rel = _rel(w, wp)[1]
+        got, plain = _hermitian_state(h, w, q), _hermitian_state(h, wp, qp)
+        own = [0.0, 0.0]
+        for _ in range(3):
+            hp = h * (1 + ULP_REL * torch.randn(h.shape, generator=g).to(h.device))
+            hp = ((hp + hp.conj().transpose(1, 2)) / 2).contiguous()
+            for i, x in enumerate(_hermitian_state(hp, *K.jacobi_eigh_hermitian_plain(hp, sweeps))):
+                own[i] = max(own[i], float(x.max()))
+        print(f"[phase 2] jacobi_eigh_hermitian {label} {tuple(h.shape)}, {sweeps} sweeps: "
+              f"eigenvalues rel_err={d_rel:.3e}; residual mean {float(got[0].mean()):.3e} "
+              f"(plain {float(plain[0].mean()):.3e}), worst {float(got[0].max()):.3e} (plain "
+              f"{float(plain[0].max()):.3e}, under {ULP_REL:.0e} input changes {own[0]:.3e}); "
+              f"max |q^H q - I| mean {float(got[1].mean()):.3e} (plain "
+              f"{float(plain[1].mean()):.3e}), worst {float(got[1].max()):.3e} (plain "
+              f"{float(plain[1].max()):.3e}, under {ULP_REL:.0e} input changes {own[1]:.3e}) "
+              f"card={card}", flush=True)
+        _check(f"jacobi_eigh_hermitian {label} eigenvalues", d_rel, TOL_KERNEL)
+        for name, x, xp in zip(("residual", "orthonormality"), got, plain):
+            limit = max(TOL_KERNEL, HERM_RATIO * float(xp.mean()))
+            if not float(x.mean()) <= limit:
+                raise AssertionError(f"jacobi_eigh_hermitian {label}: mean {name} "
+                                     f"{float(x.mean()):.3e} > {limit:.3e}")
 
 
 def phase2(scene, dev, card):
@@ -204,6 +311,12 @@ def phase2(scene, dev, card):
     k4 = min(v + 14, cfg.jl)
     npad = -(-k4 // 8) * 8
     h_warm, h_cold = _warm(g, dev, 2, k4), _cold(g, dev, 2, k4)
+
+    # K7: the FD engine's whitened per-bin pencils, (2 * bins, S * B, S * B)
+    # complex at B = 1 and 2, FD_SWEEPS cold sweeps.
+    bins = cfg.num_bins
+    h7, h7b = _hermitian(g, dev, 2 * bins, s), _hermitian(g, dev, 2 * bins, 2 * s)
+    np7 = -(-2 * s // 8) * 8
 
     # K10a: random SPD panels of the main path's shape (2, 128, 128); an
     # ill-conditioned and a non-PD panel beside them.
@@ -355,6 +468,31 @@ def phase2(scene, dev, card):
             ],
         ),
         dict(
+            name="jacobi_eigh_hermitian", route="cuda",
+            source="apvast_torch/csrc/jacobi_eigh.cu",
+            replaces="apvast_tpu/ops/pallas/jacobi_eigh.py:262",
+            kernel=lambda: K.jacobi_eigh_hermitian(h7, FD_SWEEPS),
+            plain=lambda: K.jacobi_eigh_hermitian_plain(h7, FD_SWEEPS),
+            library=lambda: torch.linalg.eigh(h7),
+            # Eigenvalues only: the eigenvectors carry a phase that rounding
+            # picks (_hermitian_checks holds them).
+            compare=lambda got, want: [_rel(got[0], want[0])],
+            # K4's count on the 2S-slot embedding; complex input read once,
+            # w and q written once.
+            flops=2 * bins * FD_SWEEPS * (np7 - 1) * 9 * np7 * np7,
+            bytes=8 * h7.numel() + 4 * 2 * bins * s + 8 * h7.numel(),
+            ragged=[
+                (lambda a: K.jacobi_eigh_hermitian(a, FD_SWEEPS),
+                 lambda a: K.jacobi_eigh_hermitian_plain(a, FD_SWEEPS),
+                 (_hermitian(g, dev, 3, 5),)),
+            ],
+            extra=[
+                dict(label="frame_taps_2",
+                     kernel=lambda: K.jacobi_eigh_hermitian(h7b, FD_SWEEPS),
+                     plain=lambda: K.jacobi_eigh_hermitian_plain(h7b, FD_SWEEPS)),
+            ],
+        ),
+        dict(
             name="output_filter", route="cuda",
             source="apvast_torch/csrc/output_filter.cu",
             replaces="apvast_tpu/ops/pallas/output_filter.py:72",
@@ -377,19 +515,28 @@ def phase2(scene, dev, card):
 
     _whiten_conditioning(K, spd, eye128)
     _jacobi_on_invert_hops(scene, dev, card)
+    _hermitian_checks(K, [
+        ("frame_taps_1", h7, FD_SWEEPS), ("frame_taps_2", h7b, FD_SWEEPS),
+        ("ragged", _hermitian(g, dev, 3, 5), FD_SWEEPS),
+        ("degenerate_pairs", _degenerate_pairs(dev), 10),
+    ], card)
     for c in cases:
-        errs = _errs(c["kernel"](), c["plain"]())
+        cmp = c.get("compare", _errs)
+        errs = cmp(c["kernel"](), c["plain"]())
         torch.cuda.synchronize()
         max_abs = max(e[0] for e in errs)
         rel = max(e[1] for e in errs)
         _check(c["name"] + " (north-star shape)", rel, TOL_KERNEL)
         for kfn, pfn, args in c["ragged"]:
             shapes = [tuple(a.shape) for a in args]
-            for _, r in _errs(kfn(*args), pfn(*args)):
+            for _, r in cmp(kfn(*args), pfn(*args)):
                 _check(f"{c['name']} (ragged {shapes})", r, TOL_KERNEL)
         extra_ms = {}
         for x in c.get("extra", []):
-            x_errs = _errs(x["kernel"](), x["plain"](), x.get("up_to_sign", False))
+            if x.get("up_to_sign"):
+                x_errs = _errs(x["kernel"](), x["plain"](), True)
+            else:
+                x_errs = cmp(x["kernel"](), x["plain"]())
             x_rel = max(e[1] for e in x_errs)
             _check(f"{c['name']} ({x['label']})", x_rel, TOL_KERNEL)
             x_ms = _time_ms(x["kernel"], 50, flush)
@@ -619,28 +766,24 @@ def _compare_with_cpu(scene, label, cfg, overrides, noise, states, outs, hops_a,
     print(f"[phase 3] {label}: CPU comparison took {time.perf_counter() - t2:.1f} s", flush=True)
 
 
-def drive(scene, dev, card, label, overrides, want_counts, sig, noise, hops=None,
-          compare_cpu=True):
-    """``hops`` (default HOPS) hops of one configuration on the card: launch
-    counts, health, steady-state time, the first CPU_HOPS hops against the
-    CPU (unless ``compare_cpu`` is false), and the zone-A tail feeds at rank
-    1 and rank V for the contrast."""
-    from apvast_torch.config import uses_tracking_solver
-    from apvast_torch.engine.hop import half_form
+def _run_hops(model, label, sig, dev, hops, want_counts, card, per_hop):
+    """``hops`` hops of ``model`` on the card from the program signals
+    ``sig``: the launch counts against ``want_counts``, ``silenced == 0``,
+    every output's shape (ranks, hop, srcs) and finiteness, and the host
+    time of the first CPU_HOPS hops and of the rest (the steady state).
+    ``per_hop(i, out)`` runs after each hop. Returns the CPU input hops, the
+    states and outputs of the first CPU_HOPS hops, the counts and the
+    steady-state ms/hop (None without a steady-state window)."""
     from apvast_torch.ops import kernels as K
 
-    hops = HOPS if hops is None else hops
-    model = _model(scene, dev, noise, overrides)
     cfg = model.config
-    tracking = uses_tracking_solver(cfg)
     hops_a = torch.as_tensor(sig[0][: hops * cfg.hop]).reshape(hops, cfg.hop)
     hops_b = torch.as_tensor(sig[1][: hops * cfg.hop]).reshape(hops, cfg.hop)
     hops_a_dev, hops_b_dev = hops_a.to(dev), hops_b.to(dev)
-    v, s = cfg.num_solutions, cfg.num_srcs
     torch.cuda.synchronize()
 
     K.reset_launch_counts()
-    states, outs, resid, tail_a = [model.state], [], [], []
+    states, outs = [model.state], []
     t_first = t0 = time.perf_counter()
     for i in range(hops):
         if i == CPU_HOPS:
@@ -650,10 +793,7 @@ def drive(scene, dev, card, label, overrides, want_counts, sig, noise, hops=None
         if i < CPU_HOPS:
             outs.append(out)
             states.append(model.state)
-        if tracking:
-            resid.append(model.state.gevd_resid)
-        if i >= TAIL_FROM:
-            tail_a.append(out[0][:: v - 1])  # a view of ranks 1 and V
+        per_hop(i, out)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     counts = K.launch_counts()
@@ -663,22 +803,48 @@ def drive(scene, dev, card, label, overrides, want_counts, sig, noise, hops=None
     silenced = int(model.silenced.item())
     if silenced != 0:
         raise AssertionError(f"{label}: silenced = {silenced}")
+    ranks = out[0].shape[0]
     for out in (*outs, out):
         for t in out:
-            if tuple(t.shape) != (v, cfg.hop, s) or not torch.isfinite(t).all():
+            if tuple(t.shape) != (ranks, cfg.hop, cfg.num_srcs) or not torch.isfinite(t).all():
                 raise AssertionError(f"{label}: bad output, shape {tuple(t.shape)}")
     first = min(hops, CPU_HOPS)
     first_s = (t0 if hops > CPU_HOPS else t1) - t_first
     ms_hop = (t1 - t0) / (hops - CPU_HOPS) * 1e3 if hops > CPU_HOPS else None
     steady = (f"steady state {ms_hop:.3f} ms/hop over hops {CPU_HOPS + 1}-{hops}"
               if ms_hop is not None else "no steady-state window")
-    print(
-        f"[phase 3] {label}: scale_scene(16), {hops} hops, silenced=0, half_form="
-        f"{half_form(cfg)}, first {first} hops {first_s * 1e3 / first:.3f} "
-        f"ms/hop, {steady} (host clock, synchronized), {model.rebuilds} rebuilds "
-        f"card={card}",
-        flush=True,
-    )
+    print(f"[phase 3] {label}: scale_scene(16), {hops} hops, {ranks} output ranks, silenced=0, "
+          f"first {first} hops {first_s * 1e3 / first:.3f} ms/hop, {steady} (host clock, "
+          f"synchronized) card={card}", flush=True)
+    return hops_a, hops_b, hops_a_dev, hops_b_dev, states, outs, counts, ms_hop
+
+
+def drive(scene, dev, card, label, overrides, want_counts, sig, noise, hops=None,
+          compare_cpu=True):
+    """``hops`` (default HOPS) hops of one configuration on the card: launch
+    counts, health, steady-state time (``_run_hops``), the first CPU_HOPS
+    hops against the CPU (unless ``compare_cpu`` is false), and the zone-A
+    tail feeds at rank 1 and rank V for the contrast."""
+    from apvast_torch.config import uses_tracking_solver
+    from apvast_torch.engine.hop import half_form
+
+    hops = HOPS if hops is None else hops
+    model = _model(scene, dev, noise, overrides)
+    cfg = model.config
+    tracking = uses_tracking_solver(cfg)
+    v = cfg.num_solutions
+    resid, tail_a = [], []
+
+    def per_hop(i, out):
+        if tracking:
+            resid.append(model.state.gevd_resid)
+        if i >= TAIL_FROM:
+            tail_a.append(out[0][:: v - 1])  # a view of ranks 1 and V
+
+    hops_a, hops_b, hops_a_dev, hops_b_dev, states, outs, counts, ms_hop = _run_hops(
+        model, label, sig, dev, hops, want_counts, card, per_hop)
+    print(f"[phase 3] {label}: half_form={half_form(cfg)}, {model.rebuilds} rebuilds",
+          flush=True)
     if tracking:
         r = torch.stack(resid).cpu()
         print(f"[phase 3] {label}: {model.rebuilds} preconditioner rebuilds in {hops} hops; "
@@ -697,6 +863,7 @@ def drive(scene, dev, card, label, overrides, want_counts, sig, noise, hops=None
 INVERT = {"subspace_whiten": "invert", "jacobi_sweeps": 3,
           "use_pallas_subspace": True, "use_pallas_whiten": True}
 ROUND3_KERNELS = ("whiten", "subspace")
+FD_KERNELS = ("jacobi_eigh_hermitian",)
 # The round-3 solvers' Rayleigh-Ritz matrices are not near-diagonal (the
 # CholeskyQR2 of each power step mixes the carried Ritz vectors), so K4 at
 # their 2-3 sweeps leaves close eigenvectors unconverged, and a rounding-sized
@@ -718,7 +885,8 @@ def phase3(scene, dev, card, results):
     from apvast_torch.ops import kernels as K
 
     noise, sig = _inputs(scene)
-    counts = {name: HOPS for name in K.WRAPPERS} | {name: 0 for name in ROUND3_KERNELS}
+    counts = {name: HOPS for name in K.WRAPPERS} | {
+        name: 0 for name in (*ROUND3_KERNELS, *FD_KERNELS)}
     prod = drive(scene, dev, card, "production", production_overrides(), counts, sig, noise)
     exact = drive(
         scene, dev, card, "exact", production_overrides() | {"gevd_solver": GevdSolver.EIGH},
@@ -731,7 +899,7 @@ def phase3(scene, dev, card, results):
         hops = HOPS if whiten == "invert" else CPU_HOPS
         want = {name: hops for name in K.WRAPPERS} | (
             {"whiten": panels * hops} if whiten == "invert"
-            else {name: 0 for name in ROUND3_KERNELS})
+            else {name: 0 for name in ROUND3_KERNELS}) | {name: 0 for name in FD_KERNELS}
         path = drive(scene, dev, card, whiten, config, want, sig, noise, hops=hops,
                      compare_cpu=False)
         invert = path if whiten == "invert" else invert
@@ -740,7 +908,8 @@ def phase3(scene, dev, card, results):
               config | {"jacobi_sweeps": CONVERGED_SWEEPS}, converged, sig, noise,
               hops=CPU_HOPS)
     for r in results:
-        r["launches"] = (invert if r["name"] in ROUND3_KERNELS else prod)[4][r["name"]]
+        if r["name"] not in FD_KERNELS:
+            r["launches"] = (invert if r["name"] in ROUND3_KERNELS else prod)[4][r["name"]]
     for label, path in (("production", prod), ("invert", invert)):
         for rank, p, e in zip((1, scene.config.num_eigenvectors), path[5], exact[5]):
             delta = p - e
@@ -754,6 +923,152 @@ def phase3(scene, dev, card, results):
     return {"production": prod[:4], "invert": invert[:4]}
 
 
+def _fd_model(scene, device, noise, overrides):
+    from apvast_torch import ApVastFD
+
+    c = scene.config
+    overrides = dict(overrides)
+    rank = overrides.pop("number_of_eigenvectors", c.num_srcs)
+    return ApVastFD(
+        c.block_size, scene.rir_a, scene.rir_b, c.filter_length, c.modeling_delay,
+        c.reference_index_a, c.reference_index_b, rank, c.mu,
+        sampling_rate=c.sampling_rate, perceptual=c.perceptual, forgetting=FD_FORGETTING,
+        device=device, response_noise=noise, dtype=c.dtype, **FD_SETTINGS, **overrides,
+    )
+
+
+def _perturbed(state, g):
+    """A copy of an FD state (on the CPU) with its statistics and response
+    tails changed by ULP_REL relative noise."""
+    def jitter(x):
+        noise = torch.randn(x.shape, generator=g, dtype=x.real.dtype)
+        return x * (1 + ULP_REL * noise)
+
+    return dataclasses.replace(state, **{
+        name: jitter(getattr(state, name)) for name in ("cov", "cross", "resp", "target_resp")
+    })
+
+
+def _compare_fd_with_cpu(scene, label, cfg, states, outs, hops_a, hops_b, spread):
+    """The first CPU_HOPS hops of an FD path on the CPU (plain versions),
+    each from the card's state: per-bin statistics to TOL_STATS, target
+    feeds to TOL_TARGET, loudspeaker feeds to TOL_FEEDS or, with
+    ``spread``, to the Jacobi gate (see FD_TOL_FLOOR)."""
+    from apvast_torch.engine import build_plan, process_hop_fd
+
+    t2 = time.perf_counter()
+    plan = build_plan(cfg, scene.rir_a, scene.rir_b, "cpu")
+    g = torch.Generator().manual_seed(SEED)
+    cpu_outs, own = [], []
+    for i in range(CPU_HOPS):
+        start = _to(states[i], "cpu")
+        cpu_state, o = process_hop_fd(cfg, plan, start, hops_a[i], hops_b[i], FD_FORGETTING)
+        cpu_outs.append((o.out_a, o.out_b, o.out_a_t, o.out_b_t))
+        for name in ("cov", "cross"):
+            _check(f"{label} hop {i + 1} statistics {name}",
+                   _rel(getattr(states[i + 1], name).cpu(), getattr(cpu_state, name))[1], TOL_STATS)
+        if spread:
+            _, p = process_hop_fd(cfg, plan, _perturbed(start, g), hops_a[i], hops_b[i],
+                                  FD_FORGETTING)
+            own.append(max(_rel(p.out_a, o.out_a)[1], _rel(p.out_b, o.out_b)[1]))
+    print(f"[phase 3] {label}: statistics (cov, cross) of hops 1-{CPU_HOPS} within "
+          f"{TOL_STATS:.0e} of the CPU", flush=True)
+    tol = TOL_FEEDS
+    if spread:
+        tol = min(TOL_FEEDS, max(FD_TOL_FLOOR, FD_SPREAD_FACTOR * max(own)))
+        print(f"[phase 3] {label}: the CPU hop's own loudspeaker feeds under {ULP_REL:.0e} "
+              f"relative changes of its state move by, per hop, "
+              f"{[f'{x:.1e}' for x in own]}: feed gate {tol:.3e}", flush=True)
+    for f, name in enumerate(("out_a", "out_b", "out_a_t", "out_b_t")):
+        gd = torch.stack([o[f] for o in outs]).cpu()
+        c = torch.stack([o[f].expand_as(gd[0]) for o in cpu_outs])
+        per_hop = [f"{_rel(gd[i], c[i])[1]:.1e}" for i in range(CPU_HOPS)]
+        target = name.endswith("_t")
+        print(f"[phase 3] {label} {name} vs CPU, hops 1-{CPU_HOPS}: per hop {per_hop}, all "
+              f"{_rel(gd, c)[1]:.3e}", flush=True)
+        _check(f"{label} {name} vs CPU", _rel(gd, c)[1], TOL_TARGET if target else tol)
+    print(f"[phase 3] {label}: CPU comparison took {time.perf_counter() - t2:.1f} s", flush=True)
+
+
+def drive_fd(scene, dev, card, label, overrides, sig, noise, hops=None):
+    """``hops`` hops of one FD configuration on the card: launch counts
+    (K1 every hop, K7 every hop under fd_eigh='jacobi' with every rank),
+    health, steady-state time (``_run_hops``), the first CPU_HOPS hops
+    against the CPU, and zone-A contrast at rank 1 and rank V and NMSE at
+    rank V over hops TAIL_FROM + 1 to ``hops``."""
+    from apvast_torch.evaluation import acoustic_contrast_db, normalized_mse, predict_pressure
+    from apvast_torch.ops import kernels as K
+
+    hops = HOPS if hops is None else hops
+    model = _fd_model(scene, dev, noise, overrides)
+    cfg = model.config
+    v = cfg.fd_num_solutions
+    jacobi = cfg.fd_eigh == "jacobi" and cfg.fd_span == "all"
+    want = {name: 0 for name in K.WRAPPERS} | {"streaming_conv": hops} | (
+        {"jacobi_eigh_hermitian": hops} if jacobi else {})
+    tail_a, tail_t = [], []
+
+    def per_hop(i, out):
+        if i >= TAIL_FROM:
+            tail_a.append(out[0][[0, v - 1]])  # a copy of ranks 1 and V
+            tail_t.append(out[2][0])
+
+    hops_a, hops_b, hops_a_dev, hops_b_dev, states, outs, counts, ms_hop = _run_hops(
+        model, label, sig, dev, hops, want, card, per_hop)
+    _compare_fd_with_cpu(scene, label, cfg, states, outs, hops_a, hops_b, spread=jacobi)
+    feeds = torch.cat(tail_a, dim=1).double()  # (2, T, srcs): ranks 1 and V
+    bright = predict_pressure(feeds, scene.rir_a)
+    contrast = [float(x) for x in acoustic_contrast_db(bright, predict_pressure(feeds, scene.rir_b))]
+    nmse = float(normalized_mse(bright[-1], predict_pressure(torch.cat(tail_t).double(),
+                                                             scene.rir_a)))
+    print(f"[phase 3] {label}: V={cfg.num_eigenvectors}, zone-A contrast over hops "
+          f"{TAIL_FROM + 1}-{hops}: rank 1 {contrast[0]:.4f} dB, rank V {contrast[1]:.4f} dB; "
+          f"NMSE at rank V {nmse:.4f}", flush=True)
+    return model, hops_a_dev, hops_b_dev, ms_hop, counts, contrast, nmse
+
+
+def phase3_fd(scene, dev, card, results):
+    """The frequency-domain engine's paths (see the module docstring)."""
+    noise, sig = _inputs(scene)
+    s = scene.config.num_srcs
+    base = {"number_of_eigenvectors": s, "fd_jacobi_sweeps": FD_SWEEPS}
+    jac = drive_fd(scene, dev, card, "fd-jacobi", base | {"fd_eigh": "jacobi"}, sig, noise)
+    lap = drive_fd(scene, dev, card, "fd-lapack", base, sig, noise)
+    full = drive_fd(scene, dev, card, "fd-full", base | {"fd_span": "full"}, sig, noise)
+    coupled = drive_fd(scene, dev, card, "fd-coupled", base | {
+        "fd_span": "full", "fd_bin_coupling": 7, "fd_frame_taps": 2,
+        "number_of_eigenvectors": 2 * s}, sig, noise)
+    for label, extra in (
+        ("fd-group", {"fd_bin_coupling": 7, "fd_group_size": 4, "fd_group_rank_tol": 1e-3}),
+        ("fd-cg", {"fd_coupled_iters": 4, "fd_coupled_method": "cg"}),
+    ):
+        drive_fd(scene, dev, card, label, base | {"fd_span": "full"} | extra, sig, noise,
+                 hops=CPU_HOPS)
+    for r in results:
+        if r["name"] in FD_KERNELS:
+            r["launches"] = jac[4][r["name"]]
+    for rank, j, e in zip((1, s), jac[5], lap[5]):
+        delta = j - e
+        print(f"[phase 3] contrast gate rank {rank}: fd-jacobi {j:.4f} dB, fd-lapack {e:.4f} dB, "
+              f"delta {delta:+.4f} dB (limit {TOL_CONTRAST_DB} dB)", flush=True)
+        if not abs(delta) <= TOL_CONTRAST_DB:
+            raise AssertionError(f"contrast gate failed for fd-jacobi at rank {rank}: "
+                                 f"{delta:+.4f} dB")
+    print(f"[phase 3] FD steady state: fd-jacobi {jac[3]:.3f}, fd-lapack {lap[3]:.3f}, "
+          f"fd-full {full[3]:.3f}, fd-coupled {coupled[3]:.3f} ms/hop card={card}", flush=True)
+    return {"fd-jacobi": jac[:4], "fd-full": full[:4]}
+
+
+def _kernel_of(key):
+    """The wrapper whose kernel a profiler key names: K4 and K7 are forms of
+    one template, jacobi_eigh_kernel<PER, DOUBLE, HERM>."""
+    from apvast_torch.ops import kernels as K
+
+    if "jacobi_eigh_kernel<" in key:
+        return "jacobi_eigh_hermitian" if "true>(" in key else "jacobi_eigh"
+    return next((name for name in K.WRAPPERS if f"{name}_kernel" in key), None)
+
+
 def phase4(label, model, hops_a, hops_b, card, wall_ms_hop):
     """Device time by kernel and by stage over PROFILE_HOPS steady-state hops
     of one path (for the production path one rebuild period), and the
@@ -765,7 +1080,7 @@ def phase4(label, model, hops_a, hops_b, card, wall_ms_hop):
 
     n = PROFILE_HOPS
     jl = model.config.jl
-    rebuilds = model.rebuilds
+    rebuilds = getattr(model, "rebuilds", 0)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
@@ -782,7 +1097,7 @@ def phase4(label, model, hops_a, hops_b, card, wall_ms_hop):
     )
     busy_ms = max(sum(r[0] for r in rows) / n / 1e3, 1e-9)
     print(f"[phase 4] {label} path, hops {HOPS + 1}-{HOPS + n} "
-          f"({model.rebuilds - rebuilds} preconditioner rebuilds): kernel time "
+          f"({getattr(model, 'rebuilds', 0) - rebuilds} preconditioner rebuilds): kernel time "
           f"{busy_ms:.3f} ms/hop ({sum(r[2] for r in rows) // n} kernels/hop); idle share "
           f"{1 - busy_ms / wall_ms_hop:.3f} of the {wall_ms_hop:.3f} ms/hop "
           f"steady state; card={card}", flush=True)
@@ -806,14 +1121,15 @@ def phase4(label, model, hops_a, hops_b, card, wall_ms_hop):
     stages = {
         "torch Cholesky of the (2, JL, JL) dark matrices": op_ms(chol, True),
         "triangular inverse (2, JL, JL)": op_ms(tri, True),
-        "small Cholesky (RR pencil, CholeskyQR2)": op_ms(chol, False),
-        "small triangular inverse (RR pencil)": op_ms(tri, False),
+        "small Cholesky (RR pencil, CholeskyQR2; FD lapack path)": op_ms(chol, False),
+        "small triangular solves (RR pencil; FD whitening and solves)": op_ms(tri, False),
         "eigh (torch.linalg.eigh)": op_ms(("aten::_linalg_eigh",)),
+        "LU solve (torch.linalg.solve_ex)": op_ms(("aten::linalg_solve_ex",)),
         "matmuls (aten::mm, aten::bmm)": op_ms(("aten::mm", "aten::bmm")),
     }
     for name in K.WRAPPERS:
         stages[f"kernel {name}"] = sum(
-            r[0] for r in rows if f"{name}_kernel" in r[1]
+            r[0] for r in rows if _kernel_of(r[1]) == name
         ) / n / 1e3
     stages["other (elementwise ops, copies, reductions)"] = busy_ms - sum(stages.values())
     for name, ms in stages.items():
@@ -827,8 +1143,8 @@ def phase4(label, model, hops_a, hops_b, card, wall_ms_hop):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="add phase 4, a torch.profiler breakdown of the production and the "
-                         "invert path")
+                    help="add phase 4, a torch.profiler breakdown of the production, the "
+                         "invert, the fd-jacobi and the fd-full path")
     args = ap.parse_args()
 
     # ---- phase 0: environment ------------------------------------------
@@ -866,6 +1182,7 @@ def main() -> int:
 
     # ---- phase 3: the main path ----------------------------------------
     paths = phase3(scene, dev, card, results)
+    paths |= phase3_fd(scene, dev, card, results)
 
     if args.profile:
         for label, (model, hops_a, hops_b, ms_hop) in paths.items():

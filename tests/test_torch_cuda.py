@@ -1,7 +1,7 @@
 """The port on a CUDA device: each kernel wrapper against its plain version
 at ragged shapes, its launch count, its input checks on the card, and the
-hop on the card (exact, production and 'invert' solver) against the same
-hop on the CPU.
+hop on the card (exact, production and 'invert' solver, and the
+frequency-domain engine with K7) against the same hop on the CPU.
 
 Needs a card: every test is marked ``cuda`` and skips without one. This
 file imports neither JAX nor the shared fixtures, so on a machine without
@@ -9,7 +9,9 @@ JAX it runs with ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.p
 
 Tolerances: kernel and plain version both sum in float32 and may order
 the sums differently (1e-4 of the output scale; K4 on warm-start-like
-inputs, where no rotation pair sits at theta ~ 0); hop outputs as in
+inputs, where no rotation pair sits at theta ~ 0; K7 on what does not
+depend on the phase that rounding picks inside each doubled eigenvalue of
+its real embedding: eigenvalues, residual, orthonormality); hop outputs as in
 tests/test_torch_hop.py (statistics 1e-4, target feeds 1e-5, loudspeaker
 feeds 5e-2 of the signal scale), the production hop compared hop by hop
 from the card's state (tests/test_torch_tracking.py says why).
@@ -21,8 +23,8 @@ import numpy as np
 import pytest
 import torch
 
-from apvast_torch import ApVast, GevdSolver, production_overrides
-from apvast_torch.engine import hop_statistics, process_hop
+from apvast_torch import ApVast, ApVastFD, GevdSolver, production_overrides
+from apvast_torch.engine import hop_statistics, process_hop, process_hop_fd
 from apvast_torch.ops import kernels as K
 from apvast_torch.utils.rir import synthetic_rirs
 
@@ -39,7 +41,7 @@ def dev():
 
 
 def _rel(a, b) -> float:
-    a, b = a.double().cpu(), b.double().cpu()
+    a, b = (x.cdouble().cpu() if x.is_complex() else x.double().cpu() for x in (a, b))
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
@@ -59,6 +61,11 @@ def _subspace_args(rnd, b, n, k, iters):
     """a SPD, li the inverse Cholesky factor of an SPD matrix, q0 random."""
     li = torch.linalg.inv(torch.linalg.cholesky(_spd(rnd, b, n)))
     return (_spd(rnd, b, n), li.contiguous(), rnd(b, n, k), iters)
+
+
+def _herm(rnd, b, n):
+    x = torch.complex(rnd(b, n, n), rnd(b, n, n))
+    return ((x + x.conj().transpose(1, 2)) / 2).contiguous()
 
 
 def _cases(rnd):
@@ -87,6 +94,12 @@ def _cases(rnd):
             (_warm(rnd, 5, 37), 8),
             (_warm(rnd, 1, 128), 2),
         ],
+        "jacobi_eigh_hermitian": [
+            (_herm(rnd, 3, 5), 10),
+            (_herm(rnd, 40, 16), 10),
+            (_herm(rnd, 2, 32), 12),
+            (_herm(rnd, 1, 1), 2),
+        ],
         "output_filter": [
             (rnd(2, 100), rnd(2, 37, 9), rnd(100), rnd(2, 37, 70), 30),
             (rnd(2, 100), rnd(2, 37, 9), rnd(100), rnd(2, 37, 40), 60),
@@ -103,7 +116,16 @@ _PLAIN = {
     "subspace": K.subspace_iterate_plain,
     "jacobi_eigh": K.jacobi_eigh_plain,
     "output_filter": K.circular_filter_overlap_plain,
+    "jacobi_eigh_hermitian": K.jacobi_eigh_hermitian_plain,
 }
+
+
+def _hermitian_state(h, w, q):
+    """K7's phase-free state: max |Hq - qw| / max |H| and max |q^H q - I|."""
+    h, q = h.cdouble(), q.cdouble()
+    res = (h @ q - q * w.double()[:, None, :]).abs().max() / h.abs().max()
+    eye = torch.eye(q.shape[-1], dtype=q.dtype, device=q.device)
+    return float(res), float((q.conj().transpose(1, 2) @ q - eye).abs().max())
 
 
 @pytest.mark.parametrize("name", list(K.WRAPPERS))
@@ -117,6 +139,12 @@ def test_kernel_matches_plain_on_the_card(dev, name):
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
+        if name == "jacobi_eigh_hermitian":
+            # Eigenvalues; the eigenvectors up to their phase.
+            assert _rel(got[0], want[0]) <= 1e-4
+            assert max(_hermitian_state(args[0], *got)) <= 1e-4
+            assert got[1].shape == want[1].shape and got[1].device.type == "cuda"
+            continue
         for a, b in zip(got, want):
             assert a.device.type == "cuda" and a.shape == b.shape
             if b.numel():
@@ -163,7 +191,7 @@ def test_slice_hop_on_the_card_matches_cpu(dev):
     K.reset_launch_counts()
     hops = rng.standard_normal((6, 2, 64)).astype(np.float32)
     got = [card.process_input_buffers(a, b) for a, b in hops]
-    solver_kernels = ("whiten", "subspace", "jacobi_eigh")
+    solver_kernels = ("whiten", "subspace", "jacobi_eigh", "jacobi_eigh_hermitian")
     assert K.launch_counts() == {name: 0 if name in solver_kernels else 6 for name in K.WRAPPERS}
     want = [cpu.process_input_buffers(a, b) for a, b in hops]
     assert int(card.silenced) == 0
@@ -235,7 +263,63 @@ def test_production_hop_on_the_card_matches_cpu(dev, config):
     round3 = ("whiten", "subspace")
     assert K.launch_counts() == {
         name: 0 if name in round3 and config == "production" else 8 for name in K.WRAPPERS
-    }
+    } | {"jacobi_eigh_hermitian": 0}
     assert int(card.silenced) == 0
     if config == "production":
         assert card.rebuilds >= 6  # warmup, then the residual trigger
+
+
+def test_hermitian_kernel_degenerate_pairs(dev):
+    """Two exact 2-fold degeneracies and a pair 1 float32 ulp apart
+    (tests/test_jacobi_eigh.py): the repair keeps the columns orthonormal
+    on the card as in the plain version."""
+    rng = np.random.default_rng(5)
+    z = rng.standard_normal((6, 8, 8)) + 1j * rng.standard_normal((6, 8, 8))
+    q, _ = np.linalg.qr(z)
+    w0 = np.array([1.0, 1.0, 2.0, 2.0, 3.0, np.float32(3.0) + np.spacing(np.float32(3.0)),
+                   5.0, 8.0])
+    a = (q * w0.astype(q.dtype)) @ np.conj(q.swapaxes(-1, -2))
+    h = torch.from_numpy((0.5 * (a + np.conj(a.swapaxes(-1, -2)))).astype(np.complex64)).to(dev)
+    w, v = K.jacobi_eigh_hermitian(h, 10)
+    wp, _ = K.jacobi_eigh_hermitian_plain(h, 10)
+    assert _rel(w, wp) <= 1e-4
+    res, orth = _hermitian_state(h, w, v)
+    assert res <= 1e-3 and orth <= 5e-3
+
+
+@pytest.mark.parametrize("span", ["all", "full"])
+def test_fd_hop_on_the_card_matches_cpu(dev, span):
+    """ApVastFD with bench.py's FD settings on tests/test_torch_fd.py's
+    scene (S = 4, 3 mics): K1 every hop and, under fd_eigh='jacobi', K7
+    every hop; each card hop equals the CPU hop from the same state
+    (statistics and target feeds 1e-4 of their scale; loudspeaker feeds
+    1e-3: on the CPU the port and JAX agree within 5e-5 there, and a 1e-7
+    relative change of the statistics moves them by under 1e-6)."""
+    rng = np.random.default_rng(12)
+    noise = (1e-3 * rng.standard_normal((4, 3, 4, 128)), 1e-3 * rng.standard_normal((2, 3, 128)))
+    kwargs = dict(
+        block_size=128, rir_a=synthetic_rirs(120, 4, 3, seed=1),
+        rir_b=synthetic_rirs(120, 4, 3, seed=2), filter_length=16, modeling_delay=5,
+        reference_index_a=1, reference_index_b=2, number_of_eigenvectors=4, mu=1.0,
+        sampling_rate=8000, perceptual=True, response_noise=noise, dtype="float32",
+        use_matmul_dft=True, use_pallas_conv=True, fd_span=span, fd_eigh="jacobi",
+    )
+    card = ApVastFD(device=dev, forgetting=0.97, **kwargs)
+    cpu = ApVastFD(device="cpu", forgetting=0.97, **kwargs)
+    K.reset_launch_counts()
+    got, want = [], []
+    for a, b in rng.standard_normal((6, 2, 64)).astype(np.float32):
+        start = _state_to(card.state, "cpu")
+        got.append(card.process_input_buffers(a, b))
+        cpu.state, out = process_hop_fd(cpu.config, cpu.plan, start, torch.from_numpy(a),
+                                        torch.from_numpy(b), forgetting=0.97)
+        want.append((out.out_a, out.out_b, out.out_a_t, out.out_b_t))
+        assert _rel(card.state.cov, cpu.state.cov) <= 1e-4
+        assert _rel(card.state.cross, cpu.state.cross) <= 1e-4
+    counts = {name: 0 for name in K.WRAPPERS} | {"streaming_conv": 6}
+    assert K.launch_counts() == counts | {"jacobi_eigh_hermitian": 6 if span == "all" else 0}
+    assert int(card.silenced) == 0
+    for f in range(4):
+        g = torch.stack([x[f] for x in got])
+        w = torch.stack([x[f].expand_as(g[0]) for x in want])
+        assert torch.isfinite(g).all() and _rel(g, w) <= (1e-4 if f >= 2 else 1e-3)

@@ -105,6 +105,17 @@ def test_production_overrides_equal_jax():
         dict(lag_assembly="x"),
         dict(output_spans=()),
         dict(output_spans=(7,)),
+        dict(fd_frame_taps=0),
+        dict(fd_bin_coupling=2),
+        dict(fd_span="x"),
+        dict(fd_group_size=0),
+        dict(fd_coupled_iters=-1),
+        dict(fd_coupled_iters=1),
+        dict(fd_coupled_iters=1, fd_span="full", fd_group_size=2, fd_bin_coupling=3),
+        dict(fd_coupled_relax=0.0),
+        dict(fd_coupled_method="x"),
+        dict(fd_group_size=2),
+        dict(fd_group_size=2, fd_span="full"),
     ],
     ids=lambda d: "-".join(f"{k}={v}" for k, v in d.items()),
 )
@@ -122,24 +133,36 @@ def test_config_validation_errors_match_jax(small_scene, bad):
 _UNPORTED_JAX_INVALID = [
     dict(tracking_li_bf16=True),
     dict(tracking_residual_precision="default"),
-    dict(fd_frame_taps=0),
-    dict(fd_bin_coupling=2),
-    dict(fd_span="x"),
-    dict(fd_group_size=0),
-    dict(fd_coupled_iters=-1),
-    dict(fd_coupled_iters=1),
-    dict(fd_coupled_iters=1, fd_span="full", fd_group_size=2, fd_bin_coupling=3),
-    dict(fd_coupled_relax=0.0),
-    dict(fd_coupled_method="x"),
-    dict(fd_group_size=2),
-    dict(fd_group_size=2, fd_span="full"),
 ]
 _UNPORTED_JAX_VALID = [
-    dict(fd_span="full"),
-    dict(fd_eigh="jacobi"),
     dict(regularization=jcfg.RegularizationVariant.MATLAB, dark_loading=1e-2),
     dict(bright_loading=1e-6),
 ]
+
+
+@pytest.mark.parametrize(
+    "knob", [dict(fd_span="full"), dict(fd_eigh="jacobi")],
+    ids=lambda d: "-".join(f"{k}={v}" for k, v in d.items()),
+)
+def test_fd_knobs_convert_and_run(small_scene, knob):
+    """The FD engine's fields are port fields: a JAX config with one set
+    converts, and runs a hop of the FD engine (V = S for the full span,
+    float32 for the Jacobi kernel)."""
+    from apvast_torch.engine import init_fd_state, process_hop_fd
+
+    jc, rir_a, rir_b = small_scene
+    fields = dataclasses.asdict(dataclasses.replace(jc)) | knob | dict(
+        num_eigenvectors=jc.num_srcs, dtype="float32"
+    )
+    jcfg.ApVastConfig(**fields)
+    tc = config_from_jax(fields)
+    for name, value in knob.items():
+        assert getattr(tc, name) == value
+    hop = torch.ones(tc.hop)
+    _, out = process_hop_fd(tc, build_plan(tc, rir_a, rir_b, "cpu"), init_fd_state(tc, "cpu"),
+                            hop, hop)
+    assert out.out_a.shape == (tc.fd_num_solutions, tc.hop, tc.num_srcs)
+    assert torch.isfinite(out.out_a).all() and int(out.silenced) == 0
 
 
 @pytest.mark.parametrize(
