@@ -15,12 +15,17 @@ The port runs the time-domain hop of the JAX engine: the exact GEVD
 solver (``GevdSolver.EIGH``) or a subspace solver (``GevdSolver.SUBSPACE``
 with any ``subspace_whiten``: "tracking", the production solver, or the
 round-3 "invert", "solve" and "newton" solvers), the FFT or kernel
-streaming convolution, dense or
-skew-assembled lag statistics (full or half form) and the FFT or kernel
+streaming convolution, the exact WOLA perceptual weighting or its
+truncated time-domain form (``weighting_conv_taps``, the row-wise
+convolution kernel K8), dense framed statistics (plain, or the
+framed-covariance kernel K6 under ``use_pallas_statistics``) or
+skew-assembled lag statistics (full or half form), and the FFT or kernel
 output synthesis; and the frequency-domain engine (``fd_*`` fields,
-``engine/fd_hop.py``) in every mode of the JAX engine. :func:`check_port_slice` rejects every other value with
-``NotImplementedError`` naming the slice that brings it; no such
-configuration is run another way.
+``engine/fd_hop.py``) in every mode of the JAX engine.
+:func:`check_port_slice` rejects every other value (the non-skew lag
+assemblies, the norm-scaled loadings and the bfloat16 knobs of
+:data:`NOT_RUN`) with ``NotImplementedError`` naming the slice that
+brings it; no such configuration is run another way.
 """
 
 from __future__ import annotations
@@ -173,14 +178,18 @@ class ApVastConfig:
     # Cholesky with the panel kernel (K10a, for ceil128(jl) <= 1024).
     use_pallas_subspace: bool = False
     use_pallas_whiten: bool = False
-    # Dense framed statistics kernel; in production only a fallback that
-    # use_lag_statistics takes precedence over.
+    # Dense framed statistics through the framed-covariance kernel K6
+    # (float32 only); use_lag_statistics takes precedence over it.
     use_pallas_statistics: bool = False
     # Statistics from lag correlations (ops/lag_statistics.py): the
     # Toeplitz shift structure gives the same sums with ~J-fold fewer
     # operations.
     use_lag_statistics: bool = False
     lag_assembly: str = "wide"
+    # Truncated time-domain perceptual weighting of the responses: a
+    # circular convolution with the T-tap centre of each weighting
+    # curve's impulse response (ops/weighting_conv.py, kernel K8); None
+    # keeps the exact WOLA round trip.
     weighting_conv_taps: int | None = None
     # Frequency-domain engine only (engine/fd_hop.py). Per-bin filters
     # span this many STFT frames (cross-frame taps): the per-bin rank
@@ -480,11 +489,6 @@ def check_port_slice(config: ApVastConfig) -> None:
     if config.dtype not in ("float32", "float64"):
         raise ValueError(f"dtype must be 'float32' or 'float64', got {config.dtype!r}")
     check_not_run(vars(config))
-    if config.weighting_conv_taps is not None:
-        raise NotImplementedError(
-            "weighting_conv_taps (truncated time-domain weighting with the "
-            "row-wise convolution kernel) is a later slice of the port"
-        )
     if config.regularization is not RegularizationVariant.PYTHON:
         raise NotImplementedError(
             "norm-scaled loading (PYTHON_NORM / MATLAB regularization) "
@@ -494,9 +498,4 @@ def check_port_slice(config: ApVastConfig) -> None:
         raise NotImplementedError(
             f"lag_assembly={config.lag_assembly!r} is one of the kept "
             "experimental assemblies, a later slice of the port; use 'skew'"
-        )
-    if config.use_pallas_statistics and not config.use_lag_statistics:
-        raise NotImplementedError(
-            "dense use_pallas_statistics without lag statistics needs the "
-            "framed-covariance kernel, a later slice of the port"
         )

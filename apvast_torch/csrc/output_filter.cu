@@ -1,7 +1,7 @@
 // K5: output synthesis: J-tap circular filter bank + synthesis window +
-// tail-form overlap-add.
+// tail-form overlap-add; and K11, the same circular filter bank unfused.
 //
-// Replaces apvast_tpu/ops/pallas/output_filter.py::circular_filter_overlap_pallas.
+// K5 replaces apvast_tpu/ops/pallas/output_filter.py::circular_filter_overlap_pallas.
 //   y[z, r, n]   = window[n] * sum_t filt[z, r, t] * x[z, (n - t) mod block]
 //   v[z, r, n]   = y[z, r, n] + (n < block - hop ? tail[z, r, n] : 0)
 //   emit[z, r, n]           = v[z, r, n]      for n <  hop
@@ -19,6 +19,13 @@
 // samples consecutive), applies the window, adds the tail and writes emit
 // or new tail directly. The full (rows, block) synthesis tile never
 // reaches device memory.
+//
+// K11 replaces apvast_tpu/ops/pallas/output_filter.py::circular_filter_pallas:
+//   out[z, r, n] = sum_t filt[z, r, t] * x[z, (n - t) mod block]
+// It is the kOverlap = false form of the same kernel: the window and the
+// overlap-add are switched off and the whole (rows, block) tile is written.
+// Bound: operations at small tap counts ((2, 1600) x (2, 800, 50): 0.26
+// GFLOP against 10.6 MB of output), bytes once the output dominates.
 
 #include <cuda_runtime.h>
 
@@ -29,6 +36,7 @@ constexpr int kSampleTile = 128;
 constexpr int kThreads = 256;  // 128 samples x 2 row groups
 constexpr int kRowsPerThread = kRowTile / (kThreads / kSampleTile);
 
+template <bool kOverlap>
 __global__ void __launch_bounds__(kThreads)
 output_filter_kernel(const float* __restrict__ xin,
                      const float* __restrict__ filt,
@@ -71,6 +79,14 @@ output_filter_kernel(const float* __restrict__ xin,
 
   const int n = n0 + tx;
   if (n >= block) return;
+  if constexpr (!kOverlap) {  // K11: emit is the (z, rows, block) output
+#pragma unroll
+    for (int i = 0; i < kRowsPerThread; ++i) {
+      const int r = r0 + ty + 2 * i;
+      if (r < rows) emit[((size_t)z * rows + r) * block + n] = acc[i];
+    }
+    return;
+  }
   const float wv = window[n];
   const int bh = block - hop;
 #pragma unroll
@@ -87,9 +103,27 @@ output_filter_kernel(const float* __restrict__ xin,
   }
 }
 
+template <bool kOverlap>
+int launch(const float* xin, const float* filt, const float* window,
+           const float* tail, float* emit, float* new_tail, int z, int rows,
+           int taps, int block, int hop, cudaStream_t stream) {
+  const size_t smem = (size_t)(kRowTile * taps + kSampleTile + taps - 1) * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        output_filter_kernel<kOverlap>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid((block + kSampleTile - 1) / kSampleTile,
+                  (rows + kRowTile - 1) / kRowTile, z);
+  output_filter_kernel<kOverlap><<<grid, kThreads, smem, stream>>>(
+      xin, filt, window, tail, emit, new_tail, rows, taps, block, hop);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// xin (z, block), filt (z, rows, taps), window (block), tail (z, rows,
+// K5. xin (z, block), filt (z, rows, taps), window (block), tail (z, rows,
 // block - hop) -> emit (z, rows, hop), new_tail (z, rows, block - hop);
 // float32, contiguous, 0 < hop < block, taps <= block.
 extern "C" int output_filter_launch(const float* xin, const float* filt,
@@ -97,16 +131,15 @@ extern "C" int output_filter_launch(const float* xin, const float* filt,
                                     float* emit, float* new_tail, int z,
                                     int rows, int taps, int block, int hop,
                                     cudaStream_t stream) {
-  const size_t smem = (size_t)(kRowTile * taps + kSampleTile + taps - 1) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        output_filter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid((block + kSampleTile - 1) / kSampleTile,
-                  (rows + kRowTile - 1) / kRowTile, z);
-  output_filter_kernel<<<grid, kThreads, smem, stream>>>(
-      xin, filt, window, tail, emit, new_tail, rows, taps, block, hop);
-  return (int)cudaGetLastError();
+  return launch<true>(xin, filt, window, tail, emit, new_tail, z, rows, taps,
+                      block, hop, stream);
+}
+
+// K11. xin (z, block), filt (z, rows, taps) -> out (z, rows, block);
+// float32, contiguous, taps <= block.
+extern "C" int circular_filter_launch(const float* xin, const float* filt,
+                                      float* out, int z, int rows, int taps,
+                                      int block, cudaStream_t stream) {
+  return launch<false>(xin, filt, nullptr, nullptr, out, nullptr, z, rows,
+                       taps, block, block, stream);
 }

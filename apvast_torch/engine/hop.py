@@ -5,10 +5,12 @@ the reference a batch axis:
 
 1. streaming RIR convolution    (FFT overlap-save, or kernel K1)
 2. weighted target update       (WOLA analysis + perceptual weighting)
-3. weighted response update     (matmul-DFT or FFT WOLA)
-4. statistics                   (framed Gram, or lag statistics: K2 + K3,
-                                 half form M with R = M + M^T for the
-                                 tracking solver)
+3. weighted response update     (matmul-DFT or FFT WOLA, or the truncated
+                                 time-domain weighting: a circular
+                                 convolution, kernel K8)
+4. statistics                   (framed Gram, plain or kernel K6, or lag
+                                 statistics: K2 + K3, half form M with
+                                 R = M + M^T for the tracking solver)
 5. GEVD + filter synthesis      (exact Cholesky-whitened eigh, the
                                  tracking solver with K4, or the
                                  'invert'/'solve'/'newton' subspace
@@ -40,9 +42,10 @@ from apvast_torch.ops.jdiag import (
     jdiag_topk_pencil_batched,
     jdiag_topk_tracked,
 )
-from apvast_torch.ops.kernels import circular_filter_overlap, streaming_conv
+from apvast_torch.ops.kernels import circular_filter_overlap, covariance, streaming_conv
 from apvast_torch.ops.lag_statistics import covariance_via_lags_skew
 from apvast_torch.ops.synthesis import variable_span_filters
+from apvast_torch.ops.weighting_conv import circular_weighting_conv, weighting_kernel
 from apvast_torch.ops.wola import (
     irfft_batched,
     rfft_batched,
@@ -128,12 +131,11 @@ def _synthesize(config, plan, spectra, block):
     return wola_synthesize(plan.window, spectra, block)
 
 
-def weighted_spectra(config, plan, resp, target_resp):
-    """Stages 2+3 (spectral part): WOLA analysis of the target and response
-    blocks, the perceptual weighting derived from the target spectra, and
-    the zone gates. Returns (weighted target spectra, weighted and gated
-    response spectra)."""
-    t_spec = _analyze(config, plan, target_resp)  # (2, m, bins) complex
+def target_weighting(config, plan, target_resp):
+    """WOLA analysis of the target blocks and the perceptual weighting
+    derived from them. Returns (target spectra (2, m, bins) complex,
+    weighting (2, m, bins) real)."""
+    t_spec = _analyze(config, plan, target_resp)
     if config.perceptual:
         weighting = perceptual_gain(
             t_spec, plan.cfmr_sq, plan.cs, plan.ca, plan.leff,
@@ -143,13 +145,24 @@ def weighted_spectra(config, plan, resp, target_resp):
         weighting = torch.ones(
             t_spec.shape, dtype=torch_dtype(config), device=t_spec.device
         )
-    r_spec = _analyze(config, plan, resp)  # (4, m, s, bins)
-    # Zone run flags gate by signal: paths 0,1 carry A, paths 2,3 B.
-    gate = torch.tensor(
-        [float(config.run_a)] * 2 + [float(config.run_b)] * 2,
-        dtype=weighting.dtype, device=r_spec.device,
+    return t_spec, weighting
+
+
+def _signal_gate(config, dtype, device):
+    """Zone run flags gate by signal: paths 0,1 carry A, paths 2,3 B."""
+    return torch.tensor(
+        [float(config.run_a)] * 2 + [float(config.run_b)] * 2, dtype=dtype, device=device
     )
-    r_spec = r_spec * gate[:, None, None, None]
+
+
+def weighted_spectra(config, plan, resp, target_resp):
+    """Stages 2+3 (spectral part): WOLA analysis of the target and response
+    blocks, the perceptual weighting derived from the target spectra, and
+    the zone gates. Returns (weighted target spectra, weighted and gated
+    response spectra)."""
+    t_spec, weighting = target_weighting(config, plan, target_resp)
+    r_spec = _analyze(config, plan, resp)  # (4, m, s, bins)
+    r_spec = r_spec * _signal_gate(config, weighting.dtype, r_spec.device)[:, None, None, None]
     r_spec = r_spec * weighting[_PATH_ZONE][:, :, None, :]
     return t_spec * weighting, r_spec
 
@@ -231,9 +244,19 @@ def hop_statistics(config: ApVastConfig, wresp_stat, wtarget_stat):
         buf_eff = wresp_stat
     k = buf_eff.shape[-1] - j + 1
     d = wtarget_stat[..., -k:]  # (2, m, k) target alignment
+    # The JAX engine also takes the dense kernel path when the skew kernel
+    # cannot lower (S % 8 != 0 off the CPU, a Mosaic limit). The port's K3
+    # serves any S, as the JAX package does on the CPU it is held against,
+    # so the lag statistics never fall back here.
     if config.use_lag_statistics:
         form = "half" if half_form(config) else "full"
         r_mats, r_vecs = covariance_via_lags_skew(buf_eff, d, j, form=form)
+    elif config.use_pallas_statistics:
+        if config.dtype != "float32":
+            raise ValueError("use_pallas_statistics requires dtype=float32")
+        r_mats, r_cross = covariance(buf_eff.contiguous(), d.contiguous(), j)
+        # Bright paths against their own zone's target.
+        r_vecs = torch.stack([r_cross[0, :, 0], r_cross[3, :, 1]])
     else:
         r_mats, r_vecs = framed_statistics(buf_eff, d, j)
     if config.normalize_statistics:
@@ -270,8 +293,20 @@ def process_hop(
     )
 
     # ---- 2+3. perceptual weighting of target and responses -------------
-    wt_spec, r_spec = weighted_spectra(config, plan, resp, target_resp)
-    new_wr = _synthesize(config, plan, r_spec, block)
+    taps = config.weighting_conv_taps
+    if taps is not None:
+        # Truncated time-domain weighting: the target path stays exact (2M
+        # rows, it feeds r); the 4MS response rows take a circular
+        # convolution with the T-tap centre of each weighting's impulse
+        # response (kernel K8 for float32 on the card).
+        t_spec, weighting = target_weighting(config, plan, target_resp)
+        wt_spec = t_spec * weighting
+        kernels = weighting_kernel(weighting, block, taps, plan.idft_cos_plain)  # (2, m, T)
+        y = circular_weighting_conv(win * torch.cat(resp, dim=-1), kernels, taps)
+        new_wr = win * (y * _signal_gate(config, dtype, device)[:, None, None, None])
+    else:
+        wt_spec, r_spec = weighted_spectra(config, plan, resp, target_resp)
+        new_wr = _synthesize(config, plan, r_spec, block)
     new_wt = _synthesize(config, plan, wt_spec, block)
     wtarget_overlap, wt_emit = wola_overlap_add_tail(state.wtarget_overlap, new_wt, hop)
     wtarget_stat = slide(state.wtarget_stat, wt_emit)

@@ -2,8 +2,9 @@
 ``apvast_tpu/engine/plan.py``): the WOLA window, the RIR and target
 spectra of the streaming convolution, the raw kernel rows of K1, the delta
 target playback filters, the matmul-DFT matrices with the windows folded
-in, the frequency-domain engine's J-tap projection matrices, and the
-calibrated perceptual tables. All tensors live on one device.
+in (and the unwindowed inverse that the truncated weighting uses), the
+frequency-domain engine's J-tap projection matrices, and the calibrated
+perceptual tables. All tensors live on one device.
 """
 
 from __future__ import annotations
@@ -40,6 +41,9 @@ class ApVastPlan:
     dft_sin: torch.Tensor | None
     idft_cos: torch.Tensor | None  # (bins, block), synthesis window folded in
     idft_sin: torch.Tensor | None
+    # The inverse DFT without the window, (bins, block): the truncated
+    # weighting's impulse responses (ops/weighting_conv.weighting_kernel).
+    idft_cos_plain: torch.Tensor | None
     # The FD engine's J-tap truncation projection (use_matmul_dft): the
     # first J samples of the inverse transform, (bins, J), and the forward
     # transform of J samples, (J, bins); no windows.
@@ -142,7 +146,7 @@ def build_plan(
     )
 
     window = sine_window(config.block_size, dtype=dtype, device=device)
-    dft_cos = dft_sin = idft_cos = idft_sin = None
+    dft_cos = dft_sin = idft_cos = idft_sin = idft_cos_plain = None
     proj_idft_cos = proj_idft_sin = proj_dft_cos = proj_dft_sin = None
     if config.use_matmul_dft:
         block = config.block_size
@@ -159,6 +163,7 @@ def build_plan(
         dft_sin = dev((win[:, None] * np.sin(ang)).astype(np_dtype))
         idft_cos = dev(((np.cos(ang) * inv_w).T * win[None, :]).astype(np_dtype))
         idft_sin = dev(((np.sin(ang) * inv_w).T * win[None, :]).astype(np_dtype))
+        idft_cos_plain = dev((np.cos(ang) * inv_w).T.astype(np_dtype))
         j = config.filter_length
         proj_idft_cos = dev((np.cos(ang[:j]) * inv_w).T.astype(np_dtype))
         proj_idft_sin = dev((np.sin(ang[:j]) * inv_w).T.astype(np_dtype))
@@ -177,6 +182,7 @@ def build_plan(
         dft_sin=dft_sin,
         idft_cos=idft_cos,
         idft_sin=idft_sin,
+        idft_cos_plain=idft_cos_plain,
         proj_idft_cos=proj_idft_cos,
         proj_idft_sin=proj_idft_sin,
         proj_dft_cos=proj_dft_cos,

@@ -18,6 +18,15 @@ def frame_buffer(buffer: torch.Tensor, frame_length: int) -> torch.Tensor:
     return buffer.unfold(-1, frame_length, 1)
 
 
+def window_rows(buf: torch.Tensor, j: int) -> torch.Tensor:
+    """The statistics' window rows ``(P, M, S*J, K)`` of buffers ``buf``
+    (P, M, S, N): row ``sv*J + i`` is ``buf[..., sv, J-1-i : J-1-i+K]``
+    (source-major, reversed taps), K = N - J + 1."""
+    p, m, s, _ = buf.shape
+    frames = frame_buffer(buf, j)  # (p, m, s, k, j)
+    return frames.flip(-1).permute(0, 1, 2, 4, 3).reshape(p, m, s * j, frames.shape[-2])
+
+
 def framed_statistics(
     buf: torch.Tensor, d: torch.Tensor, j: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -27,10 +36,7 @@ def framed_statistics(
     source-major rows of reversed taps, and ``r`` (2, S*J) of the bright
     paths (A->A, B->B) against their zone's target.
     """
-    p4, m, s, _ = buf.shape
-    frames = frame_buffer(buf, j)  # (4, m, s, k, j)
-    k = frames.shape[-2]
-    y = frames.flip(-1).permute(0, 1, 2, 4, 3).reshape(p4, m, s * j, k)
+    y = window_rows(buf, j)
     r_mats = torch.einsum("pmak,pmbk->pab", y, y)
     r_vecs = torch.einsum("zmak,zmk->za", y[[0, 3]], d)
     return r_mats, r_vecs

@@ -31,8 +31,8 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
 KERNEL_SOURCES = (
-    "streaming_conv", "lag_corr", "skew_assembly", "whiten", "subspace", "jacobi_eigh",
-    "output_filter",
+    "streaming_conv", "rowwise_conv", "lag_corr", "skew_assembly", "statistics", "whiten",
+    "subspace", "jacobi_eigh", "output_filter",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

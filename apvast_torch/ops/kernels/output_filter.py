@@ -1,12 +1,18 @@
-"""K5: circular filter bank + synthesis window + tail-form overlap-add.
+"""K5: circular filter bank + synthesis window + tail-form overlap-add;
+K11: the same circular filter bank unfused.
 
-Kernel: ``apvast_torch/csrc/output_filter.cu``, replacing
+Kernel: ``apvast_torch/csrc/output_filter.cu``. K5 replaces
 ``apvast_tpu/ops/pallas/output_filter.py::circular_filter_overlap_pallas``.
 Bound on the H100: bytes (~15.7 MB of tail in, emit and new tail out at
 the north-star shapes, against 0.26 GFLOP). One block per (zone, row
 tile, sample tile) stages the circularly extended input slice and its
 filter rows in shared memory and writes emit or new tail directly, so the
 full (rows, block) synthesis tile never reaches device memory.
+
+K11 replaces ``output_filter.py::circular_filter_pallas``, which nothing in
+either package's engine calls: the template form of K5's kernel with the
+window and the overlap-add switched off, writing the whole (rows, block)
+output.
 """
 
 from __future__ import annotations
@@ -80,3 +86,37 @@ def circular_filter_overlap(
 
 
 circular_filter_overlap.launches = 0
+
+
+def circular_filter_plain(windowed_input: torch.Tensor, filters: torch.Tensor) -> torch.Tensor:
+    """``irfft(rfft(windowed_input) * rfft(filters, n=block))``: the circular
+    convolution of each zone's block with each of its filter rows."""
+    block = windowed_input.shape[-1]
+    spec = torch.fft.rfft(windowed_input, dim=-1)[:, None, :]
+    return torch.fft.irfft(spec * torch.fft.rfft(filters, n=block, dim=-1), n=block, dim=-1)
+
+
+def circular_filter(windowed_input: torch.Tensor, filters: torch.Tensor) -> torch.Tensor:
+    """Circular convolution ``(zones, rows, block)`` of the analysis-windowed
+    input blocks ``windowed_input`` (zones, block) with the filter rows
+    ``filters`` (zones, rows, taps), taps <= block. Same signature and
+    layout as the JAX ``circular_filter_pallas``."""
+    _build.check_input(windowed_input, "windowed_input", 2)
+    dev = windowed_input.device
+    _build.check_input(filters, "filters", 3, dev)
+    z, block = windowed_input.shape
+    zf, rows, taps = filters.shape
+    if zf != z or not 0 < taps <= block:
+        raise ValueError(f"filters shape {tuple(filters.shape)} does not fit input")
+    if dev.type == "cpu":
+        return circular_filter_plain(windowed_input, filters)
+    out = torch.empty((z, rows, block), dtype=torch.float32, device=dev)
+    _build.launch(
+        "output_filter", "circular_filter_launch", windowed_input, filters, out,
+        z, rows, taps, block,
+    )
+    circular_filter.launches += 1
+    return out
+
+
+circular_filter.launches = 0

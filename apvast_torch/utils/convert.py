@@ -46,9 +46,6 @@ UNPORTED_FIELDS = {
     "bright_loading": ((1e-8,), _MATLAB),
     "dark_loading": ((5e-3,), _MATLAB),
 }
-# Plan arrays the JAX package builds for paths the port does not run yet:
-# the truncated weighting convolution's inverse DFT.
-_NOT_PORTED_PLAN = ("idft_cos_plain",)
 # State fields of the JAX subspace solvers; None under GevdSolver.EIGH.
 _SUBSPACE_STATE = ("gevd_q", "gevd_minv", "gevd_lam", "gevd_hop", "gevd_resid")
 
@@ -113,6 +110,7 @@ def plan_from_numpy(
         "dft_sin": ((block, bins), dtype),
         "idft_cos": ((bins, block), dtype),
         "idft_sin": ((bins, block), dtype),
+        "idft_cos_plain": ((bins, block), dtype),
         "proj_idft_cos": ((bins, j), dtype),
         "proj_idft_sin": ((bins, j), dtype),
         "proj_dft_cos": ((j, bins), dtype),
@@ -123,7 +121,7 @@ def plan_from_numpy(
         "leff": ((), dtype),
         "spectrum_scale": ((), dtype),
     }
-    unknown = set(arrays) - set(shapes) - set(_NOT_PORTED_PLAN)
+    unknown = set(arrays) - set(shapes)
     if unknown:
         raise ValueError(f"plan arrays the port does not have: {sorted(unknown)}")
     out = {}

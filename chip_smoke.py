@@ -7,8 +7,8 @@
 Phase 0  environment: card name and power limit, torch/CUDA versions,
          TF32 off for matmuls and cuDNN.
 Phase 1  build: every kernel of apvast_torch/csrc with nvcc (one process
-         per source, all at once): K1-K5, K7 (a form of K4's source), K9
-         and K10a.
+         per source, all at once): K1-K6, K7 (a form of K4's source), K8,
+         K9, K10a and K11 (a form of K5's source).
 Phase 2  each kernel against its plain PyTorch version on the card, at the
          north-star shapes and at ragged small shapes:
          max|kernel - plain| / max|plain| <= 1e-4 (fp32 sums taken in
@@ -35,14 +35,19 @@ Phase 2  each kernel against its plain PyTorch version on the card, at the
          sweeps leave the near-degenerate pairs of random matrices
          unconverged on either device, so the worst matrix is reported
          beside the plain version's own worst under 1e-7 input changes).
-         Times
+         K6 at the north-star shapes, at SJ = 1600 (S = 32, the JAX
+         package's packed regime) and at a ragged SJ = 300; K8 at the
+         north-star shapes with the banded k_t of T = 257 weighting taps and
+         at (4, 2, 3, 64) with a general k_t; K11 at (2, 1600) x (2, 800, 50),
+         at 37 rows (no whole row tile) and at 1000 rows (the JAX function
+         pads them). Times
          by CUDA events after warm-up, with the 50 MB L2 flushed (a 64 MB
          read) before every launch; the bound is the larger of bytes over
          3.35 TB/s and fp32 operations over 67 TFLOP/s (H100 SXM published
          peaks).
 Phase 3  the main path, ``ApVast`` on ``scale_scene(16)`` for 64 hops (two
          rebuild periods) on the card, input and initial noise from a seed,
-         in three configurations:
+         in five configurations:
          production ``production_overrides()`` (the tracking GEVD solver
                     with K4, half-form K3): K1-K5 each launched once per
                     hop, ``silenced == 0``, the rebuild count and residual
@@ -62,6 +67,12 @@ Phase 3  the main path, ``ApVast`` on ``scale_scene(16)`` for 64 hops (two
                     use_pallas_whiten: True}`` (the round-3 solver): K1-K5
                     and K9 once per hop, K10a 7 times (JL = 800 pads to 7
                     panels), full-form K3.
+         dense      ``production_overrides() | {use_lag_statistics: False}``:
+                    K1, K6, K4 (the tracking solver fed the full-form R) and
+                    K5 once per hop.
+         weighting-conv ``production_overrides() | {weighting_conv_taps:
+                    257}`` (the truncated time-domain weighting): K1, K8,
+                    K2, K3 (half form), K4 and K5 once per hop.
          Then 8 hops each of ``production_overrides() | {subspace_whiten:
          "solve"}`` and ``{... "newton"}`` (K4 at 2 sweeps, no K9 or K10a).
          Under these three solvers K4's 2-3 sweeps are unconverged on a
@@ -70,12 +81,17 @@ Phase 3  the main path, ``ApVast`` on ``scale_scene(16)`` for 64 hops (two
          scale). So each of the three is compared with the CPU, as the
          production path (hop by hop from the card's state, to the same
          tolerances), in a second run of 8 hops with K4 at 8 sweeps
-         (converged).
+         (converged). The dense and the weighting-conv path are compared
+         the same way: K6 sums in another order than its plain version
+         (about 6e-6 of scale), and at 2 sweeps that moved one dense hop's
+         feeds by 0.17 of its scale.
          Contrast gate: acoustic contrast of zone A over hops 7-64 at rank 1
          and rank V (= 50), computed with ``apvast_torch.evaluation``; the
-         production and the invert path must each be within 0.25 dB of the
-         exact path at both ranks (the JAX package's gate,
-         tools/tracking_gate.py and tests/test_jacobi_eigh.py).
+         production, the invert and the dense path must each be within 0.25
+         dB of the exact path at both ranks (the JAX package's gate,
+         tools/tracking_gate.py and tests/test_jacobi_eigh.py), and the
+         weighting-conv path within 0.25 dB of the production path (the JAX
+         package's truncation gate, tests/test_weighting_conv.py).
          Then the frequency-domain engine, ``ApVastFD`` on the same scene
          with bench.py's FD settings (forgetting 0.97, mu 1, matmul DFT, K1),
          V = 16 per bin:
@@ -98,8 +114,9 @@ Phase 3  the main path, ``ApVast`` on ``scale_scene(16)`` for 64 hops (two
          against the CPU (loudspeaker feeds to 5e-2 of scale outside the
          Jacobi path).
 Phase 4  (``--profile``) device time by kernel and by stage over 32
-         steady-state hops of the production, the invert, the fd-jacobi and
-         the fd-full path, and the device's idle share.
+         steady-state hops of the production, the invert, the dense, the
+         weighting-conv, the fd-jacobi and the fd-full path, and the
+         device's idle share.
 
 The last line of output is ``{"ok": true, "device": {...}}``; any failure
 exits non-zero before it.
@@ -139,6 +156,9 @@ FD_SWEEPS = 6
 FD_TOL_FLOOR = 1e-3
 FD_SPREAD_FACTOR = 4.0
 HERM_RATIO = 1.5  # K7's residual and orthonormality against its plain version's
+# The truncated weighting's tap count: the JAX package's production value
+# (tools/device_breakdown.py, tests/test_weighting_conv.py).
+WEIGHTING_TAPS = 257
 
 
 def _nvidia_smi() -> str:
@@ -271,7 +291,9 @@ def _hermitian_checks(K, cases, card):
 def phase2(scene, dev, card):
     from apvast_torch.engine.plan import build_plan
     from apvast_torch.ops import kernels as K
+    from apvast_torch.ops.framing import framed_statistics
     from apvast_torch.ops.jdiag import _topk_project
+    from apvast_torch.ops.weighting_conv import _banded_toeplitz_t, weighting_kernel
 
     cfg = scene.config
     g = torch.Generator(device="cpu").manual_seed(SEED)
@@ -345,6 +367,30 @@ def phase2(scene, dev, card):
     f5, t5 = rnd(2, v * s, j) * 1e-2, rnd(2, v * s, block - hop) * 1e-2
     ext5 = torch.cat([x5[:, block - (j - 1) :], x5], -1)[None].contiguous()
     w5 = f5.flip(-1).reshape(2 * v * s, 1, j).contiguous()
+
+    # K6 dense statistics: the deleted-form buffers (4, M, S, N - 1) and the
+    # aligned targets (2, M, K); SJ = 1600 (S = 32) and a ragged SJ = 300.
+    n6 = cfg.statistics_buffer_length - 1
+    k6 = n6 - j + 1
+    buf6, tgt6 = rnd(4, m, s, n6) * 1e-3, rnd(2, m, k6) * 1e-3
+    buf6w = rnd(4, m, 2 * s, n6) * 1e-3
+    sj = s * j
+
+    # K8 truncated weighting: the response rows (4, M, S, block) and the
+    # banded k_t of the WEIGHTING_TAPS-tap kernels of random weighting
+    # curves, as the hop builds them (B = 160 at block 1600).
+    taps8, b8 = WEIGHTING_TAPS, 160
+    x8 = rnd(4, m, s, block)
+    kern8 = weighting_kernel(0.5 + rnd(2, m, cfg.num_bins).abs(), block, taps8,
+                             plan.idft_cos_plain)
+    k8 = _banded_toeplitz_t(kern8, b8, taps8).contiguous()
+    u8 = b8 + taps8 - 1
+    # The library yardstick: a depthwise convolution of the circularly
+    # padded rows, each with its zone's kernel (flipped: conv1d correlates).
+    h8 = taps8 // 2
+    conv8_in = F.pad(x8.reshape(1, 4 * m * s, block), (h8, h8), mode="circular")
+    conv8_w = kern8.flip(-1)[[0, 1, 0, 1]][:, :, None].expand(4, m, s, taps8)
+    conv8_w = conv8_w.reshape(4 * m * s, 1, taps8).contiguous()
 
     cases = [
         dict(
@@ -509,6 +555,63 @@ def phase2(scene, dev, card):
                 (lambda a, b, w, t: K.circular_filter_overlap(a, b, w, t, 60),
                  lambda a, b, w, t: K.circular_filter_overlap_plain(a, b, w, t, 60),
                  (rnd(2, 100), rnd(2, 37, 9), rnd(100), rnd(2, 37, 40))),
+            ],
+        ),
+        dict(
+            name="statistics", route="cuda",
+            source="apvast_torch/csrc/statistics.cu",
+            replaces="apvast_tpu/ops/pallas/statistics.py:396",
+            kernel=lambda: K.covariance(buf6, tgt6, j),
+            plain=lambda: K.covariance_plain(buf6, tgt6, j),
+            # No single PyTorch call computes K6: the port's own dense path
+            # (unfold + cuBLAS einsums) is the yardstick.
+            library=lambda: framed_statistics(buf6, tgt6, j),
+            # The symmetric Gram counted as half, and the cross vector.
+            flops=2 * 4 * m * (sj * (sj + 1) // 2 + 2 * sj) * k6,
+            bytes=4 * (buf6.numel() + tgt6.numel() + 4 * sj * sj + 4 * sj * 2),
+            ragged=[
+                (lambda a, b: K.covariance(a, b, 100), lambda a, b: K.covariance_plain(a, b, 100),
+                 (rnd(2, 2, 3, 200), rnd(2, 2, 101))),
+                (lambda a, b: K.covariance(a, b, 8), lambda a, b: K.covariance_plain(a, b, 8),
+                 (rnd(4, 3, 4, 96), rnd(2, 3, 89))),
+            ],
+            extra=[
+                dict(label="sj_1600",
+                     kernel=lambda: K.covariance(buf6w, tgt6, j),
+                     plain=lambda: K.covariance_plain(buf6w, tgt6, j)),
+            ],
+        ),
+        dict(
+            name="rowwise_conv", route="cuda",
+            source="apvast_torch/csrc/rowwise_conv.cu",
+            replaces="apvast_tpu/ops/pallas/rowwise_conv.py:44",
+            kernel=lambda: K.rowwise_circular_conv(x8, k8, taps8, b8),
+            plain=lambda: K.rowwise_circular_conv_plain(x8, k8, taps8, b8),
+            library=lambda: F.conv1d(conv8_in, conv8_w, groups=4 * m * s),
+            # Every frame over its full depth U = B + T - 1, as the TPU kernel.
+            flops=2 * 4 * m * s * block * u8,
+            bytes=4 * (2 * x8.numel() + k8.numel()),
+            ragged=[
+                (lambda a, b: K.rowwise_circular_conv(a, b, 9, 16),
+                 lambda a, b: K.rowwise_circular_conv_plain(a, b, 9, 16),
+                 (rnd(4, 2, 3, 64), rnd(2, 2, 16, 24))),
+                (lambda a, b: K.rowwise_circular_conv(a, b, 7, 48),
+                 lambda a, b: K.rowwise_circular_conv_plain(a, b, 7, 48),
+                 (rnd(4, 2, 17, 96), rnd(2, 2, 48, 54))),
+            ],
+        ),
+        dict(
+            name="circular_filter", route="cuda",
+            source="apvast_torch/csrc/output_filter.cu",
+            replaces="apvast_tpu/ops/pallas/output_filter.py:165",
+            kernel=lambda: K.circular_filter(x5, f5),
+            plain=lambda: K.circular_filter_plain(x5, f5),
+            library=lambda: F.conv1d(ext5, w5, groups=2),
+            flops=2 * 2 * v * s * j * block,
+            bytes=4 * (x5.numel() + f5.numel() + 2 * v * s * block),
+            ragged=[
+                (K.circular_filter, K.circular_filter_plain, (rnd(2, 100), rnd(2, 37, 9))),
+                (K.circular_filter, K.circular_filter_plain, (x5, rnd(2, 1000, 9))),
             ],
         ),
     ]
@@ -735,6 +838,7 @@ def _compare_with_cpu(scene, label, cfg, overrides, noise, states, outs, hops_a,
     if uses_subspace_solver(cfg):
         plan = build_plan(cfg, scene.rir_a, scene.rir_b, "cpu")
         cpu_outs = []
+        worst = {}
         for i in range(CPU_HOPS):
             cpu_state, o = process_hop(cfg, plan, _to(states[i], "cpu"), hops_a[i], hops_b[i])
             cpu_outs.append((o.out_a, o.out_b, o.out_a_t, o.out_b_t))
@@ -743,9 +847,12 @@ def _compare_with_cpu(scene, label, cfg, overrides, noise, states, outs, hops_a,
                 hop_statistics(cfg, states[i + 1].wresp_stat, states[i + 1].wtarget_stat),
                 hop_statistics(cfg, cpu_state.wresp_stat, cpu_state.wtarget_stat),
             ):
-                _check(f"{label} hop {i + 1} statistics {name}", _rel(a.cpu(), b)[1], TOL_STATS)
-        print(f"[phase 3] {label}: statistics ({'M' if half_form(cfg) else 'R'}, r) of "
-              f"hops 1-{CPU_HOPS} within {TOL_STATS:.0e} of the CPU", flush=True)
+                rel = _rel(a.cpu(), b)[1]
+                worst[name] = max(worst.get(name, 0.0), rel)
+                _check(f"{label} hop {i + 1} statistics {name}", rel, TOL_STATS)
+        print(f"[phase 3] {label}: statistics of hops 1-{CPU_HOPS} within "
+              f"{TOL_STATS:.0e} of the CPU: worst rel_err "
+              f"{ {name: f'{x:.2e}' for name, x in worst.items()} }", flush=True)
     else:
         cpu = _model(scene, "cpu", noise, overrides)
         cpu_outs = [cpu.process_input_buffers(hops_a[i], hops_b[i]) for i in range(CPU_HOPS)]
@@ -847,10 +954,11 @@ def drive(scene, dev, card, label, overrides, want_counts, sig, noise, hops=None
           flush=True)
     if tracking:
         r = torch.stack(resid).cpu()
+        steady = (f", hops {CPU_HOPS + 1}-{hops}: min {float(r[CPU_HOPS:].min()):.4f} max "
+                  f"{float(r[CPU_HOPS:].max()):.4f}" if hops > CPU_HOPS else "")
         print(f"[phase 3] {label}: {model.rebuilds} preconditioner rebuilds in {hops} hops; "
               f"gevd_resid min {float(r.min()):.4f} max {float(r.max()):.4f} "
-              f"(hops 1-{hops}), hops {CPU_HOPS + 1}-{hops}: min "
-              f"{float(r[CPU_HOPS:].min()):.4f} max {float(r[CPU_HOPS:].max()):.4f}", flush=True)
+              f"(hops 1-{hops}){steady}", flush=True)
 
     if compare_cpu:
         _compare_with_cpu(scene, label, cfg, overrides, noise, states, outs, hops_a, hops_b)
@@ -862,8 +970,23 @@ def drive(scene, dev, card, label, overrides, want_counts, sig, noise, hops=None
 
 INVERT = {"subspace_whiten": "invert", "jacobi_sweeps": 3,
           "use_pallas_subspace": True, "use_pallas_whiten": True}
+DENSE = {"use_lag_statistics": False}
+WEIGHTING_CONV = {"weighting_conv_taps": WEIGHTING_TAPS}
+# The kernels each time-domain path launches once per hop ('invert' also
+# K10a once per panel).
+PRODUCTION_KERNELS = ("streaming_conv", "lag_corr", "skew_assembly", "jacobi_eigh",
+                      "output_filter")
+PATH_KERNELS = {
+    "production": PRODUCTION_KERNELS,
+    "exact": ("streaming_conv", "lag_corr", "skew_assembly", "output_filter"),
+    "invert": PRODUCTION_KERNELS + ("whiten", "subspace"),
+    "dense": ("streaming_conv", "statistics", "jacobi_eigh", "output_filter"),
+    "weighting-conv": PRODUCTION_KERNELS + ("rowwise_conv",),
+}
 ROUND3_KERNELS = ("whiten", "subspace")
 FD_KERNELS = ("jacobi_eigh_hermitian",)
+# Kernels that no engine path calls (their phase-2 rows report 0 launches).
+UNCALLED_KERNELS = ("circular_filter",)
 # The round-3 solvers' Rayleigh-Ritz matrices are not near-diagonal (the
 # CholeskyQR2 of each power step mixes the carried Ritz vectors), so K4 at
 # their 2-3 sweeps leaves close eigenvectors unconverged, and a rounding-sized
@@ -873,54 +996,78 @@ FD_KERNELS = ("jacobi_eigh_hermitian",)
 # round-3 path runs as configured (launches, health, timing, contrast) and is
 # compared with the CPU in a second run of CPU_HOPS hops with K4 at
 # CONVERGED_SWEEPS. Statistics and target feeds come before the solver, so
-# that run holds them on the configured path's inputs as well.
+# that run holds them on the configured path's inputs as well. The dense and
+# the weighting-conv path take the same comparison: K6 sums in another order
+# than its plain version, and at the production's 2 sweeps that rounding
+# moved the second dense hop's loudspeaker feeds by 0.17 of their scale
+# (PERF.md, section 6).
 CONVERGED_SWEEPS = 8
 WITNESS_HOPS = 3  # invert hops whose Rayleigh-Ritz matrices phase 2 takes
 ULP_REL = 1e-7  # a relative change of about one float32 ulp
 JACOBI_REMAINDER = 1.5  # K4's off-diagonal remainder against its plain version's
 
 
-def phase3(scene, dev, card, results):
-    from apvast_torch import GevdSolver, production_overrides
+def _want(path, hops, **extra):
+    """Launch counts of ``hops`` hops of a time-domain path."""
     from apvast_torch.ops import kernels as K
 
+    return {name: hops if name in PATH_KERNELS[path] else 0 for name in K.WRAPPERS} | extra
+
+
+def phase3(scene, dev, card, results):
+    from apvast_torch import GevdSolver, production_overrides
+
     noise, sig = _inputs(scene)
-    counts = {name: HOPS for name in K.WRAPPERS} | {
-        name: 0 for name in (*ROUND3_KERNELS, *FD_KERNELS)}
-    prod = drive(scene, dev, card, "production", production_overrides(), counts, sig, noise)
+    prod = drive(scene, dev, card, "production", production_overrides(),
+                 _want("production", HOPS), sig, noise)
     exact = drive(
         scene, dev, card, "exact", production_overrides() | {"gevd_solver": GevdSolver.EIGH},
-        counts | {"jacobi_eigh": 0}, sig, noise,
+        _want("exact", HOPS), sig, noise,
     )
-    panels = -(-scene.config.jl // 128)
-    invert = None
-    for whiten, extra in (("invert", INVERT), ("solve", {}), ("newton", {})):
-        config = production_overrides() | {"subspace_whiten": whiten} | extra
-        hops = HOPS if whiten == "invert" else CPU_HOPS
-        want = {name: hops for name in K.WRAPPERS} | (
-            {"whiten": panels * hops} if whiten == "invert"
-            else {name: 0 for name in ROUND3_KERNELS}) | {name: 0 for name in FD_KERNELS}
-        path = drive(scene, dev, card, whiten, config, want, sig, noise, hops=hops,
+
+    def configured_then_converged(label, config, want, hops=HOPS):
+        """The path as configured, then CPU_HOPS hops of it with K4 at
+        CONVERGED_SWEEPS held against the CPU."""
+        path = drive(scene, dev, card, label, config, want, sig, noise, hops=hops,
                      compare_cpu=False)
-        invert = path if whiten == "invert" else invert
         converged = {name: n * CPU_HOPS // hops for name, n in want.items()}
-        drive(scene, dev, card, f"{whiten} ({CONVERGED_SWEEPS} sweeps)",
+        drive(scene, dev, card, f"{label} ({CONVERGED_SWEEPS} sweeps)",
               config | {"jacobi_sweeps": CONVERGED_SWEEPS}, converged, sig, noise,
               hops=CPU_HOPS)
+        return path
+
+    dense = configured_then_converged("dense", production_overrides() | DENSE,
+                                      _want("dense", HOPS))
+    wconv = configured_then_converged("weighting-conv", production_overrides() | WEIGHTING_CONV,
+                                      _want("weighting-conv", HOPS))
+    panels = -(-scene.config.jl // 128)
+    invert = configured_then_converged(
+        "invert", production_overrides() | {"subspace_whiten": "invert"} | INVERT,
+        _want("invert", HOPS, whiten=panels * HOPS))
+    for whiten in ("solve", "newton"):
+        configured_then_converged(whiten, production_overrides() | {"subspace_whiten": whiten},
+                                  _want("production", CPU_HOPS), hops=CPU_HOPS)
+    # Each kernel's launches on the main-path run of the path that runs it.
+    launched_by = {"statistics": dense, "rowwise_conv": wconv} | {
+        name: invert for name in ROUND3_KERNELS}
     for r in results:
-        if r["name"] not in FD_KERNELS:
-            r["launches"] = (invert if r["name"] in ROUND3_KERNELS else prod)[4][r["name"]]
-    for label, path in (("production", prod), ("invert", invert)):
-        for rank, p, e in zip((1, scene.config.num_eigenvectors), path[5], exact[5]):
+        if r["name"] not in (*FD_KERNELS, *UNCALLED_KERNELS):
+            r["launches"] = launched_by.get(r["name"], prod)[4][r["name"]]
+    gates = [("production", prod, "exact", exact), ("invert", invert, "exact", exact),
+             ("dense", dense, "exact", exact), ("weighting-conv", wconv, "production", prod)]
+    for label, path, ref_label, ref in gates:
+        for rank, p, e in zip((1, scene.config.num_eigenvectors), path[5], ref[5]):
             delta = p - e
-            print(f"[phase 3] contrast gate rank {rank}: {label} {p:.4f} dB, exact {e:.4f} dB, "
-                  f"delta {delta:+.4f} dB (limit {TOL_CONTRAST_DB} dB)", flush=True)
+            print(f"[phase 3] contrast gate rank {rank}: {label} {p:.4f} dB, {ref_label} "
+                  f"{e:.4f} dB, delta {delta:+.4f} dB (limit {TOL_CONTRAST_DB} dB)", flush=True)
             if not abs(delta) <= TOL_CONTRAST_DB:
                 raise AssertionError(f"contrast gate failed for {label} at rank {rank}: "
                                      f"{delta:+.4f} dB")
     print(f"[phase 3] steady state: production {prod[3]:.3f} ms/hop, exact {exact[3]:.3f} "
-          f"ms/hop, invert {invert[3]:.3f} ms/hop card={card}", flush=True)
-    return {"production": prod[:4], "invert": invert[:4]}
+          f"ms/hop, invert {invert[3]:.3f} ms/hop, dense {dense[3]:.3f} ms/hop, weighting-conv "
+          f"{wconv[3]:.3f} ms/hop card={card}", flush=True)
+    return {"production": prod[:4], "invert": invert[:4], "dense": dense[:4],
+            "weighting-conv": wconv[:4]}
 
 
 def _fd_model(scene, device, noise, overrides):
@@ -1061,11 +1208,14 @@ def phase3_fd(scene, dev, card, results):
 
 def _kernel_of(key):
     """The wrapper whose kernel a profiler key names: K4 and K7 are forms of
-    one template, jacobi_eigh_kernel<PER, DOUBLE, HERM>."""
+    one template, jacobi_eigh_kernel<PER, DOUBLE, HERM>, and K5 and K11 of
+    output_filter_kernel<OVERLAP>."""
     from apvast_torch.ops import kernels as K
 
     if "jacobi_eigh_kernel<" in key:
         return "jacobi_eigh_hermitian" if "true>(" in key else "jacobi_eigh"
+    if "output_filter_kernel<false>" in key:
+        return "circular_filter"
     return next((name for name in K.WRAPPERS if f"{name}_kernel" in key), None)
 
 
@@ -1144,7 +1294,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="add phase 4, a torch.profiler breakdown of the production, the "
-                         "invert, the fd-jacobi and the fd-full path")
+                         "invert, the dense, the weighting-conv, the fd-jacobi and the "
+                         "fd-full path")
     args = ap.parse_args()
 
     # ---- phase 0: environment ------------------------------------------

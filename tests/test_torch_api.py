@@ -96,8 +96,8 @@ _ROUND3 = dict(gevd_solver=GevdSolver.SUBSPACE, dtype="float32", subspace_oversa
     [
         (production_overrides() | {"subspace_whiten": "newton"}, False),
         (dict(gevd_solver=GevdSolver.SUBSPACE), False),
-        (dict(weighting_conv_taps=31), True),
-        (dict(use_pallas_statistics=True), True),
+        (dict(weighting_conv_taps=31), False),
+        (dict(use_pallas_statistics=True, dtype="float32"), False),
         (dict(use_lag_statistics=True, lag_assembly="wide"), True),
         (dict(regularization=RegularizationVariant.MATLAB), True),
         (dict(regularization=RegularizationVariant.PYTHON_NORM), True),
@@ -113,7 +113,8 @@ _ROUND3 = dict(gevd_solver=GevdSolver.SUBSPACE, dtype="float32", subspace_oversa
 def test_out_of_slice_configs_raise(overrides, refused):
     """A configuration the port does not run raises NotImplementedError. The
     round-3 subspace solvers ('invert' by default, 'newton') and their
-    kernels, refused before the port ran them, convert and run a hop."""
+    kernels, the truncated weighting and the dense statistics kernel,
+    refused before the port ran them, convert and run a hop."""
     if refused:
         with pytest.raises(NotImplementedError):
             _model(**overrides)
@@ -128,7 +129,7 @@ def test_out_of_slice_config_raises_in_the_hop(small_scene):
     jc, rir_a, rir_b = small_scene
     tc = config_from_jax(dataclasses.asdict(jc))
     plan, state = build_plan(tc, rir_a, rir_b, "cpu"), init_state(tc, "cpu")
-    refused = dataclasses.replace(tc, weighting_conv_taps=31)
+    refused = dataclasses.replace(tc, use_lag_statistics=True, lag_assembly="wide")
     hop = torch.zeros(tc.hop, dtype=torch.float64)
     with pytest.raises(NotImplementedError, match="later slice"):
         process_hop(refused, plan, state, hop, hop)

@@ -1,6 +1,7 @@
 """The port on a CUDA device: each kernel wrapper against its plain version
 at ragged shapes, its launch count, its input checks on the card, and the
-hop on the card (exact, production and 'invert' solver, and the
+hop on the card (exact, production and 'invert' solver, the dense
+statistics with K6, the truncated weighting with K8, and the
 frequency-domain engine with K7) against the same hop on the CPU.
 
 Needs a card: every test is marked ``cuda`` and skips without one. This
@@ -105,6 +106,23 @@ def _cases(rnd):
             (rnd(2, 100), rnd(2, 37, 9), rnd(100), rnd(2, 37, 40), 60),
             (rnd(1, 50), rnd(1, 17, 50), rnd(50), rnd(1, 17, 0), 50),
         ],
+        # Rows (2S) past one 32-row pass, frames wider than one 32-output tile.
+        "rowwise_conv": [
+            (rnd(4, 2, 3, 64), rnd(2, 2, 16, 24), 9, 16),
+            (rnd(4, 3, 5, 90), rnd(2, 3, 30, 40), 11, 30),
+            (rnd(4, 2, 17, 96), rnd(2, 2, 48, 54), 7, 48),
+        ],
+        # SJ filling no 64-row tile, SJ past three tiles, SJ = 1.
+        "statistics": [
+            (rnd(4, 3, 4, 96), rnd(2, 3, 89), 8),
+            (rnd(2, 2, 3, 200), rnd(2, 2, 101), 100),
+            (rnd(1, 1, 1, 10), rnd(2, 1, 10), 1),
+        ],
+        "circular_filter": [
+            (rnd(2, 100), rnd(2, 37, 9)),
+            (rnd(1, 64), rnd(1, 5, 64)),
+            (rnd(2, 1600), rnd(2, 33, 50)),
+        ],
     }
 
 
@@ -117,6 +135,9 @@ _PLAIN = {
     "jacobi_eigh": K.jacobi_eigh_plain,
     "output_filter": K.circular_filter_overlap_plain,
     "jacobi_eigh_hermitian": K.jacobi_eigh_hermitian_plain,
+    "rowwise_conv": K.rowwise_circular_conv_plain,
+    "statistics": K.covariance_plain,
+    "circular_filter": K.circular_filter_plain,
 }
 
 
@@ -191,8 +212,8 @@ def test_slice_hop_on_the_card_matches_cpu(dev):
     K.reset_launch_counts()
     hops = rng.standard_normal((6, 2, 64)).astype(np.float32)
     got = [card.process_input_buffers(a, b) for a, b in hops]
-    solver_kernels = ("whiten", "subspace", "jacobi_eigh", "jacobi_eigh_hermitian")
-    assert K.launch_counts() == {name: 0 if name in solver_kernels else 6 for name in K.WRAPPERS}
+    path = ("streaming_conv", "lag_corr", "skew_assembly", "output_filter")
+    assert K.launch_counts() == {name: 6 if name in path else 0 for name in K.WRAPPERS}
     want = [cpu.process_input_buffers(a, b) for a, b in hops]
     assert int(card.silenced) == 0
     for f in range(4):
@@ -225,13 +246,28 @@ _INVERT = {"subspace_whiten": "invert", "jacobi_sweeps": 8, "subspace_oversample
            "use_pallas_subspace": True, "use_pallas_whiten": True}
 
 
-@pytest.mark.parametrize("config", ["production", "invert"])
+_PRODUCTION_KERNELS = ("streaming_conv", "lag_corr", "skew_assembly", "jacobi_eigh",
+                       "output_filter")
+# Each configuration's overrides of production_overrides() and the kernels
+# its hop launches once.
+_CARD_PATHS = {
+    "production": ({}, _PRODUCTION_KERNELS),
+    "invert": (_INVERT, _PRODUCTION_KERNELS + ("whiten", "subspace")),
+    "dense": ({"use_lag_statistics": False},
+              ("streaming_conv", "statistics", "jacobi_eigh", "output_filter")),
+    "weighting-conv": ({"weighting_conv_taps": 31}, _PRODUCTION_KERNELS + ("rowwise_conv",)),
+}
+
+
+@pytest.mark.parametrize("config", list(_CARD_PATHS))
 def test_production_hop_on_the_card_matches_cpu(dev, config):
     """The production configuration launches its five kernels every hop,
-    the 'invert' one (k = 16, JL = 96: one panel) all seven; each card hop
-    equals the CPU hop from the same state."""
+    the 'invert' one (k = 16, JL = 96: one panel) all seven, the dense one
+    K6 in place of K2 and K3, the truncated weighting K8 besides the five;
+    each card hop equals the CPU hop from the same state."""
     rng = np.random.default_rng(10)
-    kwargs = _s8_kwargs(rng, production_overrides() | (_INVERT if config == "invert" else {}))
+    overrides, kernels = _CARD_PATHS[config]
+    kwargs = _s8_kwargs(rng, production_overrides() | overrides)
     card = ApVast(device=dev, **kwargs)
     cpu = ApVast(device="cpu", **kwargs)
     K.reset_launch_counts()
@@ -260,12 +296,9 @@ def test_production_hop_on_the_card_matches_cpu(dev, config):
             hop_statistics(cpu.config, cpu.state.wresp_stat, cpu.state.wtarget_stat),
         ):
             assert _rel(x, y) <= 1e-4
-    round3 = ("whiten", "subspace")
-    assert K.launch_counts() == {
-        name: 0 if name in round3 and config == "production" else 8 for name in K.WRAPPERS
-    } | {"jacobi_eigh_hermitian": 0}
+    assert K.launch_counts() == {name: 8 if name in kernels else 0 for name in K.WRAPPERS}
     assert int(card.silenced) == 0
-    if config == "production":
+    if config != "invert":
         assert card.rebuilds >= 6  # warmup, then the residual trigger
 
 
