@@ -39,6 +39,16 @@
 // diagonal (pad slots keyed to +inf, ties to the lower index) and writes w
 // ascending and the matching columns of V, so the kernel runs once per
 // Rayleigh-Ritz solve.
+// Wider matrices (the JAX functions have no width bound): up to npad = 160
+// A and V still fit one block's shared memory single-buffered (205 KB of
+// the 227 KB), with 512 threads of 50 entries each whose new values wait in
+// registers (the slots they gather from are recomputed every round, not
+// kept in registers); above that, up to npad = 512, a global-memory form of
+// the same template keeps A, V and their second buffers in a workspace the
+// wrapper allocates (4 npad^2 floats a matrix, 1 MB at npad = 256, L2
+// resident), with only the pair table and the ranking in shared memory.
+// Both run one block per matrix and the same rounds, so they give the
+// shared forms' results; past npad = 512 the wrapper raises.
 //
 // K7: batched small complex Hermitian eigensolver (the FD engine's per-bin
 // eigh), replacing apvast_tpu/ops/pallas/jacobi_eigh.py::
@@ -65,11 +75,16 @@ namespace {
 
 constexpr int kMaxThreads = 1024;
 
+constexpr int kSharedSlots = 160;  // the widest single-buffered shared form
+constexpr int kWideThreads = 512;
+constexpr int kWidePer = kSharedSlots * kSharedSlots / kWideThreads;  // 50
+constexpr int kMaxSlots = 512;  // the global form's bound
+
 // Entry e of the thread's k-th slot: c1 = e / np, c2 = e % np, and the
-// occupants moving into them, r1 = src[c1], r2 = src[c2], packed 8 bits each.
+// occupants moving into them, r1 = src[c1], r2 = src[c2], packed 10 bits each.
 __device__ __forceinline__ unsigned pack_entry(int e, int np, const int* src) {
   const int c1 = e / np, c2 = e % np;
-  return (unsigned)c1 | ((unsigned)src[c1] << 8) | ((unsigned)src[c2] << 16);
+  return (unsigned)c1 | ((unsigned)src[c1] << 10) | ((unsigned)src[c2] << 20);
 }
 
 // A'[c1, c2] and V'[c1, c2] of one round. R[r, r] = c, R[partner(r), r] =
@@ -77,7 +92,7 @@ __device__ __forceinline__ unsigned pack_entry(int e, int np, const int* src) {
 __device__ __forceinline__ void rotate_entry(unsigned packed, int np, const float* A,
                                              const float* V, const float2* cs,
                                              float& a_out, float& v_out) {
-  const int c1 = packed & 0xff, r1 = (packed >> 8) & 0xff, r2 = packed >> 16;
+  const int c1 = packed & 0x3ff, r1 = (packed >> 10) & 0x3ff, r2 = packed >> 20;
   const int p1 = r1 ^ 1, p2 = r2 ^ 1;
   const float2 g1 = cs[r1 >> 1], g2 = cs[r2 >> 1];
   const float o1 = (r1 & 1) ? g1.y : -g1.y;
@@ -122,7 +137,7 @@ __device__ void hermitian_pairs(const float* A, const float* V, const int* rank,
     }
     w2[c] = s;
   }
-  __syncthreads();  // S may be A itself (np = 128: no second buffer)
+  __syncthreads();  // S may be A itself (single-buffered forms)
   for (int e = tid; e < nr * nr; e += nt) {
     const int r = e / nr, c = e % nr;
     float s = 0.f;
@@ -194,22 +209,30 @@ __device__ void hermitian_pairs(const float* A, const float* V, const int* rank,
 }
 
 // PER entries per thread (np^2 <= PER * blockDim.x); DOUBLE: A and V have
-// a second buffer each in shared memory. HERM (K7): the input is a batch of
-// n x n complex Hermitian matrices, interleaved (re, im), embedded into 2n
-// real slots; the outputs are w (bz, n) and q (bz, n, n) interleaved.
-template <int PER, bool DOUBLE, bool HERM>
-__global__ void __launch_bounds__(kMaxThreads)
+// a second buffer each. GLOBAL: A, V and their second buffers live in the
+// workspace `work` (4 np^2 floats a matrix), not in shared memory; PER is
+// unused and every thread walks its entries e = tid, tid + nt, ... HERM (K7):
+// the input is a batch of n x n complex Hermitian matrices, interleaved
+// (re, im), embedded into 2n real slots; the outputs are w (bz, n) and q
+// (bz, n, n) interleaved. THREADS: the launch bound. Up to PER = 16 the
+// packed slots of each entry stay in registers; above, they are recomputed
+// every round, so that the new entries alone take the registers. One block
+// an SM is the bound's promise, so ptxas may give a thread 65536 / THREADS
+// registers.
+template <int PER, bool DOUBLE, bool HERM, bool GLOBAL = false, int THREADS = kMaxThreads>
+__global__ void __launch_bounds__(THREADS, 1)
 jacobi_eigh_kernel(const float* __restrict__ a, const int* __restrict__ src_g,
-                   float* __restrict__ w_out, float* __restrict__ v_out,
+                   float* __restrict__ w_out, float* __restrict__ v_out, float* work,
                    int n_in, int np, int sweeps) {
   extern __shared__ float smem[];
+  constexpr bool kPacked = PER <= 16 && !GLOBAL;
   const int n = HERM ? 2 * n_in : n_in;  // real slots in use
   const int nn = np * np;
-  float* A = smem;
+  float* A = GLOBAL ? work + (size_t)blockIdx.x * 4 * nn : smem;
   float* V = A + nn;
   float* A2 = DOUBLE ? V + nn : nullptr;
   float* V2 = DOUBLE ? A2 + nn : nullptr;
-  float2* cs = reinterpret_cast<float2*>(V + (DOUBLE ? 3 : 1) * nn);  // np / 2
+  float2* cs = reinterpret_cast<float2*>(GLOBAL ? smem : V + (DOUBLE ? 3 : 1) * nn);  // np / 2
   int* src = reinterpret_cast<int*>(cs + np / 2);
   int* rank = src + np;
   int* cnt = rank + np;
@@ -245,18 +268,25 @@ jacobi_eigh_kernel(const float* __restrict__ a, const int* __restrict__ src_g,
   }
   __syncthreads();
 
+  // The packed slots of the thread's entries (kPacked), else recomputed.
   unsigned packed[PER];
 #pragma unroll
   for (int k = 0; k < PER; ++k) {
     const int e = tid + k * nt;
-    packed[k] = e < nn ? pack_entry(e, np, src) : 0u;
+    packed[k] = kPacked && e < nn ? pack_entry(e, np, src) : 0u;
   }
 
   for (int sw = 0; sw < sweeps; ++sw) {
     for (int round = 0; round < np - 1; ++round) {
       pair_rotations(A, cs, np, tid, nt);
       __syncthreads();
-      if (DOUBLE) {
+      if constexpr (GLOBAL) {
+        for (int e = tid; e < nn; e += nt)
+          rotate_entry(pack_entry(e, np, src), np, A, V, cs, A2[e], V2[e]);
+        __syncthreads();
+        float* t = A; A = A2; A2 = t;
+        t = V; V = V2; V2 = t;
+      } else if constexpr (DOUBLE) {
 #pragma unroll
         for (int k = 0; k < PER; ++k) {
           const int e = tid + k * nt;
@@ -270,7 +300,10 @@ jacobi_eigh_kernel(const float* __restrict__ a, const int* __restrict__ src_g,
 #pragma unroll
         for (int k = 0; k < PER; ++k) {
           const int e = tid + k * nt;
-          if (e < nn) rotate_entry(packed[k], np, A, V, cs, ra[k], rv[k]);
+          if (e < nn) {
+            const unsigned slots = kPacked ? packed[k] : pack_entry(e, np, src);
+            rotate_entry(slots, np, A, V, cs, ra[k], rv[k]);
+          }
         }
         __syncthreads();
 #pragma unroll
@@ -337,36 +370,42 @@ jacobi_eigh_kernel(const float* __restrict__ a, const int* __restrict__ src_g,
   }
 }
 
-template <int PER, bool DOUBLE, bool HERM>
-int launch(const float* a, const int* src, float* w, float* v, int bz, int n, int np,
-           int sweeps, int threads, cudaStream_t stream) {
-  const size_t nn = (size_t)np * np;
+template <int PER, bool DOUBLE, bool HERM, bool GLOBAL = false, int THREADS = kMaxThreads>
+int launch(const float* a, const int* src, float* w, float* v, float* work, int bz, int n,
+           int np, int sweeps, int threads, cudaStream_t stream) {
+  const size_t nn = GLOBAL ? 0 : (size_t)np * np;
   // HERM adds dup (np ints), w2 (np floats) and three floats per column.
   const size_t smem = (DOUBLE ? 4 : 2) * nn * sizeof(float) + (np / 2) * sizeof(float2) +
                       4 * np * sizeof(int) + (HERM ? 5 * np * sizeof(float) : 0);
+  auto kernel = jacobi_eigh_kernel<PER, DOUBLE, HERM, GLOBAL, THREADS>;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(jacobi_eigh_kernel<PER, DOUBLE, HERM>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  jacobi_eigh_kernel<PER, DOUBLE, HERM>
-      <<<bz, threads, smem, stream>>>(a, src, w, v, n, np, sweeps);
+  kernel<<<bz, threads, smem, stream>>>(a, src, w, v, work, n, np, sweeps);
   return (int)cudaGetLastError();
 }
 
 // K4's launch shape for np slots: one entry of A and V per thread up to
-// 1024 threads, double buffers up to np = 64.
+// 1024 threads, double buffers up to np = 64, single buffers up to 128
+// (1024 threads) and kSharedSlots (512 threads), then the global form.
 template <bool HERM>
-int dispatch(const float* a, const int* src, float* w, float* v, int bz, int n, int np,
-             int sweeps, cudaStream_t stream) {
+int dispatch(const float* a, const int* src, float* w, float* v, float* work, int bz, int n,
+             int np, int sweeps, cudaStream_t stream) {
   const int nn = np * np;
   const int threads = nn < kMaxThreads ? nn : kMaxThreads;
   if (nn <= threads)
-    return launch<1, true, HERM>(a, src, w, v, bz, n, np, sweeps, threads, stream);
+    return launch<1, true, HERM>(a, src, w, v, work, bz, n, np, sweeps, threads, stream);
   if (nn <= 4 * threads)
-    return launch<4, true, HERM>(a, src, w, v, bz, n, np, sweeps, threads, stream);
-  return launch<16, false, HERM>(a, src, w, v, bz, n, np, sweeps, threads, stream);
+    return launch<4, true, HERM>(a, src, w, v, work, bz, n, np, sweeps, threads, stream);
+  if (nn <= 16 * threads)
+    return launch<16, false, HERM>(a, src, w, v, work, bz, n, np, sweeps, threads, stream);
+  if (np <= kSharedSlots)
+    return launch<kWidePer, false, HERM, false, kWideThreads>(a, src, w, v, work, bz, n, np,
+                                                              sweeps, kWideThreads, stream);
+  return launch<1, true, HERM, true>(a, src, w, v, work, bz, n, np, sweeps, kMaxThreads,
+                                     stream);
 }
 
 // K7's launch shape. Its batch is thousands of pencils (2 * bins), not
@@ -378,34 +417,39 @@ int dispatch(const float* a, const int* src, float* w, float* v, int bz, int n, 
 // about half the time of 1024 (tools/k7_launch_shapes.py).
 constexpr int kHermThreads = 256;
 
-int dispatch_hermitian(const float* h, const int* src, float* w, float* q, int bz, int n,
-                       int np, int sweeps, cudaStream_t stream) {
+int dispatch_hermitian(const float* h, const int* src, float* w, float* q, float* work,
+                       int bz, int n, int np, int sweeps, cudaStream_t stream) {
   const int nn = np * np;
   const int t = kHermThreads;
-  if (nn <= t) return launch<1, true, true>(h, src, w, q, bz, n, np, sweeps, nn, stream);
-  if (nn <= 2 * t) return launch<2, true, true>(h, src, w, q, bz, n, np, sweeps, t, stream);
-  if (nn <= 4 * t) return launch<4, true, true>(h, src, w, q, bz, n, np, sweeps, t, stream);
-  return dispatch<true>(h, src, w, q, bz, n, np, sweeps, stream);
+  if (nn <= t) return launch<1, true, true>(h, src, w, q, work, bz, n, np, sweeps, nn, stream);
+  if (nn <= 2 * t)
+    return launch<2, true, true>(h, src, w, q, work, bz, n, np, sweeps, t, stream);
+  if (nn <= 4 * t)
+    return launch<4, true, true>(h, src, w, q, work, bz, n, np, sweeps, t, stream);
+  return dispatch<true>(h, src, w, q, work, bz, n, np, sweeps, stream);
 }
 
 }  // namespace
 
 // a (bz, n, n) symmetric, src (np,) int32 tournament schedule -> w (bz, n)
 // ascending, v (bz, n, n) eigenvectors in columns; float32, contiguous;
-// np = max(8, ceil8(n)) <= 128.
-extern "C" int jacobi_eigh_launch(const float* a, const int* src, float* w,
-                                  float* v, int bz, int n, int np, int sweeps,
+// np = max(8, ceil8(n)) <= 512; above kSharedSlots, work holds 4 bz np^2
+// floats (else it may be null).
+extern "C" int jacobi_eigh_launch(const float* a, const int* src, float* w, float* v,
+                                  float* work, int bz, int n, int np, int sweeps,
                                   cudaStream_t stream) {
-  if (np % 8 || np < n || np > 128) return (int)cudaErrorInvalidValue;
-  return dispatch<false>(a, src, w, v, bz, n, np, sweeps, stream);
+  if (np % 8 || np < n || np > kMaxSlots || (np > kSharedSlots && !work))
+    return (int)cudaErrorInvalidValue;
+  return dispatch<false>(a, src, w, v, work, bz, n, np, sweeps, stream);
 }
 
 // K7. h (bz, n, n, 2) complex Hermitian, interleaved; src (np,) int32 ->
 // w (bz, n) ascending, q (bz, n, n, 2) eigenvectors in columns; float32,
-// contiguous; np = max(8, ceil8(2n)) <= 128.
+// contiguous; np = max(8, ceil8(2n)) <= 512; work as for jacobi_eigh_launch.
 extern "C" int jacobi_eigh_hermitian_launch(const float* h, const int* src, float* w,
-                                            float* q, int bz, int n, int np, int sweeps,
-                                            cudaStream_t stream) {
-  if (np % 8 || np < 2 * n || np > 128) return (int)cudaErrorInvalidValue;
-  return dispatch_hermitian(h, src, w, q, bz, n, np, sweeps, stream);
+                                            float* q, float* work, int bz, int n, int np,
+                                            int sweeps, cudaStream_t stream) {
+  if (np % 8 || np < 2 * n || np > kMaxSlots || (np > kSharedSlots && !work))
+    return (int)cudaErrorInvalidValue;
+  return dispatch_hermitian(h, src, w, q, work, bz, n, np, sweeps, stream);
 }

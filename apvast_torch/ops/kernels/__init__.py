@@ -4,8 +4,10 @@ The time-domain hop's K1 (streaming convolution), K8 (the truncated
 weighting's row-wise circular convolution), K2 and K3 (lag statistics),
 K6 (dense framed statistics), K10a and K9 (the 'invert' solver), K4 (the
 Rayleigh-Ritz Jacobi eigensolver) and K5 (output synthesis); the
-frequency-domain engine's K7 (Hermitian Jacobi, a form of K4); and K11,
-the unfused circular filter (a form of K5 that no engine path calls).
+frequency-domain engine's K7 (Hermitian Jacobi, a form of K4); and two
+kernels that no engine path calls, as in the JAX package: K11, the unfused
+circular filter (a form of K5), and K10b, the fused Cholesky and
+triangular inverse.
 
 Every wrapper takes float32 (K7: complex64) tensors in the layout of the
 JAX Pallas function it replaces. On a CPU tensor it returns its plain PyTorch
@@ -40,10 +42,16 @@ from apvast_torch.ops.kernels.streaming_conv import (
     streaming_conv_plain,
 )
 from apvast_torch.ops.kernels.subspace import subspace_iterate, subspace_iterate_plain
-from apvast_torch.ops.kernels.whiten import blocked_cholesky, chol_panel, chol_panel_plain
+from apvast_torch.ops.kernels.whiten import (
+    blocked_cholesky,
+    chol_panel,
+    chol_panel_plain,
+    chol_tri_inverse,
+    chol_tri_inverse_plain,
+)
 
 # name -> wrapper: the time-domain hop's in its stage order, then the
-# frequency-domain engine's K7, then K11, which no engine path calls.
+# frequency-domain engine's K7, then K11 and K10b, which no engine path calls.
 WRAPPERS = {
     "streaming_conv": streaming_conv,
     "rowwise_conv": rowwise_circular_conv,
@@ -56,6 +64,7 @@ WRAPPERS = {
     "output_filter": circular_filter_overlap,
     "jacobi_eigh_hermitian": jacobi_eigh_hermitian,
     "circular_filter": circular_filter,
+    "chol_tri_inverse": chol_tri_inverse,
 }
 
 
@@ -73,6 +82,8 @@ __all__ = [
     "blocked_cholesky",
     "chol_panel",
     "chol_panel_plain",
+    "chol_tri_inverse",
+    "chol_tri_inverse_plain",
     "circular_filter",
     "circular_filter_overlap",
     "circular_filter_overlap_plain",

@@ -11,6 +11,10 @@ round-robin tournament schedule, the angle formula with its sign rule and
 of every round, and the sort-free ranking with pad slots keyed to +inf and
 a first-index tie-break. Bound on the H100: latency (126 dependent rounds
 of an O(n^2) gather-and-rotate at n = 64; see the kernel's note).
+
+The plain version serves every width, as the JAX function does. The card
+keeps A and V in shared memory up to ``SHARED_SLOTS`` padded slots and in
+a workspace (:func:`workspace`) up to ``MAX_SLOTS``; it raises above that.
 """
 
 from __future__ import annotations
@@ -20,7 +24,8 @@ import torch
 
 from apvast_torch.ops.kernels import _build
 
-MAX_SLOTS = 128  # A and V of a padded matrix sit in one block's shared memory
+SHARED_SLOTS = 160  # A and V of a padded matrix sit in one block's shared memory
+MAX_SLOTS = 512  # the card's bound: the global-memory form past SHARED_SLOTS
 
 
 def tournament_schedule(n: int) -> np.ndarray:
@@ -113,11 +118,34 @@ def jacobi_eigh_plain(a: torch.Tensor, sweeps: int) -> tuple[torch.Tensor, torch
 _schedules: dict[tuple[int, torch.device], torch.Tensor] = {}
 
 
+def schedule(npad: int, device: torch.device) -> torch.Tensor:
+    """The int32 tournament schedule of ``npad`` slots on ``device``, cached."""
+    key = (npad, device)
+    if key not in _schedules:
+        _schedules[key] = torch.as_tensor(
+            tournament_schedule(npad), dtype=torch.int32, device=device
+        )
+    return _schedules[key]
+
+
+def workspace(bz: int, npad: int, device: torch.device) -> torch.Tensor:
+    """The card's buffers for ``bz`` matrices of ``npad`` slots: A, V and
+    their second buffers in global memory past ``SHARED_SLOTS`` (empty
+    below it); raises past ``MAX_SLOTS``."""
+    if npad > MAX_SLOTS:
+        raise ValueError(
+            f"{npad} padded slots > {MAX_SLOTS}: the card's Jacobi bound (the CPU serves "
+            "any width)"
+        )
+    size = 4 * bz * npad * npad if npad > SHARED_SLOTS else 0
+    return torch.empty(size, dtype=torch.float32, device=device)
+
+
 def jacobi_eigh(a: torch.Tensor, sweeps: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Eigendecomposition of a batch of small symmetric float32 matrices.
 
     Args:
-        a: (B, n, n) symmetric, n <= 128.
+        a: (B, n, n) symmetric; on the card n <= 512.
         sweeps: full Jacobi sweeps (n_pad - 1 rounds each).
 
     Returns:
@@ -128,24 +156,18 @@ def jacobi_eigh(a: torch.Tensor, sweeps: int) -> tuple[torch.Tensor, torch.Tenso
     bz, n, n2 = a.shape
     if n != n2 or n < 1:
         raise ValueError(f"a must be a batch of square matrices, got {tuple(a.shape)}")
-    npad = padded_size(n)
-    if npad > MAX_SLOTS:
-        raise ValueError(f"n={n} pads to {npad} > {MAX_SLOTS} slots of shared memory")
     if sweeps < 0:
         raise ValueError("sweeps must be >= 0")
     if a.device.type == "cpu":
         return jacobi_eigh_plain(a, sweeps)
-    key = (npad, a.device)
-    if key not in _schedules:
-        _schedules[key] = torch.as_tensor(
-            tournament_schedule(npad), dtype=torch.int32, device=a.device
-        )
+    npad = padded_size(n)
+    work = workspace(bz, npad, a.device)
     w = torch.empty((bz, n), dtype=torch.float32, device=a.device)
     v = torch.empty((bz, n, n), dtype=torch.float32, device=a.device)
     if bz:
         _build.launch(
             "jacobi_eigh", "jacobi_eigh_launch",
-            a, _schedules[key], w, v, bz, n, npad, sweeps,
+            a, schedule(npad, a.device), w, v, work, bz, n, npad, sweeps,
         )
         jacobi_eigh.launches += 1
     return w, v

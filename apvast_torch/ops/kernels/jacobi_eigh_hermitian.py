@@ -20,10 +20,10 @@ import torch
 
 from apvast_torch.ops.kernels import _build
 from apvast_torch.ops.kernels.jacobi_eigh import (
-    MAX_SLOTS,
     jacobi_eigh_plain,
     padded_size,
-    tournament_schedule,
+    schedule,
+    workspace,
 )
 
 
@@ -64,14 +64,11 @@ def jacobi_eigh_hermitian_plain(h: torch.Tensor, sweeps: int):
     return select_pairs(w2, v2, h.shape[-1])
 
 
-_schedules: dict[tuple[int, torch.device], torch.Tensor] = {}
-
-
 def jacobi_eigh_hermitian(h: torch.Tensor, sweeps: int):
     """Eigendecomposition of a batch of small complex Hermitian matrices.
 
     Args:
-        h: (B, n, n) complex64 Hermitian, contiguous, 2n <= 128.
+        h: (B, n, n) complex64 Hermitian, contiguous; on the card 2n <= 512.
         sweeps: full Jacobi sweeps of the embedding.
 
     Returns:
@@ -85,24 +82,18 @@ def jacobi_eigh_hermitian(h: torch.Tensor, sweeps: int):
     bz, n, n2 = h.shape
     if n != n2 or n < 1:
         raise ValueError(f"h must be a batch of square matrices, got {tuple(h.shape)}")
-    npad = padded_size(2 * n)
-    if npad > MAX_SLOTS:
-        raise ValueError(f"n={n} embeds into {npad} > {MAX_SLOTS} slots of shared memory")
     if sweeps < 0:
         raise ValueError("sweeps must be >= 0")
     if h.device.type == "cpu":
         return jacobi_eigh_hermitian_plain(h, sweeps)
-    key = (npad, h.device)
-    if key not in _schedules:
-        _schedules[key] = torch.as_tensor(
-            tournament_schedule(npad), dtype=torch.int32, device=h.device
-        )
+    npad = padded_size(2 * n)
+    work = workspace(bz, npad, h.device)
     w = torch.empty((bz, n), dtype=torch.float32, device=h.device)
     q = torch.empty((bz, n, n), dtype=torch.complex64, device=h.device)
     if bz:
         _build.launch(
             "jacobi_eigh", "jacobi_eigh_hermitian_launch",
-            torch.view_as_real(h), _schedules[key], w, torch.view_as_real(q),
+            torch.view_as_real(h), schedule(npad, h.device), w, torch.view_as_real(q), work,
             bz, n, npad, sweeps,
         )
         jacobi_eigh_hermitian.launches += 1

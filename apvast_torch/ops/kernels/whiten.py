@@ -1,5 +1,6 @@
 """K10a: Cholesky factor and inverse of 128 x 128 SPD panels, and the
-blocked Cholesky that runs it once per panel.
+blocked Cholesky that runs it once per panel. K10b: the fused Cholesky
+and triangular inverse of a whole SPD batch.
 
 Kernel: ``apvast_torch/csrc/whiten.cu``, replacing
 ``apvast_tpu/ops/pallas/whiten.py::chol_panel_pallas``. The 'invert'
@@ -9,6 +10,13 @@ identity padding to a multiple of 128, one panel launch per 128 columns (7
 at JL = 800), each panel solve refined once, and the trailing updates as
 ``torch.matmul``, as JAX leaves them to XLA. Bound on the H100: latency
 (see the kernel's note).
+
+K10b, :func:`chol_tri_inverse` (kernel ``apvast_torch/csrc/chol_tri_inverse.cu``,
+replacing ``whiten.py::chol_tri_inverse_pallas``), returns ``L^-1`` of a
+(bz, n, n) SPD batch with n <= 1024 after padding to a multiple of 128. No
+engine path of either package calls it: the JAX package's
+``whiten_kernel`` runs :func:`blocked_cholesky` instead
+(``apvast_tpu/ops/jdiag.py:279-292``).
 """
 
 from __future__ import annotations
@@ -16,9 +24,11 @@ from __future__ import annotations
 import torch
 
 from apvast_torch.ops.kernels import _build
-from apvast_torch.ops.trisolve import clamped_cholesky
+from apvast_torch.ops.trisolve import clamped_cholesky, neumann_tri_inverse
 
 PANEL = 128
+SUB = 32  # the sub-panel width of K10b's panel factorization
+MAX_PADDED = 1024  # K10b's bound on n after padding, the JAX function's
 
 
 def chol_panel_plain(d: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -66,12 +76,7 @@ def blocked_cholesky(b: torch.Tensor) -> torch.Tensor:
     if b.dtype != torch.float32:
         raise ValueError("blocked_cholesky is a float32 path")
     npad = -(-n // PANEL) * PANEL
-    if npad != n:
-        # chol(blkdiag(B, I)) = blkdiag(chol(B), I).
-        padded = torch.zeros((bz, npad, npad), dtype=b.dtype, device=b.device)
-        padded[:, :n, :n] = b
-        padded[:, n:, n:] = torch.eye(npad - n, dtype=b.dtype, device=b.device)
-        b = padded
+    b = _pad_identity(b, npad)
     out = torch.zeros((bz, npad, npad), dtype=b.dtype, device=b.device)
     trail = b
     for lo in range(0, npad, PANEL):
@@ -87,3 +92,132 @@ def blocked_cholesky(b: torch.Tensor) -> torch.Tensor:
             trail = trail[:, PANEL:, PANEL:] - l21 @ l21.transpose(-1, -2)
             out[:, hi:, lo:hi] = l21
     return out[:, :n, :n]
+
+
+def _pad_identity(b: torch.Tensor, npad: int) -> torch.Tensor:
+    """blkdiag(b, I) of size npad: chol(blkdiag(B, I)) = blkdiag(chol(B), I)."""
+    bz, n, _ = b.shape
+    if npad == n:
+        return b
+    padded = torch.zeros((bz, npad, npad), dtype=b.dtype, device=b.device)
+    padded[:, :n, :n] = b
+    padded[:, n:, n:] = torch.eye(npad - n, dtype=b.dtype, device=b.device)
+    return padded
+
+
+def _merge(x11: torch.Tensor, x22: torch.Tensor, l21: torch.Tensor) -> torch.Tensor:
+    """The inverse of [[L11, 0], [L21, L22]] from X11 = L11^-1 and X22 =
+    L22^-1: X21 = -X22 (L21 X11)."""
+    top = torch.cat([x11, torch.zeros_like(x11)], -1)
+    bot = torch.cat([-(x22 @ (l21 @ x11)), x22], -1)
+    return torch.cat([top, bot], -2)
+
+
+def _panel_factor(d: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Factor and inverse of (bz, 128, 128) SPD diagonal blocks (lower
+    triangle read), as K10b's panel step: 32-wide sub-panels by
+    :func:`clamped_cholesky`, each inverted by :func:`neumann_tri_inverse`
+    (the TPU kernel's ``_neumann_inv_sub``: exact doubling, two Newton
+    steps; a non-finite sub-panel fills its whole 32 x 32 inverse), the
+    sub-panel solve below it by its explicit inverse with one refinement
+    step, the in-panel trailing update, then the merge tree of
+    ``whiten.py::_merge_tri`` for the panel inverse."""
+    d = torch.tril(d)
+    lp = torch.zeros_like(d)
+    invs = []
+    for g0 in range(0, PANEL, SUB):
+        g1 = g0 + SUB
+        ls = clamped_cholesky(d[:, g0:g1, g0:g1])
+        inv_s = neumann_tri_inverse(ls)
+        invs.append(inv_s)
+        lp[:, g0:g1, g0:g1] = ls
+        if g1 < PANEL:
+            a21 = d[:, g1:, g0:g1]
+            inv_t = inv_s.transpose(-1, -2)
+            l21 = a21 @ inv_t
+            l21 = l21 + (a21 - l21 @ ls.transpose(-1, -2)) @ inv_t
+            lp[:, g1:, g0:g1] = l21
+            d[:, g1:, g1:] -= torch.tril(l21 @ l21.transpose(-1, -2))
+    x01 = _merge(invs[0], invs[1], lp[:, SUB : 2 * SUB, :SUB])
+    x23 = _merge(invs[2], invs[3], lp[:, 3 * SUB :, 2 * SUB : 3 * SUB])
+    return lp, _merge(x01, x23, lp[:, 2 * SUB :, : 2 * SUB])
+
+
+def _check_chol_tri_inverse(b: torch.Tensor) -> int:
+    """Raise on what K10b does not take; return the padded size."""
+    if not isinstance(b, torch.Tensor) or b.dtype != torch.float32:
+        raise ValueError(
+            f"chol_tri_inverse is a float32 kernel, got {getattr(b, 'dtype', type(b))}"
+        )
+    _build.check_input(b, "b", 3)
+    bz, n, n2 = b.shape
+    if n != n2 or n < 1:
+        raise ValueError(f"b must be a batch of square matrices, got {tuple(b.shape)}")
+    npad = -(-n // PANEL) * PANEL
+    if npad > MAX_PADDED:
+        raise ValueError(
+            f"n={n} pads to {npad} > {MAX_PADDED}: K10b's bound (the JAX kernel's "
+            "VMEM-resident limit); use cholesky + triangular_inverse"
+        )
+    return npad
+
+
+def chol_tri_inverse_plain(b: torch.Tensor) -> torch.Tensor:
+    """The kernel's algorithm in torch: identity padding, the right-looking
+    blocked Cholesky of :func:`_panel_factor` panels with explicit-inverse
+    panel solves refined once and the block-lower trailing updates, and the
+    block-row substitution ``X_p = -Lp^-1 (L[p, :p] X[:p, :p])`` refined
+    once, ``x += Lp^-1 (-s - Lp x)``. Shapes as :func:`chol_tri_inverse`."""
+    npad = _check_chol_tri_inverse(b)
+    n = b.shape[-1]
+    a = _pad_identity(b, npad).clone()
+    l = torch.zeros_like(a)
+    x = torch.zeros_like(a)
+    for lo in range(0, npad, PANEL):
+        hi = lo + PANEL
+        lp, lpinv = _panel_factor(a[:, lo:hi, lo:hi])
+        l[:, lo:hi, lo:hi] = lp
+        if hi < npad:
+            a21 = a[:, hi:, lo:hi]
+            inv_t = lpinv.transpose(-1, -2)
+            l21 = a21 @ inv_t
+            l21 = l21 + (a21 - l21 @ lp.transpose(-1, -2)) @ inv_t
+            l[:, hi:, lo:hi] = l21
+            a[:, hi:, hi:] -= l21 @ l21.transpose(-1, -2)
+        x[:, lo:hi, lo:hi] = lpinv
+        if lo:
+            s = l[:, lo:hi, :lo] @ x[:, :lo, :lo]
+            xi = -(lpinv @ s)
+            xi = xi + lpinv @ (-s - lp @ xi)
+            x[:, lo:hi, :lo] = xi
+    return torch.tril(x[:, :n, :n]).contiguous()
+
+
+def chol_tri_inverse(b: torch.Tensor) -> torch.Tensor:
+    """Lower-triangular inverse Cholesky factors of an SPD float32 batch.
+
+    Args:
+        b: (bz, n, n) SPD, loading applied (its lower triangle is read);
+            n <= 1024 after padding to a multiple of 128.
+
+    Returns:
+        (bz, n, n) ``L^-1`` with ``L L^T = b``, exact zeros above the
+        diagonal: the contract of ``triangular_inverse(cholesky(b))``. A
+        non-PD matrix gives non-finite values (the pivot rule
+        ``rsqrt(max(pivot, 1e-30))``), not an error.
+    """
+    npad = _check_chol_tri_inverse(b)
+    if b.device.type == "cpu":
+        return chol_tri_inverse_plain(b)
+    bz, n, _ = b.shape
+    out = torch.empty_like(b)
+    if bz:
+        # Per matrix: the trailing matrix and L, X = L^-1, the panel inverses.
+        ws = torch.empty(bz * (2 * npad * npad + PANEL * npad), dtype=torch.float32,
+                         device=b.device)
+        _build.launch("chol_tri_inverse", "chol_tri_inverse_launch", b, out, ws, bz, n, npad)
+        chol_tri_inverse.launches += 1
+    return out
+
+
+chol_tri_inverse.launches = 0

@@ -8,7 +8,7 @@ Phase 0  environment: card name and power limit, torch/CUDA versions,
          TF32 off for matmuls and cuDNN.
 Phase 1  build: every kernel of apvast_torch/csrc with nvcc (one process
          per source, all at once): K1-K6, K7 (a form of K4's source), K8,
-         K9, K10a and K11 (a form of K5's source).
+         K9, K10a, K10b and K11 (a form of K5's source).
 Phase 2  each kernel against its plain PyTorch version on the card, at the
          north-star shapes and at ragged small shapes:
          max|kernel - plain| / max|plain| <= 1e-4 (fp32 sums taken in
@@ -40,7 +40,19 @@ Phase 2  each kernel against its plain PyTorch version on the card, at the
          north-star shapes with the banded k_t of T = 257 weighting taps and
          at (4, 2, 3, 64) with a general k_t; K11 at (2, 1600) x (2, 800, 50),
          at 37 rows (no whole row tile) and at 1000 rows (the JAX function
-         pads them). Times
+         pads them). K10b (no engine caller) at (2, 800, 800), (1, 200, 200)
+         and (1, 1024, 1024) against its plain version and against a float64
+         oracle, both within 1e-5 of scale (the JAX package's bound), with
+         exact zeros above the diagonal; on an ill-conditioned batch (its
+         whitening residual within 2x that of cholesky_ex +
+         solve_triangular) and a non-PD one (non-finite output); timed beside
+         two chains: (a) cholesky_ex + solve_triangular, (b) the invert
+         path's blocked_cholesky (K10a x 7) + triangular_inverse. K4 and K7
+         past 128 slots (the wide shared form and the global-memory form):
+         warm-start-like (2, 136), (2, 200), (2, 256) real and (64, 72),
+         (2, 128) complex at 8 sweeps, eigenvalues to 1e-4 of scale and the
+         eigenvector residual and orthonormality within 1.5x the plain
+         version's. Times
          by CUDA events after warm-up, with the 50 MB L2 flushed (a 64 MB
          read) before every launch; the bound is the larger of bytes over
          3.35 TB/s and fp32 operations over 67 TFLOP/s (H100 SXM published
@@ -137,6 +149,13 @@ import torch
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 TOL_KERNEL = 1e-4
+# K10b against its plain version and a float64 oracle: the JAX package's own
+# bound for the TPU kernel (tests/test_whiten_kernel.py).
+TOL_CHOL_TRI = 1e-5
+# K4 and K7 past 128 slots: (batch, n, complex), 8 sweeps.
+WIDE_JACOBI = ((2, 136, False), (2, 200, False), (2, 256, False), (64, 72, True),
+               (2, 128, True))
+WIDE_SWEEPS = 8
 TOL_STATS = 1e-4
 TOL_TARGET = 1e-4
 TOL_FEEDS = 5e-2
@@ -231,6 +250,13 @@ def _hermitian(g, dev, b, n):
     return ((x + x.conj().transpose(1, 2)) / 2).to(dev).contiguous()
 
 
+def _warm_hermitian(g, dev, b, n):
+    """The complex counterpart of _warm: a spread real diagonal plus a small
+    Hermitian perturbation."""
+    d = torch.diag_embed(torch.linspace(-3.0, 5.0, n).repeat(b, 1)).to(torch.complex64)
+    return (d.to(dev) + 1e-2 * _hermitian(g, dev, b, n)).contiguous()
+
+
 def _degenerate_pairs(dev):
     """tests/test_jacobi_eigh.py's spectrum: two exact 2-fold degeneracies
     and a pair 1 float32 ulp apart, (6, 8, 8) complex."""
@@ -293,6 +319,7 @@ def phase2(scene, dev, card):
     from apvast_torch.ops import kernels as K
     from apvast_torch.ops.framing import framed_statistics
     from apvast_torch.ops.jdiag import _topk_project
+    from apvast_torch.ops.trisolve import triangular_inverse
     from apvast_torch.ops.weighting_conv import _banded_toeplitz_t, weighting_kernel
 
     cfg = scene.config
@@ -361,6 +388,11 @@ def phase2(scene, dev, card):
     q9 = rnd(2, jl, k9)
     r200 = (spd(2, 200), torch.linalg.inv(torch.linalg.cholesky(spd(2, 200))).contiguous(),
             rnd(2, 200, 24))
+
+    # K10b: random SPD matrices of the main path's shape (2, JL, JL), which
+    # pads to 896, of a padded (1, 200, 200) and of the largest padded size.
+    b10, b10_200, b10_1024 = spd(2, jl), spd(1, 200), spd(1, 1024)
+    eye_jl = torch.eye(jl, device=dev)
 
     # K5 output filter: windowed block (2, block), V*S filter rows.
     x5 = (plan.window * rnd(2, block)).contiguous()
@@ -459,8 +491,8 @@ def phase2(scene, dev, card):
             plain=lambda: K.chol_panel_plain(panel),
             library=None,
             # Context: the library factorization and inverse of the same batch.
-            context=lambda: torch.linalg.solve_triangular(
-                torch.linalg.cholesky_ex(panel)[0], eye128.expand(2, 128, 128), upper=False),
+            context={"context_ms": lambda: torch.linalg.solve_triangular(
+                torch.linalg.cholesky_ex(panel)[0], eye128.expand(2, 128, 128), upper=False)},
             # Per panel n^3 / 3 flops for the factor and n^3 / 3 for its
             # triangular inverse; the panel read once, both factors written.
             flops=2 * 2 * 128**3 // 3,
@@ -479,7 +511,8 @@ def phase2(scene, dev, card):
             library=None,
             # Context: the unfused 'invert' chain of the solver (power steps
             # with CholeskyQR2, and the projection) on the same inputs.
-            context=lambda: _topk_project(a9, a9, 0.0, 2, q9, "cholqr2", "invert", li9),
+            context={"context_ms": lambda: _topk_project(a9, a9, 0.0, 2, q9, "cholqr2",
+                                                          "invert", li9)},
             # Per pencil (iters + 1) applications of Li A Li^T, 4 n^2 k flops
             # (Li triangular), and (4 iters + 1) n k^2 for the symmetric Grams
             # and triangular L^-T products; a, li read and q0, q written once.
@@ -601,6 +634,30 @@ def phase2(scene, dev, card):
             ],
         ),
         dict(
+            name="chol_tri_inverse", route="cuda",
+            source="apvast_torch/csrc/chol_tri_inverse.cu",
+            replaces="apvast_tpu/ops/pallas/whiten.py:387",
+            kernel=lambda: K.chol_tri_inverse(b10),
+            plain=lambda: K.chol_tri_inverse_plain(b10),
+            library=None,
+            # No single PyTorch call computes L^-1: two chains for context,
+            # (a) the library's, (b) what the invert path runs today.
+            context={
+                "chain_a_ms": lambda: torch.linalg.solve_triangular(
+                    torch.linalg.cholesky_ex(b10)[0], eye_jl.expand(2, jl, jl), upper=False),
+                "chain_b_ms": lambda: triangular_inverse(K.blocked_cholesky(b10)),
+            },
+            tol=TOL_CHOL_TRI,
+            # Per matrix n^3 / 3 flops for the factor and n^3 / 3 for its
+            # triangular inverse; b read once, X written once.
+            flops=2 * 2 * jl**3 // 3,
+            bytes=4 * 2 * 2 * jl * jl,
+            ragged=[
+                (K.chol_tri_inverse, K.chol_tri_inverse_plain, (b10_200,)),
+                (K.chol_tri_inverse, K.chol_tri_inverse_plain, (b10_1024,)),
+            ],
+        ),
+        dict(
             name="circular_filter", route="cuda",
             source="apvast_torch/csrc/output_filter.cu",
             replaces="apvast_tpu/ops/pallas/output_filter.py:165",
@@ -617,6 +674,8 @@ def phase2(scene, dev, card):
     ]
 
     _whiten_conditioning(K, spd, eye128)
+    _chol_tri_inverse_checks(K, spd, [b10, b10_200, b10_1024], card)
+    wide_ms = _jacobi_wide_checks(K, g, dev, card, flush)
     _jacobi_on_invert_hops(scene, dev, card)
     _hermitian_checks(K, [
         ("frame_taps_1", h7, FD_SWEEPS), ("frame_taps_2", h7b, FD_SWEEPS),
@@ -629,11 +688,12 @@ def phase2(scene, dev, card):
         torch.cuda.synchronize()
         max_abs = max(e[0] for e in errs)
         rel = max(e[1] for e in errs)
-        _check(c["name"] + " (north-star shape)", rel, TOL_KERNEL)
+        tol = c.get("tol", TOL_KERNEL)
+        _check(c["name"] + " (north-star shape)", rel, tol)
         for kfn, pfn, args in c["ragged"]:
             shapes = [tuple(a.shape) for a in args]
             for _, r in cmp(kfn(*args), pfn(*args)):
-                _check(f"{c['name']} (ragged {shapes})", r, TOL_KERNEL)
+                _check(f"{c['name']} (ragged {shapes})", r, tol)
         extra_ms = {}
         for x in c.get("extra", []):
             if x.get("up_to_sign"):
@@ -650,10 +710,10 @@ def phase2(scene, dev, card):
         kernel_ms = _time_ms(c["kernel"], 50, flush)
         plain_ms = _time_ms(c["plain"], 10, flush)
         library_ms = _time_ms(c["library"], 50, flush) if c["library"] else None
-        if "context" in c:
-            extra_ms["context_ms"] = _time_ms(c["context"], 50, flush)
-            print(f"[phase 2] {c['name']}: context (see the docstring) "
-                  f"{extra_ms['context_ms']:.5f} ms card={card}", flush=True)
+        for key, fn in c.get("context", {}).items():
+            extra_ms[key] = _time_ms(fn, 50, flush)
+            print(f"[phase 2] {c['name']}: {key} (see the docstring) "
+                  f"{extra_ms[key]:.5f} ms card={card}", flush=True)
         t_ops = c["flops"] / PEAK_FP32_FLOPS * 1e3
         t_bytes = c["bytes"] / PEAK_BYTES * 1e3
         bound_ms = max(t_ops, t_bytes)
@@ -671,6 +731,7 @@ def phase2(scene, dev, card):
             replaces=c["replaces"], launches=0, max_abs_err=max_abs,
             ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by=bound_by, library_ms=library_ms, **extra_ms,
+            **wide_ms.get(c["name"], {}),
         ))
     return results
 
@@ -702,6 +763,98 @@ def _whiten_conditioning(K, spd, eye):
         raise AssertionError("whiten: a non-PD panel must give non-finite output, a PD one finite")
     print("[phase 2] whiten non-PD panel: non-finite factor and inverse (PD panel beside it "
           "finite)", flush=True)
+
+
+def _chol_tri_inverse_checks(K, spd, batches, card):
+    """K10b against a float64 oracle (cholesky, then solve_triangular) at
+    each of ``batches``, within TOL_CHOL_TRI of scale and with exact zeros
+    above the diagonal; on an ill-conditioned (2, 800, 800) batch (a 1e5
+    rank-one boost) its whitening residual max |X B X^T - I| within twice
+    that of cholesky_ex + solve_triangular (plus 1e-5), as
+    tests/test_whiten_kernel.py holds the TPU kernel; and a non-PD matrix
+    gives non-finite output while the PD one beside it stays finite."""
+    for b in batches:
+        x = K.chol_tri_inverse(b)
+        n = b.shape[-1]
+        eye = torch.eye(n, dtype=torch.float64, device=b.device)
+        ref = torch.linalg.solve_triangular(torch.linalg.cholesky(b.double()),
+                                            eye.expand(b.shape[0], n, n), upper=False)
+        diff, rel = _rel(x, ref)
+        upper = float(torch.triu(x, 1).abs().max())
+        print(f"[phase 2] chol_tri_inverse {tuple(b.shape)} against float64: rel_err={rel:.3e} "
+              f"max_abs_err={diff:.3e}, max |upper| {upper}", flush=True)
+        _check(f"chol_tri_inverse {tuple(b.shape)} against float64", rel, TOL_CHOL_TRI)
+        if upper != 0.0:
+            raise AssertionError("chol_tri_inverse: nonzero entries above the diagonal")
+    n = batches[0].shape[-1]
+    b = spd(2, n, boost=1e5)
+    eye = torch.eye(n, device=b.device)
+    x = K.chol_tri_inverse(b)
+    chain = torch.linalg.solve_triangular(torch.linalg.cholesky_ex(b)[0], eye.expand(2, n, n),
+                                          upper=False)
+
+    def residual(x):
+        x = x.double()
+        return float((x @ b.double() @ x.transpose(1, 2) - eye.double()).abs().max())
+
+    res, res_ref = residual(x), residual(chain)
+    print(f"[phase 2] chol_tri_inverse ill-conditioned (2, {n}, {n}): whitening residual "
+          f"{res:.3e}, cholesky_ex + solve_triangular {res_ref:.3e}", flush=True)
+    if not res <= 2.0 * res_ref + 1e-5:
+        raise AssertionError(f"chol_tri_inverse: residual {res:.3e} > 2 x {res_ref:.3e} + 1e-5")
+    bad = spd(2, n)
+    bad[1, 300, 300] = -1.0
+    x = K.chol_tri_inverse(bad)
+    torch.cuda.synchronize()
+    if torch.isfinite(x[1]).all() or not torch.isfinite(x[0]).all():
+        raise AssertionError("chol_tri_inverse: a non-PD matrix must give non-finite output, "
+                             "a PD one finite")
+    print(f"[phase 2] chol_tri_inverse non-PD matrix: non-finite output (PD matrix beside it "
+          f"finite) card={card}", flush=True)
+
+
+def _jacobi_wide_checks(K, g, dev, card, flush):
+    """K4 and K7 past 128 slots (the single-buffered 512-thread form up to
+    160 slots, the global-memory form above), WIDE_SWEEPS sweeps on
+    WIDE_JACOBI against their plain versions: the eigenvalues to TOL_KERNEL
+    of scale; the eigenvectors, whose close pairs carry the rounding of
+    ~1600 rounds, by the residual max |A v - v w| / max |A| and max
+    |V^H V - I|, within the larger of TOL_KERNEL and HERM_RATIO x the plain
+    version's. Warm-start-like inputs (a spread diagonal and a small
+    perturbation): eight cold sweeps leave close pairs of a random 144-slot
+    matrix unconverged on either device, so that rounding picks them.
+    Returns each wrapper's times, {name: {ms_<label>: ms}}."""
+    out = {"jacobi_eigh": {}, "jacobi_eigh_hermitian": {}}
+    for bz, n, complex_ in WIDE_JACOBI:
+        if complex_:
+            a, fn, plain = _warm_hermitian(g, dev, bz, n), K.jacobi_eigh_hermitian, \
+                K.jacobi_eigh_hermitian_plain
+            slots = -(-2 * n // 8) * 8
+        else:
+            a, fn, plain = _warm(g, dev, bz, n), K.jacobi_eigh, K.jacobi_eigh_plain
+            slots = -(-n // 8) * 8
+        w, v = fn(a, WIDE_SWEEPS)
+        wp, vp = plain(a, WIDE_SWEEPS)
+        torch.cuda.synchronize()
+        d_rel = _rel(w, wp)[1]
+        ac = a if complex_ else a.to(torch.complex64)
+        got = [float(x.max()) for x in _hermitian_state(ac, w, v.to(ac.dtype))]
+        want = [float(x.max()) for x in _hermitian_state(ac, wp, vp.to(ac.dtype))]
+        label = f"{'complex_' if complex_ else ''}{bz}x{n}_{slots}_slots"
+        ms = _time_ms(lambda: fn(a, WIDE_SWEEPS), 5, flush)
+        plain_ms = _time_ms(lambda: plain(a, WIDE_SWEEPS), 2, flush)
+        out[fn.__name__][f"ms_{label}"] = ms
+        out[fn.__name__][f"plain_ms_{label}"] = plain_ms
+        print(f"[phase 2] {fn.__name__} {label}, {WIDE_SWEEPS} sweeps: eigenvalues "
+              f"rel_err={d_rel:.3e}; residual {got[0]:.3e} (plain {want[0]:.3e}); max "
+              f"|V^H V - I| {got[1]:.3e} (plain {want[1]:.3e}); kernel_ms={ms:.5f} "
+              f"plain_ms={plain_ms:.5f} card={card}", flush=True)
+        _check(f"{fn.__name__} {label} eigenvalues", d_rel, TOL_KERNEL)
+        for name, x, xp in zip(("residual", "orthonormality"), got, want):
+            limit = max(TOL_KERNEL, HERM_RATIO * xp)
+            if not x <= limit:
+                raise AssertionError(f"{fn.__name__} {label}: {name} {x:.3e} > {limit:.3e}")
+    return out
 
 
 def _inputs(scene):
@@ -986,7 +1139,7 @@ PATH_KERNELS = {
 ROUND3_KERNELS = ("whiten", "subspace")
 FD_KERNELS = ("jacobi_eigh_hermitian",)
 # Kernels that no engine path calls (their phase-2 rows report 0 launches).
-UNCALLED_KERNELS = ("circular_filter",)
+UNCALLED_KERNELS = ("circular_filter", "chol_tri_inverse")
 # The round-3 solvers' Rayleigh-Ritz matrices are not near-diagonal (the
 # CholeskyQR2 of each power step mixes the carried Ritz vectors), so K4 at
 # their 2-3 sweeps leaves close eigenvectors unconverged, and a rounding-sized

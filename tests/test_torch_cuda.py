@@ -123,6 +123,8 @@ def _cases(rnd):
             (rnd(1, 64), rnd(1, 5, 64)),
             (rnd(2, 1600), rnd(2, 33, 50)),
         ],
+        # One panel, the padding path, the main path's shape.
+        "chol_tri_inverse": [(_spd(rnd, 2, 128),), (_spd(rnd, 1, 200),), (_spd(rnd, 2, 800),)],
     }
 
 
@@ -138,6 +140,7 @@ _PLAIN = {
     "rowwise_conv": K.rowwise_circular_conv_plain,
     "statistics": K.covariance_plain,
     "circular_filter": K.circular_filter_plain,
+    "chol_tri_inverse": K.chol_tri_inverse_plain,
 }
 
 
@@ -184,6 +187,71 @@ def test_whiten_kernel_non_pd_panel_is_non_finite(dev):
     assert torch.isfinite(l[0]).all() and torch.isfinite(inv[0]).all()
     assert not torch.isfinite(l[1]).all() and not torch.isfinite(inv[1]).all()
     assert (torch.triu(l[0], 1) == 0).all() and (torch.triu(inv[0], 1) == 0).all()
+
+
+def test_chol_tri_inverse_non_pd_is_non_finite(dev):
+    """K10b: a negative pivot gives non-finite rows from its sub-panel down,
+    the SPD matrix beside it stays finite, and both keep exact zeros above
+    the diagonal."""
+    g = torch.Generator().manual_seed(4)
+    b = _spd(lambda *s: torch.randn(s, generator=g).to(dev), 2, 300)
+    b[1, 150, 150] = -1.0
+    x = K.chol_tri_inverse(b)
+    torch.cuda.synchronize()
+    assert torch.isfinite(x[0]).all() and not torch.isfinite(x[1]).all()
+    assert torch.isfinite(x[1, :128]).all()
+    assert (torch.triu(x, 1) == 0).all()
+
+
+def _eigen_state(a, w, v):
+    """max |A v - v w| / max |A| and max |V^T V - I| (V^H V for complex),
+    in double precision."""
+    if a.is_complex():
+        return _hermitian_state(a, w, v)
+    a, v = a.double(), v.double()
+    res = (a @ v - v * w.double()[:, None, :]).abs().max() / a.abs().max()
+    eye = torch.eye(v.shape[-1], dtype=v.dtype, device=v.device)
+    return float(res), float((v.transpose(1, 2) @ v - eye).abs().max())
+
+
+@pytest.mark.parametrize(
+    "shape,complex_",
+    [((2, 136), False), ((2, 200), False), ((4, 72), True), ((2, 100), True)],
+    ids=["real-136", "real-200-global", "complex-72", "complex-100-global"],
+)
+def test_jacobi_wide_forms_match_plain(dev, shape, complex_):
+    """Past 128 slots: the single-buffered 512-thread form (136, and 144
+    for complex 72) and the global-memory form (200 slots), on
+    warm-start-like inputs: eight cold sweeps leave close pairs of a random
+    144-slot matrix unconverged on either side, and rounding picks them. At
+    8 sweeps the eigenvalues agree to 1e-4 of scale; the eigenvectors of
+    close eigenvalues carry the rounding of ~1600 rounds (2.2e-4 of scale
+    apart at 136-200 slots), so they are held by their residual and
+    orthonormality, within the larger of 1e-4 and 1.5x the plain
+    version's, as K7's are."""
+    g = torch.Generator().manual_seed(11)
+    rnd = lambda *s: torch.randn(s, generator=g).to(dev)  # noqa: E731
+    a = _warm(rnd, *shape)
+    if complex_:
+        a = a.to(torch.complex64) + 1e-2 * _herm(rnd, *shape)
+    a = a.contiguous()
+    fn, plain = ((K.jacobi_eigh_hermitian, K.jacobi_eigh_hermitian_plain) if complex_
+                 else (K.jacobi_eigh, K.jacobi_eigh_plain))
+    before = fn.launches
+    (w, v), (wp, vp) = fn(a, 8), plain(a, 8)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1 and v.shape == vp.shape
+    assert _rel(w, wp) <= 1e-4
+    for got, want in zip(_eigen_state(a, w, v), _eigen_state(a, wp, vp)):
+        assert got <= max(1e-4, 1.5 * want)
+
+
+def test_jacobi_card_bound(dev):
+    """The card serves up to 512 padded slots and names its bound past it."""
+    with pytest.raises(ValueError, match="512"):
+        K.jacobi_eigh(torch.zeros(1, 513, 513, device=dev), 1)
+    with pytest.raises(ValueError, match="512"):
+        K.jacobi_eigh_hermitian(torch.zeros(1, 257, 257, dtype=torch.complex64, device=dev), 1)
 
 
 def test_kernels_refuse_float64_on_the_card(dev):

@@ -98,6 +98,32 @@ def test_hermitian_plain_matches_jax_and_oracle(rng, n, bz, sweeps):
     assert np.abs(proj - jproj)[sep].max() <= 1e-4
 
 
+def test_hermitian_plain_serves_widths_past_64(rng):
+    """n = 72 embeds into 144 slots, past the card's former shared-memory
+    bound of 128: the plain version (the CPU path) serves it, as JAX does,
+    on a warm-start-like input (spread real diagonal, small Hermitian
+    perturbation) at 2 sweeps.
+
+    Two sweeps leave this width unconverged on either side (residual ~5e-4,
+    |q^H q - I| ~2.5e-3 for both), so the eigenvectors are held by their
+    residual and orthonormality within 1.5x JAX's own. The eigenvalues:
+    at 144 slots the float32 floor is about 1e-5 of scale (JAX's own
+    distance from the float64 oracle after 3 sweeps is 5e-6, the port's
+    1e-5), so 2e-5 of scale against JAX and 2e-4 against the oracle."""
+    n = 72
+    a = (np.diag(np.linspace(-3.0, 5.0, n)) + 1e-2 * _herm(rng, 1, n)).astype(np.complex64)
+    w, v = _plain(a, 2)
+    jw, jv = jax.jit(lambda x: jax_jacobi_hermitian(x, sweeps=2, interpret=True))(a)
+    jw, jv = np.asarray(jw), np.asarray(jv)
+    wn = np.linalg.eigvalsh(a.astype(np.complex128))
+    scale = np.abs(wn).max()
+    assert w.shape == (1, n) and v.shape == (1, n, n) and v.dtype == np.complex64
+    assert np.abs(w - jw).max() <= 2e-5 * scale
+    assert np.abs(w - wn).max() <= 2e-4 * scale
+    for got, want in zip(_residual(a, w, v), _residual(a, jw, jv)):
+        assert got <= 1.5 * want
+
+
 def test_hermitian_plain_degenerate_pairs(rng):
     """Exact 2-fold degeneracies and a 1-ulp pair: the re-pairing repair
     and the Gram-Schmidt pass keep the columns orthonormal; the kernel's
@@ -144,8 +170,6 @@ def test_hermitian_wrapper_refuses_bad_input():
         K.jacobi_eigh_hermitian(h.real.contiguous(), 4)
     with pytest.raises(ValueError, match="square"):
         K.jacobi_eigh_hermitian(torch.zeros((2, 4, 3), dtype=torch.complex64), 4)
-    with pytest.raises(ValueError, match="slots"):
-        K.jacobi_eigh_hermitian(torch.zeros((1, 65, 65), dtype=torch.complex64), 4)
     with pytest.raises(ValueError, match="contiguous"):
         K.jacobi_eigh_hermitian(h.transpose(1, 2), 4)
     with pytest.raises(ValueError, match="sweeps"):

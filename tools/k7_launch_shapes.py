@@ -60,10 +60,11 @@ def launch(lib: ctypes.CDLL, h: torch.Tensor, sweeps: int):
     w = torch.empty((bz, n), device=h.device)
     q = torch.empty((bz, n, n), dtype=torch.complex64, device=h.device)
     fn = lib.jacobi_eigh_hermitian_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    # No workspace: these shapes stay within the shared-memory forms.
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(torch.view_as_real(h).data_ptr(), src.data_ptr(), w.data_ptr(),
-             torch.view_as_real(q).data_ptr(), bz, n, npad, sweeps,
+             torch.view_as_real(q).data_ptr(), None, bz, n, npad, sweeps,
              torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"launch failed: cudaError {err}")
