@@ -64,12 +64,18 @@
 // w2[2j + 1]), and runs the one Gram-Schmidt pass of the TPU wrapper
 // against the previous, uncorrected column. Bound: latency again. At the FD
 // shape (1602, 16, 16) -> 32 slots, 6 sweeps: 186 dependent rounds per
-// block, ~2.7 GFLOP in all (0.04 ms at 67 TFLOP/s) against ~6.6 MB of
-// input and output (0.002 ms); 1602 blocks of 256 threads, several to an
-// SM (see dispatch_hermitian).
+// pencil, ~2.7 GFLOP in all (0.04 ms at 67 TFLOP/s) against ~6.6 MB of
+// input and output (0.002 ms). Up to 64 slots K7 runs the pair-block form
+// (hermitian_pair_kernel: a few warps a pencil, A rotated in place along a
+// relabeled pair table, V's rows in registers); K4's template form serves
+// wider pencils. (The first design ran K4's double-buffered rounds at every
+// width, 256 threads a pencil at 32 slots, each round's rotations on 16 of
+// them between two block barriers: PERF.md, section 6.)
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <atomic>
 
 namespace {
 
@@ -79,6 +85,24 @@ constexpr int kSharedSlots = 160;  // the widest single-buffered shared form
 constexpr int kWideThreads = 512;
 constexpr int kWidePer = kSharedSlots * kSharedSlots / kWideThreads;  // 50
 constexpr int kMaxSlots = 512;  // the global form's bound
+constexpr int kMaxDevices = 64;
+
+// Raise `kernel`'s dynamic shared-memory limit on the current device to at
+// least `bytes`, with one driver call the first time (and again only when a
+// wider pencil needs more): the attribute stays set, so the host-bound hop
+// pays no driver call a launch. `granted` is the caller's per-device record
+// (a function-local static of the launching instantiation).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes, std::atomic<int> (&granted)[kMaxDevices]) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < kMaxDevices && granted[dev].load() >= (int)bytes) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e == cudaSuccess && dev < kMaxDevices) granted[dev].store((int)bytes);
+  return e;
+}
 
 // Entry e of the thread's k-th slot: c1 = e / np, c2 = e % np, and the
 // occupants moving into them, r1 = src[c1], r2 = src[c2], packed 10 bits each.
@@ -103,19 +127,43 @@ __device__ __forceinline__ void rotate_entry(unsigned packed, int np, const floa
   v_out = V[c1 * np + r2] * g2.x + V[c1 * np + p2] * o2;
 }
 
+// (c, s) of the rotation that zeroes apq in [[app, apq], [apq, aqq]].
+__device__ __forceinline__ float2 rotation(float app, float aqq, float apq) {
+  const float theta = aqq - app;
+  const float sg = theta >= 0.f ? 1.f : -1.f;
+  const float denom = fabsf(theta) + sqrtf(theta * theta + 4.f * apq * apq) + 1e-30f;
+  const float t = 2.f * apq * sg / denom;
+  const float c = 1.f / sqrtf(1.f + t * t);
+  return make_float2(c, t * c);
+}
+
 // The rotation of pair i = (2i, 2i+1) that zeroes A[2i, 2i+1], for
 // i = tid, tid + nt, ... < np / 2.
 __device__ __forceinline__ void pair_rotations(const float* A, float2* cs, int np,
                                                int tid, int nt) {
   for (int i = tid; i < np / 2; i += nt) {
     const int p = 2 * i, q = p + 1;
-    const float app = A[p * np + p], aqq = A[q * np + q], apq = A[p * np + q];
-    const float theta = aqq - app;
-    const float sg = theta >= 0.f ? 1.f : -1.f;
-    const float denom = fabsf(theta) + sqrtf(theta * theta + 4.f * apq * apq) + 1e-30f;
-    const float t = 2.f * apq * sg / denom;
-    const float c = 1.f / sqrtf(1.f + t * t);
-    cs[i] = make_float2(c, t * c);
+    cs[i] = rotation(A[p * np + p], A[q * np + q], A[p * np + q]);
+  }
+}
+
+// Ascending rank of every slot of A's diagonal (pad slots, i >= n, keyed to
+// +inf, ties to the lower index); cnt[r] counts the slots of rank r (zeroed
+// by the caller) and first[r] is one of them.
+__device__ void rank_slots(const float* A, int* rank, int* cnt, int* first, int n, int np,
+                           int tid, int nt) {
+  for (int i = tid; i < np; i += nt) {
+    const float ki = i < n ? A[i * np + i] : INFINITY;
+    int r = 0;
+    for (int j = 0; j < np; ++j) {
+      const float kj = j < n ? A[j * np + j] : INFINITY;
+      r += (kj < ki) || (kj == ki && j < i);
+    }
+    rank[i] = r;
+    if (r < n) {
+      atomicAdd(&cnt[r], 1);
+      first[r] = i;  // used only where exactly one slot has rank r
+    }
   }
 }
 
@@ -319,20 +367,7 @@ jacobi_eigh_kernel(const float* __restrict__ a, const int* __restrict__ src_g,
     }
   }
 
-  // Ascending rank of every slot; pad slots key to +inf.
-  for (int i = tid; i < np; i += nt) {
-    const float ki = i < n ? A[i * np + i] : INFINITY;
-    int r = 0;
-    for (int j = 0; j < np; ++j) {
-      const float kj = j < n ? A[j * np + j] : INFINITY;
-      r += (kj < ki) || (kj == ki && j < i);
-    }
-    rank[i] = r;
-    if (r < n) {
-      atomicAdd(&cnt[r], 1);
-      first[r] = i;  // used only where exactly one slot has rank r
-    }
-  }
+  rank_slots(A, rank, cnt, first, n, np, tid, nt);
   __syncthreads();
   if constexpr (HERM) {
     // A's diagonal is read into w2 before S overwrites A.
@@ -377,28 +412,30 @@ int launch(const float* a, const int* src, float* w, float* v, float* work, int 
   // HERM adds dup (np ints), w2 (np floats) and three floats per column.
   const size_t smem = (DOUBLE ? 4 : 2) * nn * sizeof(float) + (np / 2) * sizeof(float2) +
                       4 * np * sizeof(int) + (HERM ? 5 * np * sizeof(float) : 0);
+  static std::atomic<int> granted[kMaxDevices];
   auto kernel = jacobi_eigh_kernel<PER, DOUBLE, HERM, GLOBAL, THREADS>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  cudaError_t e = allow_smem(kernel, smem, granted);
+  if (e != cudaSuccess) return (int)e;
   kernel<<<bz, threads, smem, stream>>>(a, src, w, v, work, n, np, sweeps);
   return (int)cudaGetLastError();
 }
 
 // K4's launch shape for np slots: one entry of A and V per thread up to
 // 1024 threads, double buffers up to np = 64, single buffers up to 128
-// (1024 threads) and kSharedSlots (512 threads), then the global form.
+// (1024 threads) and kSharedSlots (512 threads), then the global form. K7
+// (HERM) comes here only past 64 slots, so its double-buffered forms are
+// not built.
 template <bool HERM>
 int dispatch(const float* a, const int* src, float* w, float* v, float* work, int bz, int n,
              int np, int sweeps, cudaStream_t stream) {
   const int nn = np * np;
   const int threads = nn < kMaxThreads ? nn : kMaxThreads;
-  if (nn <= threads)
-    return launch<1, true, HERM>(a, src, w, v, work, bz, n, np, sweeps, threads, stream);
-  if (nn <= 4 * threads)
-    return launch<4, true, HERM>(a, src, w, v, work, bz, n, np, sweeps, threads, stream);
+  if constexpr (!HERM) {
+    if (nn <= threads)
+      return launch<1, true, HERM>(a, src, w, v, work, bz, n, np, sweeps, threads, stream);
+    if (nn <= 4 * threads)
+      return launch<4, true, HERM>(a, src, w, v, work, bz, n, np, sweeps, threads, stream);
+  }
   if (nn <= 16 * threads)
     return launch<16, false, HERM>(a, src, w, v, work, bz, n, np, sweeps, threads, stream);
   if (np <= kSharedSlots)
@@ -408,25 +445,231 @@ int dispatch(const float* a, const int* src, float* w, float* v, float* work, in
                                      stream);
 }
 
-// K7's launch shape. Its batch is thousands of pencils (2 * bins), not
-// K4's two, so its blocks are smaller where that costs few entries a
-// thread: kHermThreads threads with up to 4 entries each (double
-// buffered), so that several blocks share an SM and one block's barriers
-// overlap another's work; beyond that, K4's shape (16 entries a thread
-// were slower than it at 64 slots). At 32 slots (S = 16) 256 threads take
-// about half the time of 1024 (tools/k7_launch_shapes.py).
-constexpr int kHermThreads = 256;
+// K7's pair-block form, up to kPairSlots slots: the same rotations in the
+// same order as K4's template form (jacobi_eigh_kernel, HERM), with the
+// same products and contractions, without moving A. A pure permutation is
+// exact, so instead of writing P^T (R^T A R) P into a second buffer every
+// round rotates, in place, the physical slots that hold the round's pairs,
+// (pos_k(2i), pos_k(2i+1)) with pos_{k+1}(c) = pos_k(src[c]); after the
+// np - 1 rounds of a sweep pos is the identity again, so the ranking and
+// the epilogue read the slots they always did. The host builds that table
+// once per np (ops/kernels/jacobi_eigh.py::pair_table): one int a pair,
+// P | Q << 8 | swap << 16, where swap picks which of the pair's two
+// columns a thread loads first, so that at 64 slots the 32 columns of one
+// warp-wide load lie on 32 distinct banks (at 32 slots the row parity does
+// it). One block of WARPS warps per pencil: the np/2 rotations of a round
+// are computed by np/2 threads into cs; then each thread rotates whole
+// 2 x 2 pair blocks of A in shared memory (rows {P_i, Q_i} x columns
+// {P_j, Q_j}: every value loaded and stored once a round, a batch of
+// blocks loaded before any is stored), and the first np threads each
+// rotate one row of V, held in registers in the moving schedule's order
+// (the column moves are compile-time register moves). The blocks partition
+// A, so a round takes two pencil barriers and no second buffer. ptxas, and
+// the timings of the warp counts and of the first design: PERF.md, section 6.
+constexpr int kPairSlots = 64;
 
-int dispatch_hermitian(const float* h, const int* src, float* w, float* q, float* work,
-                       int bz, int n, int np, int sweeps, cudaStream_t stream) {
-  const int nn = np * np;
-  const int t = kHermThreads;
-  if (nn <= t) return launch<1, true, true>(h, src, w, q, work, bz, n, np, sweeps, nn, stream);
-  if (nn <= 2 * t)
-    return launch<2, true, true>(h, src, w, q, work, bz, n, np, sweeps, t, stream);
-  if (nn <= 4 * t)
-    return launch<4, true, true>(h, src, w, q, work, bz, n, np, sweeps, t, stream);
-  return dispatch<true>(h, src, w, q, work, bz, n, np, sweeps, stream);
+template <int WARPS>
+__device__ __forceinline__ void pencil_sync() {
+  if constexpr (WARPS == 1) {
+    __syncwarp();
+  } else {
+    __syncthreads();
+  }
+}
+
+__device__ __forceinline__ int slot_p(int e) { return e & 0xff; }
+__device__ __forceinline__ int slot_q(int e) { return (e >> 8) & 0xff; }
+
+// A pair's two slots in load order, (first, second), as swap(e) ^ parity
+// picks, and o, the sign of s in the first slot's update: with x0, x1 the
+// values at first and second, the rotation of rotate_entry is
+//   x0' = x0 c + x1 o,  x1' = x1 c - x0 o,  o = -s if first is P, else +s,
+// the same products and contractions in either order.
+__device__ __forceinline__ void load_order(int e, int parity, float s, int& first, int& second,
+                                           float& o) {
+  const bool swp = ((e >> 16) ^ parity) & 1;
+  first = swp ? slot_q(e) : slot_p(e);
+  second = swp ? slot_p(e) : slot_q(e);
+  o = swp ? s : -s;
+}
+
+// One round's update of A in place: the pair blocks (i, j), rows {P_i, Q_i}
+// x columns {P_j, Q_j}, t = i * np/2 + j = tid + x KT of this thread. The
+// blocks partition A, so each batch of BATCH blocks is loaded whole before
+// any of it is stored: its loads are in flight together.
+template <int NP, int KT, int BATCH>
+__device__ __forceinline__ void rotate_blocks(float* A, const int* pr, const float2* cs,
+                                              int tid) {
+  constexpr int kHalf = NP / 2, kBlocks = kHalf * kHalf;
+  constexpr int kPer = (kBlocks + KT - 1) / KT;
+#pragma unroll
+  for (int x0 = 0; x0 < kPer; x0 += BATCH) {
+    float v[BATCH][4], o[BATCH];
+    float2 gi[BATCH], gj[BATCH];
+    int c0[BATCH], c1[BATCH], r0[BATCH], r1[BATCH];
+    bool ok[BATCH];
+#pragma unroll
+    for (int b = 0; b < BATCH; ++b) {
+      const int t = tid + (x0 + b) * KT;
+      ok[b] = x0 + b < kPer && (kBlocks % KT == 0 || t < kBlocks);
+      if (!ok[b]) continue;
+      const int i = t / kHalf, j = t % kHalf, ei = pr[i];
+      gi[b] = cs[i];
+      gj[b] = cs[j];
+      load_order(pr[j], i, gj[b].y, c0[b], c1[b], o[b]);
+      r0[b] = slot_p(ei) * NP;
+      r1[b] = slot_q(ei) * NP;
+      v[b][0] = A[r0[b] + c0[b]];
+      v[b][1] = A[r0[b] + c1[b]];
+      v[b][2] = A[r1[b] + c0[b]];
+      v[b][3] = A[r1[b] + c1[b]];
+    }
+#pragma unroll
+    for (int b = 0; b < BATCH; ++b) {
+      if (!ok[b]) continue;
+      // Columns: A R.
+      const float c = gj[b].x;
+      const float m0 = __fmaf_rn(v[b][0], c, __fmul_rn(v[b][1], o[b]));
+      const float m1 = __fmaf_rn(v[b][1], c, __fmul_rn(v[b][0], -o[b]));
+      const float q0 = __fmaf_rn(v[b][2], c, __fmul_rn(v[b][3], o[b]));
+      const float q1 = __fmaf_rn(v[b][3], c, __fmul_rn(v[b][2], -o[b]));
+      // Rows: P <- c (AR)[P] - s (AR)[Q], Q <- c (AR)[Q] + s (AR)[P].
+      const float ci = gi[b].x, si = gi[b].y;
+      A[r0[b] + c0[b]] = __fmaf_rn(ci, m0, __fmul_rn(-si, q0));
+      A[r0[b] + c1[b]] = __fmaf_rn(ci, m1, __fmul_rn(-si, q1));
+      A[r1[b] + c0[b]] = __fmaf_rn(ci, q0, __fmul_rn(si, m0));
+      A[r1[b] + c1[b]] = __fmaf_rn(ci, q1, __fmul_rn(si, m1));
+    }
+  }
+}
+
+// The tournament schedule in closed form (tournament_schedule of the
+// wrapper): slot 0 stays; the others walk the ring of the top row left to
+// right, then the bottom row right to left; src[c] is the slot one step
+// back on the ring from c.
+__host__ __device__ constexpr int ring_slot(int m, int q) {
+  return q < m - 1 ? 2 * (q + 1) : 2 * (2 * m - 2 - q) + 1;
+}
+__host__ __device__ constexpr int ring_pos(int m, int c) {
+  return c % 2 == 0 ? c / 2 - 1 : 2 * m - 2 - (c - 1) / 2;
+}
+__host__ __device__ constexpr int tournament_src(int np, int c) {
+  return c == 0 ? 0 : ring_slot(np / 2, (ring_pos(np / 2, c) + np - 2) % (np - 1));
+}
+
+// One round's update of row `v` of V, held in registers in the moving
+// schedule's order: rotate the logical pairs (2i, 2i+1) as rotate_entry
+// does, then move column src[c] into c (compile-time indices, so the move
+// is register renaming or moves, no memory).
+template <int NP>
+__device__ __forceinline__ void rotate_row(float (&v)[NP], const float2* cs) {
+  float t[NP];
+#pragma unroll
+  for (int i = 0; i < NP / 2; ++i) {
+    const float2 g = cs[i];
+    t[2 * i] = __fmaf_rn(v[2 * i], g.x, __fmul_rn(v[2 * i + 1], -g.y));
+    t[2 * i + 1] = __fmaf_rn(v[2 * i + 1], g.x, __fmul_rn(v[2 * i], g.y));
+  }
+#pragma unroll
+  for (int c = 0; c < NP; ++c) v[c] = t[tournament_src(NP, c)];
+}
+
+template <int NP, int WARPS>
+__global__ void __launch_bounds__(WARPS * 32)
+hermitian_pair_kernel(const float* __restrict__ h, const int* __restrict__ pairs_g,
+                      float* __restrict__ w_out, float* __restrict__ q_out, int n_in,
+                      int sweeps) {
+  constexpr int kHalf = NP / 2, kT = WARPS * 32, kRounds = NP - 1;
+  static_assert(kT >= NP, "a thread for every row of V");
+  extern __shared__ __align__(16) float smem[];
+  float* A = smem;
+  float* V = A + NP * NP;
+  float2* cs = reinterpret_cast<float2*>(V + NP * NP);
+  int* pairs = reinterpret_cast<int*>(cs + kHalf);
+  int* rank = pairs + kRounds * kHalf;
+  int* cnt = rank + NP;
+  int* first = cnt + NP;
+  int* dup = first + NP;
+  float* w2 = reinterpret_cast<float*>(dup + NP);
+  float* ofs = w2 + NP;  // (o_re, o_im, clamped norm) per column
+
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const int n = 2 * n_in;
+  // T = [[X, -Y], [Y, X]] from H = X + iY, as in jacobi_eigh_kernel (HERM).
+  const float2* hb = reinterpret_cast<const float2*>(h) + (size_t)b * n_in * n_in;
+  for (int e = tid; e < NP * NP; e += kT) {
+    const int r = e / NP, c = e % NP;
+    float t = 0.f;
+    if (r < n && c < n) {
+      const bool top = r < n_in, left = c < n_in;
+      const float2 z = hb[(top ? r : r - n_in) * n_in + (left ? c : c - n_in)];
+      t = top == left ? z.x : (top ? -z.y : z.y);
+    }
+    A[e] = t;
+  }
+  float vrow[NP];  // row tid of V (tid < NP)
+#pragma unroll
+  for (int c = 0; c < NP; ++c) vrow[c] = c == tid ? 1.f : 0.f;
+  for (int i = tid; i < kRounds * kHalf; i += kT) pairs[i] = pairs_g[i];
+  for (int i = tid; i < NP; i += kT) cnt[i] = 0;
+  __syncthreads();
+
+  for (int sw = 0; sw < sweeps; ++sw) {
+    for (int k = 0; k < kRounds; ++k) {
+      const int* pr = pairs + k * kHalf;
+      if (tid < kHalf) {
+        const int e = pr[tid], p = slot_p(e), q = slot_q(e);
+        cs[tid] = rotation(A[p * NP + p], A[q * NP + q], A[p * NP + q]);
+      }
+      pencil_sync<WARPS>();
+      rotate_blocks<NP, kT, 8>(A, pr, cs, tid);
+      if (tid < NP) rotate_row<NP>(vrow, cs);
+      pencil_sync<WARPS>();
+    }
+  }
+  // After whole sweeps the moving order is the identity again.
+  if (tid < NP) {
+#pragma unroll
+    for (int c = 0; c < NP; ++c) V[tid * NP + c] = vrow[c];
+  }
+
+  rank_slots(A, rank, cnt, first, n, NP, tid, kT);
+  __syncthreads();
+  hermitian_pairs(A, V, rank, cnt, first, A, w2, dup, ofs, n_in, NP, tid, kT,
+                  w_out + (size_t)b * n_in, q_out + (size_t)b * n_in * n_in * 2);
+}
+
+template <int NP, int WARPS>
+int launch_pairs(const float* h, const int* pairs, float* w, float* q, int bz, int n,
+                 int sweeps, cudaStream_t stream) {
+  // A, V, cs, the pair table, rank / cnt / first / dup, w2 and 3 floats a column.
+  const size_t smem = 2 * NP * NP * sizeof(float) + NP / 2 * sizeof(float2) +
+                      (NP - 1) * (NP / 2) * sizeof(int) + 4 * NP * sizeof(int) +
+                      (NP + 3 * NP / 2) * sizeof(float);
+  static std::atomic<int> granted[kMaxDevices];
+  auto kernel = hermitian_pair_kernel<NP, WARPS>;
+  cudaError_t e = allow_smem(kernel, smem, granted);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<bz, WARPS * 32, smem, stream>>>(h, pairs, w, q, n, sweeps);
+  return (int)cudaGetLastError();
+}
+
+// The pair-block form at np <= kPairSlots, one warp count a width (a thread
+// for each row of V at least): one warp up to 24 slots, two at 40-56, and at
+// 32 and 64 slots four, the fastest of 1, 2 and 4 (PERF.md, section 6).
+int pair_form(const float* h, const int* pairs, float* w, float* q, int bz, int n, int np,
+              int sweeps, cudaStream_t stream) {
+  switch (np) {
+    case 8: return launch_pairs<8, 1>(h, pairs, w, q, bz, n, sweeps, stream);
+    case 16: return launch_pairs<16, 1>(h, pairs, w, q, bz, n, sweeps, stream);
+    case 24: return launch_pairs<24, 1>(h, pairs, w, q, bz, n, sweeps, stream);
+    case 32: return launch_pairs<32, 4>(h, pairs, w, q, bz, n, sweeps, stream);
+    case 40: return launch_pairs<40, 2>(h, pairs, w, q, bz, n, sweeps, stream);
+    case 48: return launch_pairs<48, 2>(h, pairs, w, q, bz, n, sweeps, stream);
+    case 56: return launch_pairs<56, 2>(h, pairs, w, q, bz, n, sweeps, stream);
+    case 64: return launch_pairs<64, 4>(h, pairs, w, q, bz, n, sweeps, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -443,13 +686,18 @@ extern "C" int jacobi_eigh_launch(const float* a, const int* src, float* w, floa
   return dispatch<false>(a, src, w, v, work, bz, n, np, sweeps, stream);
 }
 
-// K7. h (bz, n, n, 2) complex Hermitian, interleaved; src (np,) int32 ->
-// w (bz, n) ascending, q (bz, n, n, 2) eigenvectors in columns; float32,
-// contiguous; np = max(8, ceil8(2n)) <= 512; work as for jacobi_eigh_launch.
-extern "C" int jacobi_eigh_hermitian_launch(const float* h, const int* src, float* w,
-                                            float* q, float* work, int bz, int n, int np,
-                                            int sweeps, cudaStream_t stream) {
-  if (np % 8 || np < 2 * n || np > kMaxSlots || (np > kSharedSlots && !work))
+// K7. h (bz, n, n, 2) complex Hermitian, interleaved; src (np,) int32, the
+// tournament schedule; pairs ((np - 1) * np / 2,) int32, its relabeled pair
+// table (read up to kPairSlots slots, else may be null) -> w (bz, n)
+// ascending, q (bz, n, n, 2) eigenvectors in columns; float32, contiguous;
+// np = max(8, ceil8(2n)) <= 512; work as for jacobi_eigh_launch. The
+// pair-block form serves np <= kPairSlots, K4's template form the rest.
+extern "C" int jacobi_eigh_hermitian_launch(const float* h, const int* src, const int* pairs,
+                                            float* w, float* q, float* work, int bz, int n,
+                                            int np, int sweeps, cudaStream_t stream) {
+  if (np % 8 || np < 2 * n || np > kMaxSlots || (np > kSharedSlots && !work) ||
+      (np <= kPairSlots && !pairs))
     return (int)cudaErrorInvalidValue;
-  return dispatch_hermitian(h, src, w, q, work, bz, n, np, sweeps, stream);
+  if (np <= kPairSlots) return pair_form(h, pairs, w, q, bz, n, np, sweeps, stream);
+  return dispatch<true>(h, src, w, q, work, bz, n, np, sweeps, stream);
 }

@@ -103,15 +103,15 @@ def library(name: str) -> ctypes.CDLL:
 
 def launch(name: str, entry: str, *args) -> None:
     """Call the C entry point ``entry`` of ``csrc/<name>.cu`` on the current
-    CUDA stream. ``args`` are tensors (passed as device pointers), Python
-    ints (passed as C ints) and Python floats (passed as C floats); raises
-    if the launch reports an error."""
+    CUDA stream. ``args`` are tensors (passed as device pointers), None (a
+    null pointer), Python ints (passed as C ints) and Python floats (passed
+    as C floats); raises if the launch reports an error."""
     fn = getattr(library(name), entry)
     argtypes, values = [], []
     for a in args:
-        if isinstance(a, torch.Tensor):
+        if a is None or isinstance(a, torch.Tensor):
             argtypes.append(ctypes.c_void_p)
-            values.append(a.data_ptr())
+            values.append(None if a is None else a.data_ptr())
         elif isinstance(a, float):
             argtypes.append(ctypes.c_float)
             values.append(a)

@@ -55,6 +55,50 @@ def tournament_schedule(n: int) -> np.ndarray:
     return src
 
 
+def relabeled_pairs(npad: int) -> np.ndarray:
+    """(npad - 1, npad // 2, 2): the slot pairs of every round of a sweep
+    where the data stays in place and the slots are relabeled instead of
+    moved. Round k rotates the physical pairs (pos_k(2i), pos_k(2i+1)), with
+    pos_0 the identity and pos_{k+1}(c) = pos_k(src[c]): the rotations of
+    the moving schedule, applied where its data would be. After npad - 1
+    rounds pos is the identity again (asserted), so every sweep starts and
+    ends on the same slots."""
+    src = tournament_schedule(npad)
+    pos = np.arange(npad)
+    rounds = []
+    for _ in range(npad - 1):
+        rounds.append(pos.reshape(-1, 2).copy())
+        pos = pos[src]
+    assert np.array_equal(pos, np.arange(npad)), "relabeling did not return to the identity"
+    return np.stack(rounds)
+
+
+def bank_order(pairs: np.ndarray, banks: int = 32) -> np.ndarray:
+    """(rounds, npad // 2) 0/1: which slot of each pair the card's pair-block
+    form loads first (1: the second one). At npad = 2 * banks it is chosen
+    so that the first slots of a round lie on distinct banks (slot mod
+    banks), and with them the second: each bank holds two slots, so the
+    pairs and banks form even cycles, and alternating along each cycle picks
+    one slot of every bank. Below that every slot has a bank of its own and
+    the order is 0."""
+    rounds, half, _ = pairs.shape
+    order = np.zeros((rounds, half), np.int64)
+    if 2 * half != 2 * banks:
+        return order
+    for k in range(rounds):
+        owner = {int(pairs[k, j, w]): (j, w) for j in range(half) for w in range(2)}
+        done = np.zeros(half, bool)
+        for start in range(half):
+            j, w = start, 0
+            while not done[j]:
+                done[j], order[k, j] = True, w
+                j, w = owner[int(pairs[k, j, w]) ^ banks]  # the other slot of that bank
+                w = 1 - w  # ... is loaded second
+        first = pairs[k, np.arange(half), order[k]] % banks
+        assert len(set(first.tolist())) == half, "bank order is not conflict-free"
+    return order
+
+
 def padded_size(n: int) -> int:
     """Slots of the Jacobi iteration for an (n, n) matrix: a multiple of 8,
     at least 8 (the schedule depends on it)."""
@@ -126,6 +170,21 @@ def schedule(npad: int, device: torch.device) -> torch.Tensor:
             tournament_schedule(npad), dtype=torch.int32, device=device
         )
     return _schedules[key]
+
+
+_pair_tables: dict[tuple[int, torch.device], torch.Tensor] = {}
+
+
+def pair_table(npad: int, device: torch.device) -> torch.Tensor:
+    """The relabeled pair table of ``npad`` slots (at most 256) on
+    ``device``, cached: (npad - 1, npad // 2) int32, P | Q << 8 | order << 16
+    per pair (:func:`relabeled_pairs`, :func:`bank_order`)."""
+    key = (npad, device)
+    if key not in _pair_tables:
+        pairs = relabeled_pairs(npad)
+        packed = pairs[..., 0] | pairs[..., 1] << 8 | bank_order(pairs) << 16
+        _pair_tables[key] = torch.as_tensor(packed, dtype=torch.int32, device=device)
+    return _pair_tables[key]
 
 
 def workspace(bz: int, npad: int, device: torch.device) -> torch.Tensor:

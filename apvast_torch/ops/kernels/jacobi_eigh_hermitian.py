@@ -12,6 +12,12 @@ vector u + iv, a repair where two selected columns overlap by more than
 one Gram-Schmidt pass of each column against the previous selected one,
 as the TPU wrapper does it (not sequential Gram-Schmidt). The kernel does
 all of it in one launch; the embedding lives in shared memory only.
+
+Up to ``PAIR_SLOTS`` padded slots the card runs the pair-block form: a
+block of a few warps a pencil rotates A in place along the relabeled pair
+table (``jacobi_eigh.pair_table``) instead of moving it every round, and
+V's rows in registers, the same rotations in the same order; wider pencils
+take K4's template form.
 """
 
 from __future__ import annotations
@@ -22,9 +28,12 @@ from apvast_torch.ops.kernels import _build
 from apvast_torch.ops.kernels.jacobi_eigh import (
     jacobi_eigh_plain,
     padded_size,
+    pair_table,
     schedule,
     workspace,
 )
+
+PAIR_SLOTS = 64  # the widest pencil of the pair-block form
 
 
 def embed(h: torch.Tensor) -> torch.Tensor:
@@ -88,14 +97,13 @@ def jacobi_eigh_hermitian(h: torch.Tensor, sweeps: int):
         return jacobi_eigh_hermitian_plain(h, sweeps)
     npad = padded_size(2 * n)
     work = workspace(bz, npad, h.device)
+    pairs = pair_table(npad, h.device) if npad <= PAIR_SLOTS else None
     w = torch.empty((bz, n), dtype=torch.float32, device=h.device)
     q = torch.empty((bz, n, n), dtype=torch.complex64, device=h.device)
     if bz:
-        _build.launch(
-            "jacobi_eigh", "jacobi_eigh_hermitian_launch",
-            torch.view_as_real(h), schedule(npad, h.device), w, torch.view_as_real(q), work,
-            bz, n, npad, sweeps,
-        )
+        _build.launch("jacobi_eigh", "jacobi_eigh_hermitian_launch", torch.view_as_real(h),
+                      schedule(npad, h.device), pairs, w, torch.view_as_real(q), work, bz, n,
+                      npad, sweeps)
         jacobi_eigh_hermitian.launches += 1
     return w, q
 

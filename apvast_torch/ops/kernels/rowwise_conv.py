@@ -3,10 +3,12 @@
 Kernel: ``apvast_torch/csrc/rowwise_conv.cu``, replacing
 ``apvast_tpu/ops/pallas/rowwise_conv.py::rowwise_circular_conv_pallas``.
 Bound on the H100: operations (1.45 GFLOP of fp32 FMA at the north-star
-shapes, 23 MB moved). One block per (zone, mic, frame, 32-output tile)
-walks the frame's full depth B + T - 1 in shared-memory chunks, with the
-circular halo read straight from the response rows, so no frame tensor
-reaches device memory; no sum crosses blocks.
+shapes, 23 MB moved). One block per (zone, mic, frame, 32-row tile), one
+warp per 32-output tile of it, each lane a register tile of 8 rows x 4
+outputs; the frame's full depth B + T - 1 is staged in double-buffered
+chunks by ``cp.async``, with the circular halo read straight from the
+response rows, so no frame tensor reaches device memory. Every output is
+one thread's in-order sum: no sum crosses blocks.
 """
 
 from __future__ import annotations

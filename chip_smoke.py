@@ -35,12 +35,17 @@ Phase 2  each kernel against its plain PyTorch version on the card, at the
          sweeps leave the near-degenerate pairs of random matrices
          unconverged on either device, so the worst matrix is reported
          beside the plain version's own worst under 1e-7 input changes).
-         K6 at the north-star shapes, at SJ = 1600 (S = 32, the JAX
-         package's packed regime) and at a ragged SJ = 300; K8 at the
-         north-star shapes with the banded k_t of T = 257 weighting taps and
-         at (4, 2, 3, 64) with a general k_t; K11 at (2, 1600) x (2, 800, 50),
-         at 37 rows (no whole row tile) and at 1000 rows (the JAX function
-         pads them). K10b (no engine caller) at (2, 800, 800), (1, 200, 200)
+         K7 at (1602, 16, 16) and (1602, 32, 32) also against K4's kernel
+         on the real embedding with select_pairs (the same rotations:
+         eigenvalues to 1e-5 of scale). K6 at the north-star shapes, at SJ = 1600
+         (S = 32, the JAX package's packed regime) and at a ragged SJ = 300;
+         K8 at the north-star shapes with the banded k_t of T = 257
+         weighting taps (also against a float64 oracle, 1e-5 of scale, and
+         with one NaN sample: NaN in exactly the outputs of the two frames
+         whose full-depth windows hold it, as in the plain version) and at
+         (4, 2, 3, 64) and (4, 2, 17, 96) with a general k_t; K11 at
+         (2, 1600) x (2, 800, 50), at 37 rows (no whole row tile) and at
+         1000 rows (the JAX function pads them). K10b (no engine caller) at (2, 800, 800), (1, 200, 200)
          and (1, 1024, 1024) against its plain version and against a float64
          oracle, both within 1e-5 of scale (the JAX package's bound), with
          exact zeros above the diagonal; on an ill-conditioned batch (its
@@ -175,6 +180,10 @@ FD_SWEEPS = 6
 FD_TOL_FLOOR = 1e-3
 FD_SPREAD_FACTOR = 4.0
 HERM_RATIO = 1.5  # K7's residual and orthonormality against its plain version's
+# K7 against K4's kernel on the real embedding (the same rotations), and K8
+# against a float64 oracle: rounding only.
+TOL_SAME_ROTATIONS = 1e-5
+TOL_ORACLE = 1e-5
 # The truncated weighting's tap count: the JAX package's production value
 # (tools/device_breakdown.py, tests/test_weighting_conv.py).
 WEIGHTING_TAPS = 257
@@ -312,6 +321,48 @@ def _hermitian_checks(K, cases, card):
             if not float(x.mean()) <= limit:
                 raise AssertionError(f"jacobi_eigh_hermitian {label}: mean {name} "
                                      f"{float(x.mean()):.3e} > {limit:.3e}")
+
+
+def _hermitian_against_k4(K, cases, card):
+    """K7 on (label, h) at FD_SWEEPS against K4's kernel on embed(h) with
+    select_pairs: the same rotations in the same order, so the eigenvalues
+    agree to TOL_SAME_ROTATIONS of scale."""
+    from apvast_torch.ops.kernels.jacobi_eigh_hermitian import embed, select_pairs
+
+    for label, h in cases:
+        w = K.jacobi_eigh_hermitian(h, FD_SWEEPS)[0]
+        w_ref = select_pairs(*K.jacobi_eigh(embed(h), FD_SWEEPS), h.shape[-1])[0]
+        diff, rel = _rel(w, w_ref)
+        print(f"[phase 2] jacobi_eigh_hermitian {label} {tuple(h.shape)} against K4 on the "
+              f"embedding: eigenvalues rel_err={rel:.3e} max_abs_err={diff:.3e} card={card}",
+              flush=True)
+        _check(f"jacobi_eigh_hermitian {label} against K4 on the embedding", rel,
+               TOL_SAME_ROTATIONS)
+
+
+def _rowwise_checks(K, x, k_t, taps, b, card):
+    """K8 against a float64 oracle (its plain version in double precision)
+    within TOL_ORACLE of scale; and with one NaN sample, NaN in exactly the
+    outputs whose full-depth window holds it (those of the plain version:
+    every output of the two frames whose windows cover it), the rest within
+    TOL_KERNEL of the plain version."""
+    got = K.rowwise_circular_conv(x, k_t, taps, b)
+    diff, rel = _rel(got, K.rowwise_circular_conv_plain(x.double(), k_t.double(), taps, b))
+    print(f"[phase 2] rowwise_conv against float64: rel_err={rel:.3e} max_abs_err={diff:.3e} "
+          f"card={card}", flush=True)
+    _check("rowwise_conv against float64", rel, TOL_ORACLE)
+    xn = x.clone()
+    xn[1, 0, 3, 5] = float("nan")  # inside the circular halo of the last frame
+    got = K.rowwise_circular_conv(xn, k_t, taps, b)
+    want = K.rowwise_circular_conv_plain(xn, k_t, taps, b)
+    nan, nan_plain = torch.isnan(got), torch.isnan(want)
+    count = int(nan.sum())
+    print(f"[phase 2] rowwise_conv with one NaN sample: {count} NaN outputs (plain "
+          f"{int(nan_plain.sum())}, want 2 frames x {b}) card={card}", flush=True)
+    if not torch.equal(nan, nan_plain) or count != 2 * b:
+        raise AssertionError("rowwise_conv: NaN outputs differ from the plain version's")
+    _check("rowwise_conv with one NaN sample, the finite outputs",
+           _rel(got[~nan_plain], want[~nan_plain])[1], TOL_KERNEL)
 
 
 def phase2(scene, dev, card):
@@ -682,6 +733,8 @@ def phase2(scene, dev, card):
         ("ragged", _hermitian(g, dev, 3, 5), FD_SWEEPS),
         ("degenerate_pairs", _degenerate_pairs(dev), 10),
     ], card)
+    _hermitian_against_k4(K, [("frame_taps_1", h7), ("frame_taps_2", h7b)], card)
+    _rowwise_checks(K, x8, k8, taps8, b8, card)
     for c in cases:
         cmp = c.get("compare", _errs)
         errs = cmp(c["kernel"](), c["plain"]())
@@ -1360,13 +1413,17 @@ def phase3_fd(scene, dev, card, results):
 
 
 def _kernel_of(key):
-    """The wrapper whose kernel a profiler key names: K4 and K7 are forms of
-    one template, jacobi_eigh_kernel<PER, DOUBLE, HERM>, and K5 and K11 of
+    """The wrapper whose kernel a profiler key names: K7 is
+    hermitian_pair_kernel<NP, WARPS> up to 64 slots, and past them, as K4,
+    a form of jacobi_eigh_kernel<PER, DOUBLE, HERM>; K5 and K11 are forms of
     output_filter_kernel<OVERLAP>."""
     from apvast_torch.ops import kernels as K
 
-    if "jacobi_eigh_kernel<" in key:
-        return "jacobi_eigh_hermitian" if "true>(" in key else "jacobi_eigh"
+    if "hermitian_pair_kernel<" in key:
+        return "jacobi_eigh_hermitian"
+    if "jacobi_eigh_kernel<" in key:  # its third template argument is HERM
+        herm = key.split("jacobi_eigh_kernel<", 1)[1].split(",")[2].strip() == "true"
+        return "jacobi_eigh_hermitian" if herm else "jacobi_eigh"
     if "output_filter_kernel<false>" in key:
         return "circular_filter"
     return next((name for name in K.WRAPPERS if f"{name}_kernel" in key), None)
@@ -1476,7 +1533,9 @@ def main() -> int:
           f"(per source: { {k: round(v[0], 1) for k, v in built.items()} })", flush=True)
     for name, (_, log) in built.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Function properties for" in line:  # the kernel the next lines describe
+                print(f"[phase 1] {name}: {line.split('for', 1)[1].strip()}", flush=True)
+            elif "registers" in line or "spill" in line:
                 print(f"[phase 1] {name}: {line.strip()}", flush=True)
 
     scene = scale_scene(16)

@@ -246,6 +246,85 @@ def test_jacobi_wide_forms_match_plain(dev, shape, complex_):
         assert got <= max(1e-4, 1.5 * want)
 
 
+@pytest.mark.parametrize("n", [16, 32], ids=["32-slots", "64-slots"])
+def test_hermitian_matches_k4_on_the_embedding(dev, n):
+    """K7 (the pair-block form) at 32 and 64 slots runs the rotations of
+    K4's kernel on the real embedding with select_pairs: on six cold sweeps
+    of random pencils the eigenvalues agree to 1e-5 of scale (rounding
+    only: the contractions of each entry are the same), and the residual
+    and orthonormality within the larger of 1e-4 and 1.5x the embedding's
+    (six sweeps leave close pairs unconverged on both)."""
+    from apvast_torch.ops.kernels.jacobi_eigh_hermitian import embed, select_pairs
+
+    g = torch.Generator().manual_seed(13)
+    h = _herm(lambda *s: torch.randn(s, generator=g).to(dev), 64, n)
+    before = K.jacobi_eigh_hermitian.launches
+    w, q = K.jacobi_eigh_hermitian(h, 6)
+    assert K.jacobi_eigh_hermitian.launches == before + 1
+    w_ref, q_ref = select_pairs(*K.jacobi_eigh(embed(h), 6), n)
+    torch.cuda.synchronize()
+    assert _rel(w, w_ref) <= 1e-5
+    for got, want in zip(_hermitian_state(h, w, q), _hermitian_state(h, w_ref, q_ref)):
+        assert got <= max(1e-4, 1.5 * want)
+
+
+def test_jacobi_production_shape_matches_plain(dev):
+    """K4 at the tracking solver's shape, (2, 64, 64) at 2 sweeps on a
+    warm-start-like input, equals its plain version within 1e-4."""
+    g = torch.Generator().manual_seed(17)
+    a = _warm(lambda *s: torch.randn(s, generator=g).to(dev), 2, 64).contiguous()
+    got, want = K.jacobi_eigh(a, 2), K.jacobi_eigh_plain(a, 2)
+    torch.cuda.synchronize()
+    assert _rel(got[0], want[0]) <= 1e-4 and _rel(got[1], want[1]) <= 1e-4
+
+
+def _rowwise_inputs(dev, seed):
+    """The truncated weighting's shapes, cut in mics: x (4, 2, 16, 1600)
+    and a random (non-banded) k_t of T = 257, B = 160."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((4, 2, 16, 1600), generator=g).to(dev)
+    k_t = torch.randn((2, 2, 160, 416), generator=g).to(dev)
+    return x, k_t
+
+
+def test_rowwise_conv_matches_float64_oracle(dev):
+    x, k_t = _rowwise_inputs(dev, 19)
+    got = K.rowwise_circular_conv(x, k_t, 257, 160)
+    want = K.rowwise_circular_conv_plain(x.double(), k_t.double(), 257, 160)
+    torch.cuda.synchronize()
+    assert _rel(got, want) <= 1e-5
+
+
+def test_rowwise_conv_offset_views_match_plain(dev):
+    """Contiguous views whose storage starts one float past a 16-byte
+    boundary (x, k_t, or both) take the element-wise staging and equal the
+    plain version, as the aligned inputs do."""
+    x, k_t = _rowwise_inputs(dev, 29)
+    x_off = torch.empty(x.numel() + 1, device=dev)[1:].view_as(x).copy_(x)
+    k_off = torch.empty(k_t.numel() + 1, device=dev)[1:].view_as(k_t).copy_(k_t)
+    want = K.rowwise_circular_conv_plain(x, k_t, 257, 160)
+    for xi, ki in ((x_off, k_t), (x, k_off), (x_off, k_off)):
+        assert xi.is_contiguous() and ki.is_contiguous()
+        got = K.rowwise_circular_conv(xi, ki, 257, 160)
+        torch.cuda.synchronize()
+        assert _rel(got, want) <= 1e-4
+
+
+def test_rowwise_conv_propagates_nan_as_plain(dev):
+    """One NaN sample reaches every output of each frame whose full-depth
+    window (with the circular halo) holds it, and no other."""
+    x, k_t = _rowwise_inputs(dev, 23)
+    x[1, 0, 3, 5] = float("nan")  # in the halo of the last frame, wrapped
+    got = K.rowwise_circular_conv(x, k_t, 257, 160)
+    want = K.rowwise_circular_conv_plain(x, k_t, 257, 160)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.isnan(got[1, 0, 3]).sum() == 2 * 160  # frames 0 and 9
+    assert torch.isnan(got).sum() == 2 * 160
+    finite = ~torch.isnan(want)
+    assert _rel(got[finite], want[finite]) <= 1e-4
+
+
 def test_jacobi_card_bound(dev):
     """The card serves up to 512 padded slots and names its bound past it."""
     with pytest.raises(ValueError, match="512"):

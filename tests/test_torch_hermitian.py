@@ -30,6 +30,7 @@ import torch
 
 from apvast_torch.ops import kernels as K
 from apvast_torch.ops.jdiag import jdiag_hermitian, jdiag_hermitian_batched
+from apvast_torch.ops.kernels.jacobi_eigh import _rank, padded_size, relabeled_pairs
 from apvast_torch.ops.kernels.jacobi_eigh_hermitian import embed, select_pairs
 from apvast_torch.ops.small_chol import cholesky_small, posdef_solve_small
 from apvast_tpu.ops.jdiag import jdiag_hermitian_batched as jax_jdiag_hermitian_batched
@@ -96,6 +97,56 @@ def test_hermitian_plain_matches_jax_and_oracle(rng, n, bz, sweeps):
     proj = np.einsum("bij,bkj->bjik", v, v.conj())
     jproj = np.einsum("bij,bkj->bjik", jv, jv.conj())
     assert np.abs(proj - jproj)[sep].max() <= 1e-4
+
+
+def _pair_block_rounds(h: torch.Tensor, sweeps: int):
+    """A float32 emulation of the card's pair-block form of K7: K4's
+    rotations on the real embedding, each round applied in place to the
+    physical slot pairs of the relabeled table (nothing moves), then K4's
+    ranking and the pair selection."""
+    n = h.shape[-1]
+    a = embed(h)
+    bz, n2, _ = a.shape
+    npad = padded_size(n2)
+    a = torch.nn.functional.pad(a, (0, npad - n2, 0, npad - n2))
+    v = torch.eye(npad).repeat(bz, 1, 1)
+    pairs = torch.from_numpy(relabeled_pairs(npad))
+    for _ in range(sweeps):
+        for p, q in zip(pairs[..., 0], pairs[..., 1]):  # round k's P and Q slots
+            app, aqq, apq = a[:, p, p], a[:, q, q], a[:, p, q]
+            theta = aqq - app
+            sg = torch.where(theta >= 0, 1.0, -1.0)
+            t = 2.0 * apq * sg / (theta.abs() + torch.sqrt(theta * theta + 4.0 * apq * apq) + 1e-30)
+            c = 1.0 / torch.sqrt(1.0 + t * t)
+            s = t * c
+            cc, sc = c[:, None, :], s[:, None, :]
+            for m in (a, v):  # columns: M R (advanced indexing copies)
+                mp, mq = m[:, :, p], m[:, :, q]
+                m[:, :, p], m[:, :, q] = mp * cc - mq * sc, mq * cc + mp * sc
+            cr, sr = c[..., None], s[..., None]
+            ap, aq = a[:, p, :], a[:, q, :]  # rows: R^T (A R)
+            a[:, p, :], a[:, q, :] = cr * ap - sr * aq, cr * aq + sr * ap
+    w = torch.diagonal(a, dim1=-2, dim2=-1)
+    perm = (_rank(w, n2)[:, :, None] == torch.arange(n2)).float()
+    return select_pairs(torch.einsum("bi,bic->bc", w, perm), (v @ perm)[:, :n2, :], n)
+
+
+@pytest.mark.parametrize("n,bz,sweeps", [(5, 3, 10), (8, 9, 8), (16, 4, 6)])
+def test_pair_block_rounds_match_plain_and_jax(rng, n, bz, sweeps):
+    """The in-place rounds along the relabeled pair table give the moving
+    schedule's eigenvalues: within 1e-5 of scale of the plain version (the
+    TPU wrapper's formula) and of the JAX kernel in interpret mode (the
+    tolerance of test_hermitian_plain_matches_jax_and_oracle)."""
+    a = _herm(rng, bz, n)
+    w, v = _pair_block_rounds(torch.from_numpy(a), sweeps)
+    wp, _ = _plain(a, sweeps)
+    jw, _ = jax.jit(lambda x: jax_jacobi_hermitian(x, sweeps=sweeps, interpret=True))(a)
+    scale = np.abs(np.linalg.eigvalsh(a.astype(np.complex128))).max()
+    assert np.abs(w.numpy() - wp).max() <= 1e-5 * scale
+    assert np.abs(w.numpy() - np.asarray(jw)).max() <= 1e-5 * scale
+    if sweeps >= 8:  # converged: unit eigenvectors
+        res, orth = _residual(a, w.numpy(), v.numpy())
+        assert res <= 5e-5 and orth <= 5e-5
 
 
 def test_hermitian_plain_serves_widths_past_64(rng):

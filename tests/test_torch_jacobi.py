@@ -24,7 +24,13 @@ import pytest
 import torch
 
 from apvast_torch.ops import kernels as K
-from apvast_torch.ops.kernels.jacobi_eigh import padded_size, tournament_schedule
+from apvast_torch.ops.kernels.jacobi_eigh import (
+    bank_order,
+    padded_size,
+    pair_table,
+    relabeled_pairs,
+    tournament_schedule,
+)
 from apvast_tpu.ops.pallas.jacobi_eigh import jacobi_eigh as jax_jacobi_eigh
 from apvast_tpu.ops.pallas.jacobi_eigh import tournament_schedule as jax_schedule
 
@@ -56,6 +62,41 @@ def _sign_aligned(v, ref):
 @pytest.mark.parametrize("n", [8, 16, 24, 40, 64, 128])
 def test_schedule_equals_jax(n):
     np.testing.assert_array_equal(tournament_schedule(n), jax_schedule(n))
+
+
+@pytest.mark.parametrize("npad", [8, 32, 64, 136])
+def test_relabeled_pair_table(npad):
+    """The table of K7's in-place rounds: round k pairs the physical slots
+    that the moving schedule's pair (2i, 2i+1) occupies, pos_{k+1} =
+    pos_k[src]; a sweep meets every index pair exactly once and brings pos
+    back to the identity; the packed table carries the slots and, at 64
+    slots, a load order whose first (and second) slots of a round lie on 32
+    distinct banks."""
+    src = tournament_schedule(npad)
+    pairs = relabeled_pairs(npad)
+    assert pairs.shape == (npad - 1, npad // 2, 2)
+    pos = np.arange(npad)
+    met = set()
+    for k in range(npad - 1):
+        np.testing.assert_array_equal(pairs[k], pos.reshape(-1, 2))
+        met.update((int(min(p, q)), int(max(p, q))) for p, q in pairs[k])
+        pos = pos[src]
+    np.testing.assert_array_equal(pos, np.arange(npad))
+    assert met == {(p, q) for p in range(npad) for q in range(p + 1, npad)}
+    order = bank_order(pairs)
+    if npad == 64:
+        for k in range(npad - 1):
+            first = pairs[k, np.arange(32), order[k]]
+            second = pairs[k, np.arange(32), 1 - order[k]]
+            assert len(set((first % 32).tolist())) == 32
+            assert len(set((second % 32).tolist())) == 32
+    else:
+        assert not order.any()
+    if npad <= 128:
+        packed = pair_table(npad, torch.device("cpu")).numpy()
+        np.testing.assert_array_equal(packed & 0xFF, pairs[..., 0])
+        np.testing.assert_array_equal(packed >> 8 & 0xFF, pairs[..., 1])
+        np.testing.assert_array_equal(packed >> 16, order)
 
 
 @pytest.mark.parametrize("n", [64, 22, 10])
