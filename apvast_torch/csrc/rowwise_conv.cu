@@ -37,7 +37,11 @@
 #include <atomic>
 #include <cstdint>
 
+#include "cp_async.cuh"
+
 namespace {
+
+using namespace cp_async;
 
 constexpr int kTile = 32;                  // rows and outputs of a warp's tile
 constexpr int kDepth = 32;                 // depth chunk
@@ -46,19 +50,6 @@ constexpr int kMaxWarps = 5;               // output tiles per block
 constexpr int kTileFloats = kTile * kStride;
 constexpr size_t kMaxSmem = 2 * (1 + kMaxWarps) * kTileFloats * sizeof(float);  // 55296 B
 constexpr int kMaxDevices = 64;
-
-__device__ __forceinline__ void copy16(float* dst, const float* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 16 : 0;  // 0: zero-fill
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void copy_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void copy_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // Stage depth chunk [u0, u0 + kDepth) of the row tile (xs, kTile rows) and
 // of the block's k_t rows (ks, warps x kTile rows). VEC: 16-byte cp.async

@@ -6,8 +6,9 @@ shared library with a plain C interface, and loaded with ``ctypes``:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o _build/<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is loaded from ``apvast_torch/_build``.
+The library name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt
+and an unchanged one is loaded from ``apvast_torch/_build``.
 :func:`build_all` starts one ``nvcc`` per source at once and waits for all;
 the first kernel call builds every kernel that way. Nothing here runs at
 import time: this module imports on a machine with no CUDA toolkit.
@@ -53,8 +54,11 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256()
+    for src in [f"{name}.cu", *sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))]:
+        with open(os.path.join(CSRC, src), "rb") as f:
+            h.update(f.read())
+    digest = hashlib.sha256(h.digest() + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return os.path.join(BUILD_DIR, f"{name}-{digest[:16]}.so")
 
 

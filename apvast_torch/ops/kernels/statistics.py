@@ -4,12 +4,16 @@ Kernel: ``apvast_torch/csrc/statistics.cu``, replacing
 ``apvast_tpu/ops/pallas/statistics.py::covariance_pallas`` and its two
 large-SJ variants: three VMEM tilings of one function on the TPU, one
 kernel for any SJ here (no ``sym_blocks`` or ``large_sj`` knob). Bound on
-the H100: operations (41.4 GFLOP of fp32 FMA for the symmetric Gram at the
-north-star shapes). One block per lower-triangle 64 x 64 tile pair of one
-path runs the mic and time sums inside, gathers its window rows straight
-from the buffers (no frame tensor in device memory) and writes the tile
-and its mirror; the diagonal blocks add the cross vector in the same
-launch. No sum crosses blocks.
+the H100: operations, 41.4 GFLOP for the symmetric Gram at the north-star
+shapes: 0.621 ms as fp32 FMA on the CUDA cores, 0.251 ms as the three TF32
+passes the kernel runs. One block per lower-triangle 64 x 64 tile pair of
+one path runs the mic and time sums inside, on the tensor cores in 3xTF32
+(``csrc/tf32x3.cuh``, about fp32 accuracy). It stages each operand tile as
+the few buffer slices its window rows share (the rows of one source are a
+Hankel slice), double-buffered by ``cp.async``, with each row's offset into
+them computed once. It writes the tile and its mirror, so R is exactly
+symmetric; the diagonal blocks add the cross vector in fp32 in the same
+launch. No sum crosses blocks, so results repeat run to run.
 """
 
 from __future__ import annotations

@@ -1,6 +1,8 @@
 """The port on a CUDA device: each kernel wrapper against its plain version
-at ragged shapes, its launch count, its input checks on the card, and the
-hop on the card (exact, production and 'invert' solver, the dense
+at ragged shapes, its launch count, its input checks on the card; K1 and
+K6 (3xTF32 on the tensor cores) against a float64 oracle, on views with a
+storage offset, and K6's exact symmetry and repeatability; and the hop on
+the card (exact, production and 'invert' solver, the dense
 statistics with K6, the truncated weighting with K8, and the
 frequency-domain engine with K7) against the same hop on the CPU.
 
@@ -12,10 +14,11 @@ Tolerances: kernel and plain version both sum in float32 and may order
 the sums differently (1e-4 of the output scale; K4 on warm-start-like
 inputs, where no rotation pair sits at theta ~ 0; K7 on what does not
 depend on the phase that rounding picks inside each doubled eigenvalue of
-its real embedding: eigenvalues, residual, orthonormality); hop outputs as in
-tests/test_torch_hop.py (statistics 1e-4, target feeds 1e-5, loudspeaker
-feeds 5e-2 of the signal scale), the production hop compared hop by hop
-from the card's state (tests/test_torch_tracking.py says why).
+its real embedding: eigenvalues, residual, orthonormality); K1 and K6
+against float64 within twice the plain float32 version's own error; hop
+outputs as in tests/test_torch_hop.py (statistics 1e-4, target feeds 1e-5,
+loudspeaker feeds 5e-2 of each hop's scale), the production hop compared
+hop by hop from the card's state (tests/test_torch_tracking.py says why).
 """
 
 import dataclasses
@@ -323,6 +326,107 @@ def test_rowwise_conv_propagates_nan_as_plain(dev):
     assert torch.isnan(got).sum() == 2 * 160
     finite = ~torch.isnan(want)
     assert _rel(got[finite], want[finite]) <= 1e-4
+
+
+# K1 and K6 run their products on the tensor cores in 3xTF32: the north-star
+# shapes and the ragged ones of test_kernel_matches_plain_on_the_card.
+_TF32X3_CASES = {
+    "k1 north star": ("streaming_conv", ((2, 4096), (2, 561, 2400)), 800),
+    "k1 ragged": ("streaming_conv", ((2, 300), (2, 37, 77)), 50),
+    "k6 north star": ("statistics", ((4, 17, 16, 999), (2, 17, 950)), 50),
+    "k6 ragged": ("statistics", ((4, 3, 4, 96), (2, 3, 89)), 8),
+    "k6 ragged sj 300": ("statistics", ((2, 2, 3, 200), (2, 2, 101)), 100),
+}
+
+
+def _tf32x3_inputs(dev, case, seed):
+    name, shapes, arg = _TF32X3_CASES[case]
+    g = torch.Generator().manual_seed(seed)
+    return name, [torch.randn(s, generator=g).to(dev) for s in shapes], arg
+
+
+@pytest.mark.parametrize("case", list(_TF32X3_CASES))
+def test_tf32x3_kernels_within_twice_plain_error_against_float64(dev, case):
+    """K1 and K6 against a float64 oracle (the plain version in float64 on
+    the card): per output, within 2x the plain float32 version's own error,
+    and within 1e-4 of the plain version's scale."""
+    name, args, arg = _tf32x3_inputs(dev, case, 41)
+    got = K.WRAPPERS[name](*args, arg)
+    want = _PLAIN[name](*args, arg)
+    oracle = _PLAIN[name](*(a.double() for a in args), arg)
+    torch.cuda.synchronize()
+    got, want, oracle = (x if isinstance(x, tuple) else (x,) for x in (got, want, oracle))
+    for x, w, o in zip(got, want, oracle):
+        assert _rel(x, w) <= 1e-4
+        assert _rel(x, o) <= 2 * _rel(w, o), (_rel(x, o), _rel(w, o))
+
+
+@pytest.mark.parametrize("name", ["streaming_conv", "statistics"])
+def test_tf32x3_kernels_on_offset_views_match_plain(dev, name):
+    """Contiguous views whose storage starts one float past a 16-byte
+    boundary (each input, then all) equal the plain version, as aligned
+    inputs do: no copy may assume an aligned start."""
+    case = "k1 ragged" if name == "streaming_conv" else "k6 ragged"
+    _, args, arg = _tf32x3_inputs(dev, case, 43)
+    want = _PLAIN[name](*args, arg)
+    want = want if isinstance(want, tuple) else (want,)
+    offset = [torch.empty(a.numel() + 1, device=dev)[1:].view_as(a).copy_(a) for a in args]
+    for views in ([offset[0], args[1]], [args[0], offset[1]], offset):
+        assert all(v.is_contiguous() for v in views)
+        got = K.WRAPPERS[name](*views, arg)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        for x, w in zip(got, want):
+            assert _rel(x, w) <= 1e-4
+
+
+@pytest.mark.parametrize("case", ["k6 north star", "k6 ragged", "k6 ragged sj 300"])
+def test_statistics_exactly_symmetric_and_repeatable(dev, case):
+    """K6's R equals its transpose bit for bit, and two launches on the
+    same inputs give the same bits (no atomics, no sum across blocks)."""
+    _, args, arg = _tf32x3_inputs(dev, case, 47)
+    r1, c1 = K.covariance(*args, arg)
+    r2, c2 = K.covariance(*args, arg)
+    torch.cuda.synchronize()
+    assert torch.equal(r1, r1.transpose(1, 2))
+    assert torch.equal(r1, r2) and torch.equal(c1, c2)
+
+
+def test_streaming_conv_propagates_nan_as_plain(dev):
+    """A NaN segment sample reaches the outputs whose window holds it, and
+    not those whose window ends just past it, which the last (ragged) tap
+    chunk stages too."""
+    _, (seg, kern), hop = _tf32x3_inputs(dev, "k1 ragged", 53)
+    hist, taps = seg.shape[1] - hop, kern.shape[2]
+    seg[1, hist - taps + 6] = float("nan")  # in the windows of outputs 0-5
+    got = K.streaming_conv(seg, kern, hop)
+    want = K.streaming_conv_plain(seg, kern, hop)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.isnan(got).sum() == 6 * kern.shape[1]
+    finite = ~torch.isnan(want)
+    assert _rel(got[finite], want[finite]) <= 1e-4
+
+
+def test_statistics_propagates_nan_as_plain(dev):
+    """A NaN buffer sample reaches R's rows and columns, and r's rows, of
+    the window rows that hold it, and no other: the newest sample lies in
+    one row's window, and past K in the last chunk the other rows of its
+    source stage it too; the oldest also lies in one row's window."""
+    _, (buf, tgt), j = _tf32x3_inputs(dev, "k6 ragged", 59)
+    buf[1, 2, 3, -1] = float("nan")  # row 3 J of path 1
+    buf[2, 0, 1, 0] = float("nan")  # row 2 J - 1 of path 2
+    r_mats, r_cross = K.covariance(buf, tgt, j)
+    want_r, want_c = K.covariance_plain(buf, tgt, j)
+    torch.cuda.synchronize()
+    sj = buf.shape[2] * j
+    for got, want in ((r_mats, want_r), (r_cross, want_c)):
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        finite = ~torch.isnan(want)
+        assert _rel(got[finite], want[finite]) <= 1e-4
+    assert torch.isnan(r_mats).sum() == 2 * (2 * sj - 1)
+    assert torch.isnan(r_cross[1, 3 * j]).all() and torch.isnan(r_cross[2, 2 * j - 1]).all()
+    assert torch.isnan(r_cross).sum() == 2 * 2
 
 
 def test_jacobi_card_bound(dev):
