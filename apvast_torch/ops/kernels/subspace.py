@@ -4,7 +4,11 @@ Kernel: ``apvast_torch/csrc/subspace.cu``, replacing
 ``apvast_tpu/ops/pallas/subspace.py::subspace_iterate_pallas``: ``iters``
 whitened power steps, each followed by the kernel's own CholeskyQR2, and
 the small Rayleigh-Ritz projection, in one cooperative launch per hop.
-Bound on the H100: operations (see the kernel's note).
+Bound on the H100: operations (see the kernel's note). The kernel factors
+and inverts each jittered Gram matrix (identity-padded to 32, 64 or 128)
+by :func:`~apvast_torch.ops.kernels.whiten.blocked_chol_inverse`'s
+algorithm (``csrc/chol_warp.cuh``), which gives the L^-1 of the plain
+version's Neumann doubling and Newton steps up to rounding.
 """
 
 from __future__ import annotations
@@ -16,6 +20,12 @@ from apvast_torch.ops.trisolve import clamped_cholesky, neumann_tri_inverse
 
 TILE_ROWS = 16  # output rows of a product tile in csrc/subspace.cu
 MAX_WIDTH = 112  # the kernel's small factorizations fit in shared memory up to this k
+
+
+def workspace_floats(bz: int, n: int, k: int) -> int:
+    """Floats of the kernel's workspace: three (bz, n, k) operands, the
+    (bz, ceil(n / 16), k, k) Gram partials and the (bz, k, k) Grams."""
+    return 3 * bz * n * k + bz * -(-n // TILE_ROWS) * k * k + bz * k * k
 
 
 def subspace_iterate_plain(
@@ -56,7 +66,8 @@ def subspace_iterate(
     Args:
         a: (bz, n, n) float32 bright covariances.
         li: (bz, n, n) float32 inverse Cholesky factors of the loaded dark
-            covariances (lower triangular).
+            covariances (lower triangular; the kernel does not read the
+            entries above the diagonal, the plain version multiplies them).
         q0: (bz, n, k) float32 warm-start subspace, k a multiple of 8
             (at most 112 on the card).
         iters: whitened power steps, each followed by CholeskyQR2.
@@ -83,9 +94,7 @@ def subspace_iterate(
     q = torch.empty_like(q0)
     small = torch.empty((bz, k, k), dtype=torch.float32, device=a.device)
     if bz and k:
-        tiles = -(-n // TILE_ROWS)
-        ws = torch.empty(3 * bz * n * k + bz * tiles * k * k + bz * k * k,
-                         dtype=torch.float32, device=a.device)
+        ws = torch.empty(workspace_floats(bz, n, k), dtype=torch.float32, device=a.device)
         _build.launch(
             "subspace", "subspace_iterate_launch",
             a, li, q0, q, small, ws, ws.numel(), bz, n, k, iters, float(jitter_rel),

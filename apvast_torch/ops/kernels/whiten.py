@@ -9,7 +9,9 @@ matrices with :func:`blocked_cholesky` (``whiten.py::blocked_cholesky``):
 identity padding to a multiple of 128, one panel launch per 128 columns (7
 at JL = 800), each panel solve refined once, and the trailing updates as
 ``torch.matmul``, as JAX leaves them to XLA. Bound on the H100: latency
-(see the kernel's note).
+(see the kernel's note). The panel is factored and inverted in 32-wide
+sub-panels by warps (``csrc/chol_warp.cuh``, shared with K9), whose torch
+form is :func:`blocked_chol_inverse`.
 
 K10b, :func:`chol_tri_inverse` (kernel ``apvast_torch/csrc/chol_tri_inverse.cu``,
 replacing ``whiten.py::chol_tri_inverse_pallas``), returns ``L^-1`` of a
@@ -27,23 +29,73 @@ from apvast_torch.ops.kernels import _build
 from apvast_torch.ops.trisolve import clamped_cholesky, neumann_tri_inverse
 
 PANEL = 128
-SUB = 32  # the sub-panel width of K10b's panel factorization
+SUB = 32  # the sub-panel width of K10a's and K10b's panel factorizations
 MAX_PADDED = 1024  # K10b's bound on n after padding, the JAX function's
 
 
-def chol_panel_plain(d: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's column algorithms in torch: :func:`clamped_cholesky`,
-    then forward substitution for the inverse. Shapes as
-    :func:`chol_panel`."""
-    bz, p, _ = d.shape
-    l = clamped_cholesky(d)
-    rhs = torch.eye(p, dtype=d.dtype, device=d.device).repeat(bz, 1, 1)
+def blocked_chol_inverse(d: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The arithmetic of ``csrc/chol_warp.cuh`` in torch: the lower Cholesky
+    factor L of a (bz, n, n) SPD batch (n = 32, 64 or 128; the lower
+    triangle is read) and X = L^-1, both with exact zeros above the
+    diagonal. 32-wide sub-panels: each is factored by the column algorithm
+    of :func:`clamped_cholesky` (pivot ``rsqrt(max(p, 1e-30))``) over all
+    the rows below it, the trailing lower triangle takes its outer product,
+    its diagonal block is inverted by forward substitution (each row's sum
+    times the reciprocal of its diagonal entry), and the merge
+    tree ``X21 = -X22 (L21 X11)`` (``whiten.py::_merge_tri``) joins the
+    diagonal inverses. K10a computes this on a panel, K9 on each padded
+    Gram matrix of its CholeskyQR2."""
+    bz, n, _ = d.shape
+    if n not in (SUB, 2 * SUB, 4 * SUB):
+        raise ValueError(f"blocked_chol_inverse takes n = 32, 64 or 128, got {n}")
+    a = torch.tril(d)
+    l = torch.zeros_like(d)
     x = torch.zeros_like(d)
-    for i in range(p):
-        xi = rhs[:, i, : i + 1] / l[:, i, i, None]
-        x[:, i, : i + 1] = xi
-        rhs[:, i + 1 :, : i + 1] -= l[:, i + 1 :, i, None] * xi[:, None, :]
+    for c0 in range(0, n, SUB):
+        c1 = c0 + SUB
+        for c in range(c0, c1):
+            col = a[:, c:, c] * torch.rsqrt(a[:, c, c].clamp_min(1e-30))[:, None]
+            l[:, c:, c] = col
+            a[:, c + 1 :, c + 1 : c1] -= col[:, 1:, None] * col[:, None, 1 : c1 - c]
+        if c1 < n:
+            strip = l[:, c1:, c0:c1]
+            a[:, c1:, c1:] -= torch.tril(strip @ strip.transpose(-1, -2))
+        diag = l[:, c0:c1, c0:c1]
+        for i in range(SUB):
+            rhs = torch.zeros_like(diag[:, i, : i + 1])
+            rhs[:, i] = 1.0
+            terms = diag[:, i, :i, None] * x[:, c0 : c0 + i, c0 : c0 + i + 1]
+            rhs -= torch.where(_lower(i, i + 1, d.device), terms, 0.0).sum(-2)
+            x[:, c0 + i, c0 : c0 + i + 1] = rhs * (1.0 / diag[:, i, i, None])
+    w = SUB
+    while w < n:
+        for lo in range(0, n, 2 * w):
+            mid, hi = lo + w, lo + 2 * w
+            t = _tri_matmul(l[:, mid:hi, lo:mid], x[:, lo:mid, lo:mid], lower_q=True)
+            x[:, mid:hi, lo:mid] = -_tri_matmul(x[:, mid:hi, mid:hi], t, lower_q=False)
+        w *= 2
     return l, x
+
+
+def _lower(rows: int, cols: int, device) -> torch.Tensor:
+    """The (rows, cols) mask row >= column."""
+    return torch.ones(rows, cols, dtype=torch.bool, device=device).tril()
+
+
+def _tri_matmul(p: torch.Tensor, q: torch.Tensor, lower_q: bool) -> torch.Tensor:
+    """p @ q over the nonzero range of its triangular operand only (q lower:
+    terms with l >= column; else p lower: l <= row), so that a non-finite
+    entry of the other operand meets none of its structural zeros."""
+    m = p.shape[-1]
+    mask = (_lower(m, q.shape[-1], p.device) if lower_q
+            else _lower(p.shape[-2], m, p.device))
+    terms = p[..., :, :, None] * q[..., None, :, :]  # (.., row, l, column)
+    keep = mask[None, :, :] if lower_q else mask[:, :, None]
+    return torch.where(keep, terms, 0.0).sum(-2)
+
+
+# K10a's plain version: the kernel's algorithm in torch.
+chol_panel_plain = blocked_chol_inverse
 
 
 def chol_panel(d: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -58,10 +58,12 @@ Phase 2  each kernel against its plain PyTorch version on the card, at the
          (2, 128) complex at 8 sweeps, eigenvalues to 1e-4 of scale and the
          eigenvector residual and orthonormality within 1.5x the plain
          version's. K1 and K6, whose products run on the tensor cores in
-         3xTF32, also against a float64 oracle (the plain version in float64
-         on the card) at every shape above: per output, max|kernel - oracle| /
-         max|oracle| within 2x the plain float32 version's own error against
-         it. Times
+         3xTF32, and K9 and K10a, whose factorizations and sums take another
+         order than their plain versions', also against a float64 oracle
+         (the plain version in float64 on the card) at every shape above
+         (K9 also at (3, 50, 8) with 1 iteration, (1, 40, 16) with none and
+         k = 112): per output, max|kernel - oracle| / max|oracle| within 2x
+         the plain float32 version's own error against it. Times
          by CUDA events after warm-up, with the 50 MB L2 flushed (a 64 MB
          read) before every launch; the bound is the larger of bytes over
          3.35 TB/s and fp32 operations over 67 TFLOP/s (H100 SXM published
@@ -196,8 +198,8 @@ HERM_RATIO = 1.5  # K7's residual and orthonormality against its plain version's
 # against a float64 oracle: rounding only.
 TOL_SAME_ROTATIONS = 1e-5
 TOL_ORACLE = 1e-5
-# K1 and K6 (3xTF32) against a float64 oracle: at most this times the plain
-# float32 version's own error against it.
+# K1, K6 (3xTF32), K9 and K10a against a float64 oracle: at most this times
+# the plain float32 version's own error against it.
 TOL_ORACLE_RATIO = 2.0
 # The truncated weighting's tap count: the JAX package's production value
 # (tools/device_breakdown.py, tests/test_weighting_conv.py).
@@ -468,12 +470,28 @@ def phase2(scene, dev, card):
     # K9: random SPD matrices and inverse Cholesky factors (lower triangular)
     # of the main path's shapes (2, 800, 800), a (2, 800, 64) warm start, 2
     # iterations (production_overrides()' subspace_iters).
+    # li is its lower triangle: the kernel reads no other (the plain version
+    # multiplies all of it). Ragged: the unit tests' shapes, iterations 1
+    # and 0, and the widest width the kernel takes (k = 112).
+    # (The three added shapes draw from their own generator, so the inputs
+    # of every other check are as before.)
     jl, k9 = cfg.jl, min(v + 14, cfg.jl)
+
+    def k9_inputs(b, n, k, gen):
+        x = torch.randn((2, b, n, n), generator=gen)
+        a, d = (y @ y.transpose(1, 2) / n + torch.eye(n) for y in x)
+        li = torch.tril(torch.linalg.inv(torch.linalg.cholesky(d)))
+        return a.to(dev), li.to(dev).contiguous(), torch.randn((b, n, k), generator=gen).to(dev)
+
     a9 = spd(2, jl)
-    li9 = torch.linalg.inv(torch.linalg.cholesky(spd(2, jl))).contiguous()
+    li9 = torch.tril(torch.linalg.inv(torch.linalg.cholesky(spd(2, jl)))).contiguous()
     q9 = rnd(2, jl, k9)
-    r200 = (spd(2, 200), torch.linalg.inv(torch.linalg.cholesky(spd(2, 200))).contiguous(),
+    r200 = (spd(2, 200),
+            torch.tril(torch.linalg.inv(torch.linalg.cholesky(spd(2, 200)))).contiguous(),
             rnd(2, 200, 24))
+    g9 = torch.Generator().manual_seed(SEED + 9)
+    r50, r40, r112 = (k9_inputs(3, 50, 8, g9), k9_inputs(1, 40, 16, g9),
+                      k9_inputs(2, 200, 112, g9))
 
     # K10b: random SPD matrices of the main path's shape (2, JL, JL), which
     # pads to 896, of a padded (1, 200, 200) and of the largest padded size.
@@ -588,6 +606,7 @@ def phase2(scene, dev, card):
             # triangular inverse; the panel read once, both factors written.
             flops=2 * 2 * 128**3 // 3,
             bytes=4 * 3 * 2 * 128 * 128,
+            oracle=[("north star", K.chol_panel, K.chol_panel_plain, (panel,))],
             ragged=[
                 (K.chol_panel, K.chol_panel_plain, (spd(1, 128),)),
                 (K.chol_panel, K.chol_panel_plain, (spd(3, 128),)),
@@ -609,9 +628,12 @@ def phase2(scene, dev, card):
             # and triangular L^-T products; a, li read and q0, q written once.
             flops=2 * (3 * 4 * jl * jl * k9 + 9 * jl * k9 * k9),
             bytes=4 * 2 * (2 * jl * jl + 2 * jl * k9),
+            oracle=[("north star", lambda a, b, c: K.subspace_iterate(a, b, c, 2),
+                     lambda a, b, c: K.subspace_iterate_plain(a, b, c, 2), (a9, li9, q9))],
             ragged=[
-                (lambda a, b, c: K.subspace_iterate(a, b, c, 2),
-                 lambda a, b, c: K.subspace_iterate_plain(a, b, c, 2), r200),
+                (lambda a, b, c, it=it: K.subspace_iterate(a, b, c, it),
+                 lambda a, b, c, it=it: K.subspace_iterate_plain(a, b, c, it), args)
+                for it, args in ((2, r200), (1, r50), (0, r40), (2, r112))
             ],
         ),
         dict(
