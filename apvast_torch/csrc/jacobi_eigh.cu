@@ -23,8 +23,13 @@
 // sweeps the work is 2 * 63 dependent rounds per matrix; bytes ~ 3 * 2 *
 // 64^2 * 4 B = 98 KB (0.03 us at 3.35 TB/s) and operations ~ 2 * 2 * 63 *
 // 9 * 64^2 = 9.3 MFLOP (0.14 us at 67 TFLOP/s), while every round waits on
-// the one before it.
-// Design: one thread block per matrix (grid = batch); A and V (npad x npad,
+// the one before it, and the batch of 2 keeps 2 of the 132 SMs busy.
+// Up to 64 padded slots K4 runs the pair-block form (jacobi_pair_kernel,
+// below): A rotated in place along a relabeled pair table, V's rows in
+// registers, one block barrier a round, the same rotations and the same
+// bits as the template form that follows, which serves wider matrices and
+// stays reachable at every width (jacobi_eigh_template_launch).
+// The template form: one thread block per matrix (grid = batch); A and V (npad x npad,
 // zero-padded, V = I) stay in shared memory for all sweeps. Each thread
 // owns a fixed set of entries (c1, c2); the schedule is fixed, so the
 // slots it gathers from (r1, r2 and their partners) are computed once,
@@ -65,17 +70,33 @@
 // against the previous, uncorrected column. Bound: latency again. At the FD
 // shape (1602, 16, 16) -> 32 slots, 6 sweeps: 186 dependent rounds per
 // pencil, ~2.7 GFLOP in all (0.04 ms at 67 TFLOP/s) against ~6.6 MB of
-// input and output (0.002 ms). Up to 64 slots K7 runs the pair-block form
-// (hermitian_pair_kernel: a few warps a pencil, A rotated in place along a
-// relabeled pair table, V's rows in registers); K4's template form serves
-// wider pencils. (The first design ran K4's double-buffered rounds at every
-// width, 256 threads a pencil at 32 slots, each round's rotations on 16 of
-// them between two block barriers: PERF.md, section 6.)
+// input and output (0.002 ms). Up to 64 slots K7 runs the HERM pair-block
+// form (jacobi_pair_kernel: a few warps a pencil, two barriers a round);
+// K4's template form serves wider pencils. (The first designs ran K4's
+// double-buffered rounds, each round's rotations on np/2 threads between
+// two block barriers and every entry gathered from six places: PERF.md,
+// section 6.)
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include <atomic>
+
+#ifndef STAGE_STAMP
+#define STAGE_STAMP(kind)  // timer stamps: only tools/k2_k4_stages.py's build has them
+#define STAGE_STAMP_AT(kind, thread, slot)  // likewise, by another thread of block 0
+#endif
+
+// K4's warp count at 64 slots and its round form, chosen on the card among
+// 4-16 warps, pipelined (at least 5 warps) or with two barriers a round
+// (PERF.md, section 6; tools/k2_k4_stages.py builds the others with -D).
+#ifndef K4_PAIR_WARPS
+#define K4_PAIR_WARPS 16
+#endif
+#ifndef K4_PIPELINED
+#define K4_PIPELINED 1
+#endif
+
 
 namespace {
 
@@ -155,6 +176,7 @@ __device__ void rank_slots(const float* A, int* rank, int* cnt, int* first, int 
   for (int i = tid; i < np; i += nt) {
     const float ki = i < n ? A[i * np + i] : INFINITY;
     int r = 0;
+#pragma unroll 16
     for (int j = 0; j < np; ++j) {
       const float kj = j < n ? A[j * np + j] : INFINITY;
       r += (kj < ki) || (kj == ki && j < i);
@@ -167,10 +189,57 @@ __device__ void rank_slots(const float* A, int* rank, int* cnt, int* first, int 
   }
 }
 
+// K4's epilogue after the ranking: w (n) ascending and v (n x n) of one
+// matrix. Output column c gathers the slots of rank c (the one-hot
+// contraction of the TPU wrapper: a sum when NaNs collide ranks, 0 when
+// none). As in that contraction, where 0 x NaN is NaN, every w is NaN when
+// a diagonal slot is not finite, and every v of row r when a slot of V's
+// row r is not; `flag` (n ints) holds the rows' findings. V's rows are ldv
+// floats apart.
+__device__ void real_outputs(const float* A, const float* V, int ldv, const int* rank,
+                             const int* cnt, const int* first, int* flag, int n, int np,
+                             int tid, int nt,
+                             float* w_out, float* v_out) {
+  for (int r = tid; r < n; r += nt) {
+    bool bad = false;
+#pragma unroll 16
+    for (int i = 0; i < np; ++i) bad |= !isfinite(V[r * ldv + i]);
+    flag[r] = bad;
+  }
+  for (int c = tid; c < n; c += nt) {
+    bool bad = false;
+#pragma unroll 16
+    for (int i = 0; i < np; ++i) bad |= !isfinite(A[i * (np + 1)]);
+    float s = 0.f;
+    if (cnt[c] == 1) {
+      s = A[first[c] * (np + 1)];
+    } else if (cnt[c] > 1) {
+      for (int i = 0; i < np; ++i)
+        if (rank[i] == c) s += A[i * (np + 1)];
+    }
+    w_out[c] = bad ? NAN : s;
+  }
+  __syncthreads();
+  for (int e = tid; e < n * n; e += nt) {
+    const int r = e / n, c = e % n;
+    float s = 0.f;
+    if (flag[r]) {
+      s = NAN;
+    } else if (cnt[c] == 1) {
+      s = V[r * ldv + first[c]];
+    } else if (cnt[c] > 1) {
+      for (int i = 0; i < np; ++i)
+        if (rank[i] == c) s += V[r * ldv + i];
+    }
+    v_out[e] = s;
+  }
+}
+
 // The Hermitian epilogue (K7) after the ranking: w (n) and q (n x n
 // complex, interleaved) of one pencil from the 2n real slots. S (2n x 2n,
-// row stride np) receives the ranked columns of V; w2 the ranked diagonal.
-__device__ void hermitian_pairs(const float* A, const float* V, const int* rank,
+// row stride np) receives the ranked columns of V (row stride ldv); w2 the
+// ranked diagonal.
+__device__ void hermitian_pairs(const float* A, const float* V, int ldv, const int* rank,
                                 const int* cnt, const int* first, float* S, float* w2,
                                 int* dup, float* ofs, int n, int np, int tid, int nt,
                                 float* w_out, float* q_out) {
@@ -190,10 +259,10 @@ __device__ void hermitian_pairs(const float* A, const float* V, const int* rank,
     const int r = e / nr, c = e % nr;
     float s = 0.f;
     if (cnt[c] == 1) {
-      s = V[r * np + first[c]];
+      s = V[r * ldv + first[c]];
     } else if (cnt[c] > 1) {
       for (int i = 0; i < np; ++i)
-        if (rank[i] == c) s += V[r * np + i];
+        if (rank[i] == c) s += V[r * ldv + i];
     }
     S[r * np + c] = s;
   }
@@ -374,35 +443,14 @@ jacobi_eigh_kernel(const float* __restrict__ a, const int* __restrict__ src_g,
     int* dup = first + np;
     float* w2 = reinterpret_cast<float*>(dup + np);
     float* ofs = w2 + np;  // (o_re, o_im, clamped norm) per column
-    hermitian_pairs(A, V, rank, cnt, first, DOUBLE ? A2 : A, w2, dup, ofs, n_in, np,
+    hermitian_pairs(A, V, np, rank, cnt, first, DOUBLE ? A2 : A, w2, dup, ofs, n_in, np,
                     tid, nt, w_out + (size_t)b * n_in,
                     v_out + (size_t)b * n_in * n_in * 2);
     return;
   }
-  // Output column c gathers the slots of rank c (the one-hot contraction
-  // of the TPU wrapper: a sum when NaNs collide ranks, 0 when none).
-  for (int c = tid; c < n; c += nt) {
-    float s = 0.f;
-    if (cnt[c] == 1) {
-      s = A[first[c] * (np + 1)];
-    } else if (cnt[c] > 1) {
-      for (int i = 0; i < np; ++i)
-        if (rank[i] == c) s += A[i * (np + 1)];
-    }
-    w_out[(size_t)b * n + c] = s;
-  }
-  float* vb = v_out + (size_t)b * n * n;
-  for (int e = tid; e < n * n; e += nt) {
-    const int r = e / n, c = e % n;
-    float s = 0.f;
-    if (cnt[c] == 1) {
-      s = V[r * np + first[c]];
-    } else if (cnt[c] > 1) {
-      for (int i = 0; i < np; ++i)
-        if (rank[i] == c) s += V[r * np + i];
-    }
-    vb[e] = s;
-  }
+  // The schedule is done with: src holds real_outputs' row flags.
+  real_outputs(A, V, np, rank, cnt, first, src, n, np, tid, nt, w_out + (size_t)b * n,
+               v_out + (size_t)b * n * n);
 }
 
 template <int PER, bool DOUBLE, bool HERM, bool GLOBAL = false, int THREADS = kMaxThreads>
@@ -445,9 +493,10 @@ int dispatch(const float* a, const int* src, float* w, float* v, float* work, in
                                      stream);
 }
 
-// K7's pair-block form, up to kPairSlots slots: the same rotations in the
-// same order as K4's template form (jacobi_eigh_kernel, HERM), with the
-// same products and contractions, without moving A. A pure permutation is
+// The pair-block form, up to kPairSlots slots, of K4 (real input) and K7
+// (HERM: complex input on its real embedding): the same rotations in the
+// same order as K4's template form (jacobi_eigh_kernel), with the same
+// products and contractions, without moving A. A pure permutation is
 // exact, so instead of writing P^T (R^T A R) P into a second buffer every
 // round rotates, in place, the physical slots that hold the round's pairs,
 // (pos_k(2i), pos_k(2i+1)) with pos_{k+1}(c) = pos_k(src[c]); after the
@@ -457,15 +506,36 @@ int dispatch(const float* a, const int* src, float* w, float* v, float* work, in
 // P | Q << 8 | swap << 16, where swap picks which of the pair's two
 // columns a thread loads first, so that at 64 slots the 32 columns of one
 // warp-wide load lie on 32 distinct banks (at 32 slots the row parity does
-// it). One block of WARPS warps per pencil: the np/2 rotations of a round
-// are computed by np/2 threads into cs; then each thread rotates whole
-// 2 x 2 pair blocks of A in shared memory (rows {P_i, Q_i} x columns
-// {P_j, Q_j}: every value loaded and stored once a round, a batch of
-// blocks loaded before any is stored), and the first np threads each
-// rotate one row of V, held in registers in the moving schedule's order
-// (the column moves are compile-time register moves). The blocks partition
-// A, so a round takes two pencil barriers and no second buffer. ptxas, and
-// the timings of the warp counts and of the first design: PERF.md, section 6.
+// it). One block of WARPS warps per matrix. Threads rotate whole 2 x 2
+// pair blocks of A in shared memory (rows {P_i, Q_i} x columns {P_j, Q_j}:
+// every value loaded and stored once a round, a batch of blocks loaded
+// before any is stored), and np threads each rotate one row of V, held in
+// registers in the moving schedule's order (the column moves are
+// compile-time register moves), and store them at a stride of np + 1 at
+// the end (a warp's rows on 32 banks). A round's pair i is one 16-byte load
+// for the blocks' rows (pair_info: c, s and the byte offsets of rows P_i
+// and Q_i). Two round forms:
+//  - two barriers (PIPE false; K7): np/2 threads compute the round's
+//    rotations into cs; a barrier; the blocks, which partition A, are
+//    rotated in place; a barrier. The rotations' chain of IEEE square
+//    roots and divisions (~0.3 us) and the updates run one after the
+//    other.
+//  - pipelined (PIPE true; K4): warp 0 computes the next round's
+//    rotations while the other warps update this round. The next round's
+//    pairs read their three entries from 2 x 2 blocks of this round: the
+//    diagonal blocks and up to np/2 others (ops/kernels/jacobi_eigh.py::
+//    export_table). One or two producer warps rotate those first and
+//    arrive at a named barrier, on which warp 0 waits; then it reads the
+//    entries (no other warp writes them) and writes the next round's
+//    rotations into the second of two buffers, while V's warps rotate V
+//    and the others the rest of A (skipping the export blocks, by a bit
+//    mask a round). One block barrier ends the round; each role runs its
+//    own loop over the rounds, so that V's rows take registers in V's
+//    threads alone.
+// The real form's prologue reads the input matrix and its epilogue is K4's
+// ranking and output gather (real_outputs); the HERM form builds the
+// embedding and ends with hermitian_pairs. ptxas, and the timings of the
+// warp counts, the round forms and the first designs: PERF.md, section 6.
 constexpr int kPairSlots = 64;
 
 template <int WARPS>
@@ -475,6 +545,15 @@ __device__ __forceinline__ void pencil_sync() {
   } else {
     __syncthreads();
   }
+}
+
+// Named barrier 1 (barrier 0 is __syncthreads) of n threads, whole warps:
+// the arriving warps go on, the syncing ones wait for all n.
+__device__ __forceinline__ void named_sync(int n) {
+  asm volatile("bar.sync 1, %0;" ::"r"(n) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int n) {
+  asm volatile("bar.arrive 1, %0;" ::"r"(n) : "memory");
 }
 
 __device__ __forceinline__ int slot_p(int e) { return e & 0xff; }
@@ -493,53 +572,124 @@ __device__ __forceinline__ void load_order(int e, int parity, float s, int& firs
   o = swp ? s : -s;
 }
 
-// One round's update of A in place: the pair blocks (i, j), rows {P_i, Q_i}
-// x columns {P_j, Q_j}, t = i * np/2 + j = tid + x KT of this thread. The
-// blocks partition A, so each batch of BATCH blocks is loaded whole before
-// any of it is stored: its loads are in flight together.
-template <int NP, int KT, int BATCH>
-__device__ __forceinline__ void rotate_blocks(float* A, const int* pr, const float2* cs,
-                                              int tid) {
+// A round's pair i for the blocks' rows: (c, s) and the byte offsets in A
+// of its rows P and Q (written with the rotations), one 16-byte load.
+__device__ __forceinline__ float4 pair_info(float2 g, int p, int q, int np) {
+  return make_float4(g.x, g.y, __int_as_float(p * np * 4), __int_as_float(q * np * 4));
+}
+
+__device__ __forceinline__ float ld(const float* A, int bytes) {
+  return *reinterpret_cast<const float*>(reinterpret_cast<const char*>(A) + bytes);
+}
+__device__ __forceinline__ void st(float* A, int bytes, float x) {
+  *reinterpret_cast<float*>(reinterpret_cast<char*>(A) + bytes) = x;
+}
+
+// One 2 x 2 pair block (i, j), t = i * np/2 + j, of a round: rows
+// {P_i, Q_i} x columns {P_j, Q_j} (byte offsets a[row][column] in load
+// order), loaded, then rotated and stored.
+struct PairBlock {
+  float v[4], o, c, ci, si;
+  int a[4];
+};
+
+// The column pair j of a thread's blocks: the byte offsets of its slots in
+// load order at row parity 0 and the signed sine; parity 1 swaps the slots
+// and the sign.
+struct ColPair {
+  int c0, c1;
+  float o, c;
+};
+
+__device__ __forceinline__ ColPair col_pair(const int* pr, const float2* cs, int j) {
+  ColPair q;
+  const float2 gj = cs[j];
+  load_order(pr[j], 0, gj.y, q.c0, q.c1, q.o);
+  q.c0 *= 4;
+  q.c1 *= 4;
+  q.c = gj.x;
+  return q;
+}
+
+__device__ __forceinline__ PairBlock load_block(const float* A, const float4* info, int i,
+                                                const ColPair& q) {
+  PairBlock k;
+  const float4 pi = info[i];
+  const int r0 = __float_as_int(pi.z), r1 = __float_as_int(pi.w);
+  const bool odd = i & 1;
+  const int c0 = odd ? q.c1 : q.c0, c1 = odd ? q.c0 : q.c1;
+  k.o = odd ? -q.o : q.o;
+  k.c = q.c;
+  k.ci = pi.x;
+  k.si = pi.y;
+  k.a[0] = r0 + c0;
+  k.a[1] = r0 + c1;
+  k.a[2] = r1 + c0;
+  k.a[3] = r1 + c1;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) k.v[e] = ld(A, k.a[e]);
+  return k;
+}
+
+template <int NP>
+__device__ __forceinline__ PairBlock load_block(const float* A, const int* pr, const float2* cs,
+                                                const float4* info, int t) {
+  return load_block(A, info, t / (NP / 2), col_pair(pr, cs, t % (NP / 2)));
+}
+
+__device__ __forceinline__ void store_block(float* A, const PairBlock& k) {
+  // Columns: A R.
+  const float m0 = __fmaf_rn(k.v[0], k.c, __fmul_rn(k.v[1], k.o));
+  const float m1 = __fmaf_rn(k.v[1], k.c, __fmul_rn(k.v[0], -k.o));
+  const float q0 = __fmaf_rn(k.v[2], k.c, __fmul_rn(k.v[3], k.o));
+  const float q1 = __fmaf_rn(k.v[3], k.c, __fmul_rn(k.v[2], -k.o));
+  // Rows: P <- c (AR)[P] - s (AR)[Q], Q <- c (AR)[Q] + s (AR)[P].
+  st(A, k.a[0], __fmaf_rn(k.ci, m0, __fmul_rn(-k.si, q0)));
+  st(A, k.a[1], __fmaf_rn(k.ci, m1, __fmul_rn(-k.si, q1)));
+  st(A, k.a[2], __fmaf_rn(k.ci, q0, __fmul_rn(k.si, m0)));
+  st(A, k.a[3], __fmaf_rn(k.ci, q1, __fmul_rn(k.si, m1)));
+}
+
+// One round's update of A in place: the pair blocks t = ut + x KT of this
+// thread, but those whose bit is set in `skip` (MASKED). Where KT is a
+// multiple of np/2 every block of the thread has the same column pair,
+// loaded once. The blocks partition A, so each batch of BATCH blocks is
+// loaded whole before any of it is stored, and loaded without branches
+// (a block past the end, or skipped, is read from `idle`, an np x np area
+// that no thread writes during the rounds, and not stored): the pair-table
+// loads, the address arithmetic and the loads of all of the batch's blocks
+// are in flight together.
+template <int NP, int KT, int BATCH, bool MASKED>
+__device__ __forceinline__ void rotate_blocks(float* A, const float* idle, const int* pr,
+                                              const float2* cs, const float4* info,
+                                              const int* skip, int ut) {
   constexpr int kHalf = NP / 2, kBlocks = kHalf * kHalf;
   constexpr int kPer = (kBlocks + KT - 1) / KT;
+  constexpr bool kOneColumn = KT % kHalf == 0;
+  ColPair q{};
+  if constexpr (kOneColumn) q = col_pair(pr, cs, ut % kHalf);
 #pragma unroll
   for (int x0 = 0; x0 < kPer; x0 += BATCH) {
-    float v[BATCH][4], o[BATCH];
-    float2 gi[BATCH], gj[BATCH];
-    int c0[BATCH], c1[BATCH], r0[BATCH], r1[BATCH];
-    bool ok[BATCH];
+    constexpr int kB = BATCH;
+    PairBlock k[kB];
+    bool ok[kB];
 #pragma unroll
-    for (int b = 0; b < BATCH; ++b) {
-      const int t = tid + (x0 + b) * KT;
-      ok[b] = x0 + b < kPer && (kBlocks % KT == 0 || t < kBlocks);
-      if (!ok[b]) continue;
-      const int i = t / kHalf, j = t % kHalf, ei = pr[i];
-      gi[b] = cs[i];
-      gj[b] = cs[j];
-      load_order(pr[j], i, gj[b].y, c0[b], c1[b], o[b]);
-      r0[b] = slot_p(ei) * NP;
-      r1[b] = slot_q(ei) * NP;
-      v[b][0] = A[r0[b] + c0[b]];
-      v[b][1] = A[r0[b] + c1[b]];
-      v[b][2] = A[r1[b] + c0[b]];
-      v[b][3] = A[r1[b] + c1[b]];
+    for (int b = 0; b < kB; ++b) {
+      if (x0 + b >= kPer) continue;
+      const int t = ut + (x0 + b) * KT;
+      ok[b] = kBlocks % KT == 0 || t < kBlocks;
+      const int tv = ok[b] ? t : 0;
+      if (MASKED) ok[b] = ok[b] && !((skip[tv >> 5] >> (tv & 31)) & 1);
+      const float* src = ok[b] ? A : idle;
+      if constexpr (kOneColumn) {
+        k[b] = load_block(src, info, tv / kHalf, q);
+      } else {
+        k[b] = load_block<NP>(src, pr, cs, info, tv);
+      }
     }
 #pragma unroll
-    for (int b = 0; b < BATCH; ++b) {
-      if (!ok[b]) continue;
-      // Columns: A R.
-      const float c = gj[b].x;
-      const float m0 = __fmaf_rn(v[b][0], c, __fmul_rn(v[b][1], o[b]));
-      const float m1 = __fmaf_rn(v[b][1], c, __fmul_rn(v[b][0], -o[b]));
-      const float q0 = __fmaf_rn(v[b][2], c, __fmul_rn(v[b][3], o[b]));
-      const float q1 = __fmaf_rn(v[b][3], c, __fmul_rn(v[b][2], -o[b]));
-      // Rows: P <- c (AR)[P] - s (AR)[Q], Q <- c (AR)[Q] + s (AR)[P].
-      const float ci = gi[b].x, si = gi[b].y;
-      A[r0[b] + c0[b]] = __fmaf_rn(ci, m0, __fmul_rn(-si, q0));
-      A[r0[b] + c1[b]] = __fmaf_rn(ci, m1, __fmul_rn(-si, q1));
-      A[r1[b] + c0[b]] = __fmaf_rn(ci, q0, __fmul_rn(si, m0));
-      A[r1[b] + c1[b]] = __fmaf_rn(ci, q1, __fmul_rn(si, m1));
-    }
+    for (int b = 0; b < kB; ++b)
+      if (x0 + b < kPer && ok[b]) store_block(A, k[b]);
   }
 }
 
@@ -565,122 +715,319 @@ template <int NP>
 __device__ __forceinline__ void rotate_row(float (&v)[NP], const float2* cs) {
   float t[NP];
 #pragma unroll
-  for (int i = 0; i < NP / 2; ++i) {
-    const float2 g = cs[i];
+  for (int i = 0; i < NP / 2; i += 2) {  // two pairs' (c, s) a load (NP / 2 is even)
+    const float4 g = reinterpret_cast<const float4*>(cs)[i / 2];
     t[2 * i] = __fmaf_rn(v[2 * i], g.x, __fmul_rn(v[2 * i + 1], -g.y));
     t[2 * i + 1] = __fmaf_rn(v[2 * i + 1], g.x, __fmul_rn(v[2 * i], g.y));
+    t[2 * i + 2] = __fmaf_rn(v[2 * i + 2], g.z, __fmul_rn(v[2 * i + 3], -g.w));
+    t[2 * i + 3] = __fmaf_rn(v[2 * i + 3], g.z, __fmul_rn(v[2 * i + 2], g.w));
   }
 #pragma unroll
   for (int c = 0; c < NP; ++c) v[c] = t[tournament_src(NP, c)];
 }
 
-template <int NP, int WARPS>
+// dst[0, count) = src[0, count), 16 bytes a load where both start on 16
+// bytes (the tables the host builds, into 16-byte aligned shared memory).
+__device__ __forceinline__ void copy_ints(int* dst, const int* __restrict__ src, int count,
+                                          int tid, int nt) {
+  int head = 0;
+  if ((reinterpret_cast<size_t>(src) & 15) == 0 && (reinterpret_cast<size_t>(dst) & 15) == 0) {
+    head = count & ~3;
+    for (int i = tid; i < head / 4; i += nt)
+      reinterpret_cast<int4*>(dst)[i] = reinterpret_cast<const int4*>(src)[i];
+  }
+  for (int i = head + tid; i < count; i += nt) dst[i] = src[i];
+}
+
+// Per round of the pipelined form: a skip bit a pair block, then the
+// off-diagonal blocks that hold the next round's A[P, Q] (-1: none).
+template <int NP>
+__host__ __device__ constexpr int export_ints() {
+  return ((NP / 2) * (NP / 2) + 31) / 32 + NP / 2;
+}
+
+// Shared memory of the pair-block form: A, V, the rotations' pair infos and
+// (c, s) (two sets of each when pipelined), the pair table, the export
+// table (pipelined), rank / cnt / first / dup, w2 and 3 floats a column.
+template <int NP, bool PIPE>
+constexpr size_t pair_smem() {
+  return (NP * NP + NP * (NP + 1)) * sizeof(float) +
+         (PIPE ? 2 : 1) * (NP / 2) * (sizeof(float4) + sizeof(float2)) +
+         (NP - 1) * (NP / 2) * sizeof(int) +
+         (PIPE ? (NP - 1) * export_ints<NP>() : 0) * sizeof(int) + 4 * NP * sizeof(int) +
+         (NP + 3 * NP / 2) * sizeof(float);
+}
+
+template <int NP, int WARPS, bool HERM, bool PIPE>
 __global__ void __launch_bounds__(WARPS * 32)
-hermitian_pair_kernel(const float* __restrict__ h, const int* __restrict__ pairs_g,
-                      float* __restrict__ w_out, float* __restrict__ q_out, int n_in,
-                      int sweeps) {
+jacobi_pair_kernel(const float* __restrict__ in, const int* __restrict__ pairs_g,
+                   const int* __restrict__ exports_g, float* __restrict__ w_out,
+                   float* __restrict__ v_out, int n_in, int sweeps) {
   constexpr int kHalf = NP / 2, kT = WARPS * 32, kRounds = NP - 1;
+  constexpr int kBlocks = kHalf * kHalf, kWords = (kBlocks + 31) / 32, kExp = export_ints<NP>();
+  // The threads' roles. K7 (two barriers): V's rows on the first np
+  // threads, the blocks on all. K4, two barriers: V's rows on the first
+  // warps, the blocks on the others. K4 pipelined: warp 0 computes the next
+  // round's rotations, the next warps hold V's rows, and the blocks are on
+  // the warps after them, the first of which (the producers) update the
+  // export blocks first.
+  constexpr int kVWarps = (NP + 31) / 32, kProducers = (NP + 31) / 32;
+  constexpr int kABase = HERM ? 0 : 32 * kVWarps;
+  constexpr int kAT = PIPE ? kT - 32 - 32 * kVWarps : kT - kABase;
   static_assert(kT >= NP, "a thread for every row of V");
+  static_assert(kAT >= 32 * (PIPE ? kProducers : 1), "warps for the blocks");
+  static_assert(!PIPE || (!HERM && WARPS > kVWarps + kProducers),
+                "warps for the rotations, V's rows and the producers");
   extern __shared__ __align__(16) float smem[];
   float* A = smem;
+  // V's rows at a stride of np + 1 floats: a warp's threads, which hold a
+  // row each, store and scan them on 32 banks.
+  constexpr int kLdv = NP + 1;
   float* V = A + NP * NP;
-  float2* cs = reinterpret_cast<float2*>(V + NP * NP);
-  int* pairs = reinterpret_cast<int*>(cs + kHalf);
-  int* rank = pairs + kRounds * kHalf;
+  float4* info = reinterpret_cast<float4*>(V + NP * kLdv);  // pair_info of each pair
+  float2* cs = reinterpret_cast<float2*>(info + (PIPE ? 2 : 1) * kHalf);
+  int* pairs = reinterpret_cast<int*>(cs + (PIPE ? 2 : 1) * kHalf);
+  int* exports = pairs + kRounds * kHalf;
+  int* rank = exports + (PIPE ? kRounds * kExp : 0);
   int* cnt = rank + NP;
   int* first = cnt + NP;
   int* dup = first + NP;
   float* w2 = reinterpret_cast<float*>(dup + NP);
   float* ofs = w2 + NP;  // (o_re, o_im, clamped norm) per column
 
+  STAGE_STAMP(0);
   const int b = blockIdx.x, tid = threadIdx.x;
-  const int n = 2 * n_in;
-  // T = [[X, -Y], [Y, X]] from H = X + iY, as in jacobi_eigh_kernel (HERM).
-  const float2* hb = reinterpret_cast<const float2*>(h) + (size_t)b * n_in * n_in;
-  for (int e = tid; e < NP * NP; e += kT) {
-    const int r = e / NP, c = e % NP;
-    float t = 0.f;
-    if (r < n && c < n) {
-      const bool top = r < n_in, left = c < n_in;
-      const float2 z = hb[(top ? r : r - n_in) * n_in + (left ? c : c - n_in)];
-      t = top == left ? z.x : (top ? -z.y : z.y);
-    }
-    A[e] = t;
+  const int n = HERM ? 2 * n_in : n_in;  // real slots in use
+  const int warp = tid >> 5, lane = tid & 31;
+  // This thread's row of V (if in [0, NP)) and its index among the block
+  // threads (if >= 0).
+  int vr = tid, ut = tid - kABase;
+  if constexpr (PIPE) {
+    vr = (warp - 1) * 32 + lane;  // in V's warps 1 .. kVWarps
+    ut = (warp - 1 - kVWarps) * 32 + lane;  // in the warps after them
   }
-  float vrow[NP];  // row tid of V (tid < NP)
-#pragma unroll
-  for (int c = 0; c < NP; ++c) vrow[c] = c == tid ? 1.f : 0.f;
-  for (int i = tid; i < kRounds * kHalf; i += kT) pairs[i] = pairs_g[i];
+  if constexpr (HERM) {
+    // T = [[X, -Y], [Y, X]] from H = X + iY, as in jacobi_eigh_kernel (HERM).
+    const float2* hb = reinterpret_cast<const float2*>(in) + (size_t)b * n_in * n_in;
+    for (int e = tid; e < NP * NP; e += kT) {
+      const int r = e / NP, c = e % NP;
+      float t = 0.f;
+      if (r < n && c < n) {
+        const bool top = r < n_in, left = c < n_in;
+        const float2 z = hb[(top ? r : r - n_in) * n_in + (left ? c : c - n_in)];
+        t = top == left ? z.x : (top ? -z.y : z.y);
+      }
+      A[e] = t;
+    }
+  } else {
+    const float* ab = in + (size_t)b * n * n;
+    if (n == NP && (reinterpret_cast<size_t>(ab) & 15) == 0) {
+      for (int e = tid; e < NP * NP / 4; e += kT)
+        reinterpret_cast<float4*>(A)[e] = reinterpret_cast<const float4*>(ab)[e];
+    } else {
+      for (int e = tid; e < NP * NP; e += kT) {
+        const int r = e / NP, c = e % NP;
+        A[e] = (r < n && c < n) ? ab[r * n + c] : 0.f;
+      }
+    }
+  }
+  copy_ints(pairs, pairs_g, kRounds * kHalf, tid, kT);
+  if constexpr (PIPE) copy_ints(exports, exports_g, kRounds * kExp, tid, kT);
   for (int i = tid; i < NP; i += kT) cnt[i] = 0;
   __syncthreads();
-
-  for (int sw = 0; sw < sweeps; ++sw) {
-    for (int k = 0; k < kRounds; ++k) {
-      const int* pr = pairs + k * kHalf;
-      if (tid < kHalf) {
-        const int e = pr[tid], p = slot_p(e), q = slot_q(e);
-        cs[tid] = rotation(A[p * NP + p], A[q * NP + q], A[p * NP + q]);
-      }
-      pencil_sync<WARPS>();
-      rotate_blocks<NP, kT, 8>(A, pr, cs, tid);
-      if (tid < NP) rotate_row<NP>(vrow, cs);
-      pencil_sync<WARPS>();
+  if constexpr (PIPE) {
+    // Round 0's rotations.
+    if (tid < kHalf) {
+      const int e = pairs[tid], p = slot_p(e), q = slot_q(e);
+      const float2 r = rotation(A[p * NP + p], A[q * NP + q], A[p * NP + q]);
+      cs[tid] = r;
+      info[tid] = pair_info(r, p, q, NP);
     }
+    __syncthreads();
   }
-  // After whole sweeps the moving order is the identity again.
-  if (tid < NP) {
+  STAGE_STAMP(10);
+
+  // Each role runs its own loop over the rounds (one block barrier a round
+  // in each), so that V's rows take registers only in V's threads.
+  // After whole sweeps the moving order of V's rows is the identity again.
+  if constexpr (PIPE) {
+    // The named barrier of the export blocks: the producers arrive, warp 0
+    // waits.
+    constexpr int kMeet = 32 * (kProducers + 1);
+    if (warp == 0) {
+      // The next round's rotations, once its entries are final (no other
+      // warp writes them).
+      int g = 0;
+      for (int sw = 0; sw < sweeps; ++sw) {
+        for (int k = 0; k < kRounds; ++k, ++g) {
+          const int e =
+              pairs[(k + 1 == kRounds ? 0 : k + 1) * kHalf + (lane < kHalf ? lane : 0)];
+          const int p = slot_p(e), q = slot_q(e);
+          named_sync(kMeet);
+          STAGE_STAMP(16);
+          if (lane < kHalf) {
+            const float2 r = rotation(A[p * NP + p], A[q * NP + q], A[p * NP + q]);
+            cs[((g + 1) & 1) * kHalf + lane] = r;
+            info[((g + 1) & 1) * kHalf + lane] = pair_info(r, p, q, NP);
+          }
+          STAGE_STAMP(17);
+          __syncthreads();
+          STAGE_STAMP(14);
+        }
+      }
+    } else if (warp <= kVWarps) {
+      // V's warps; past np rows (np < 32 kVWarps) a lane only keeps the
+      // barriers.
+      float vrow[NP];  // row vr of V
 #pragma unroll
-    for (int c = 0; c < NP; ++c) V[tid * NP + c] = vrow[c];
+      for (int c = 0; c < NP; ++c) vrow[c] = c == vr ? 1.f : 0.f;
+      int g = 0;
+      for (int sw = 0; sw < sweeps; ++sw) {
+        for (int k = 0; k < kRounds; ++k, ++g) {
+          STAGE_STAMP_AT(0, 32, 1);
+          if (vr < NP) rotate_row<NP>(vrow, cs + (g & 1) * kHalf);
+          STAGE_STAMP_AT(19, 32, 1);
+          __syncthreads();
+        }
+      }
+      if (vr < NP) {
+#pragma unroll
+        for (int c = 0; c < NP; ++c) V[vr * kLdv + c] = vrow[c];
+      }
+    } else {
+      int g = 0;
+      for (int sw = 0; sw < sweeps; ++sw) {
+        for (int k = 0; k < kRounds; ++k, ++g) {
+          const int* pr = pairs + k * kHalf;
+          const float2* cur = cs + (g & 1) * kHalf;
+          const float4* cur_info = info + (g & 1) * kHalf;
+          const int* ex = exports + k * kExp;
+          STAGE_STAMP_AT(0, kT - 32, 3);
+          if (ut < 32 * kProducers) {
+            // The export blocks: the diagonal ones, then the listed ones.
+            const int t = ut < kHalf ? ut * (kHalf + 1)
+                                     : (ut < 2 * kHalf ? ex[kWords + ut - kHalf] : -1);
+            if (t >= 0) store_block(A, load_block<NP>(A, pr, cur, cur_info, t));
+            named_arrive(kMeet);
+          }
+          rotate_blocks<NP, kAT, 8, true>(A, V, pr, cur, cur_info, ex, ut);
+          STAGE_STAMP_AT(18, kT - 32, 3);
+          __syncthreads();
+        }
+      }
+    }
+  } else {
+    float vrow[NP];  // row tid of V
+#pragma unroll
+    for (int c = 0; c < NP; ++c) vrow[c] = c == tid ? 1.f : 0.f;
+    for (int sw = 0; sw < sweeps; ++sw) {
+      for (int k = 0; k < kRounds; ++k) {
+        const int* pr = pairs + k * kHalf;
+        if (tid < kHalf) {
+          const int e = pr[tid], p = slot_p(e), q = slot_q(e);
+          const float2 r = rotation(A[p * NP + p], A[q * NP + q], A[p * NP + q]);
+          cs[tid] = r;
+          info[tid] = pair_info(r, p, q, NP);
+        }
+        STAGE_STAMP(11);
+        pencil_sync<WARPS>();
+        STAGE_STAMP(12);
+        STAGE_STAMP_AT(0, 32, 1);
+        STAGE_STAMP_AT(0, kT - 32, 3);
+        if (ut >= 0) rotate_blocks<NP, kAT, 8, false>(A, V, pr, cs, info, nullptr, ut);
+        if (tid < NP) rotate_row<NP>(vrow, cs);
+        STAGE_STAMP_AT(19, 32, 1);
+        STAGE_STAMP_AT(18, kT - 32, 3);
+        STAGE_STAMP(13);
+        pencil_sync<WARPS>();
+        STAGE_STAMP(14);
+      }
+    }
+    if (tid < NP) {
+#pragma unroll
+      for (int c = 0; c < NP; ++c) V[tid * kLdv + c] = vrow[c];
+    }
   }
 
   rank_slots(A, rank, cnt, first, n, NP, tid, kT);
   __syncthreads();
-  hermitian_pairs(A, V, rank, cnt, first, A, w2, dup, ofs, n_in, NP, tid, kT,
-                  w_out + (size_t)b * n_in, q_out + (size_t)b * n_in * n_in * 2);
+  if constexpr (HERM) {
+    hermitian_pairs(A, V, kLdv, rank, cnt, first, A, w2, dup, ofs, n_in, NP, tid, kT,
+                    w_out + (size_t)b * n_in, v_out + (size_t)b * n_in * n_in * 2);
+  } else {
+    real_outputs(A, V, kLdv, rank, cnt, first, dup, n, NP, tid, kT, w_out + (size_t)b * n,
+                 v_out + (size_t)b * n * n);
+  }
+  STAGE_STAMP(15);
 }
 
-template <int NP, int WARPS>
-int launch_pairs(const float* h, const int* pairs, float* w, float* q, int bz, int n,
-                 int sweeps, cudaStream_t stream) {
-  // A, V, cs, the pair table, rank / cnt / first / dup, w2 and 3 floats a column.
-  const size_t smem = 2 * NP * NP * sizeof(float) + NP / 2 * sizeof(float2) +
-                      (NP - 1) * (NP / 2) * sizeof(int) + 4 * NP * sizeof(int) +
-                      (NP + 3 * NP / 2) * sizeof(float);
+template <int NP, int WARPS, bool HERM, bool PIPE>
+int launch_pairs(const float* in, const int* pairs, const int* exports, float* w, float* v,
+                 int bz, int n, int sweeps, cudaStream_t stream) {
+  constexpr size_t smem = pair_smem<NP, PIPE>();
   static std::atomic<int> granted[kMaxDevices];
-  auto kernel = hermitian_pair_kernel<NP, WARPS>;
+  auto kernel = jacobi_pair_kernel<NP, WARPS, HERM, PIPE>;
   cudaError_t e = allow_smem(kernel, smem, granted);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<bz, WARPS * 32, smem, stream>>>(h, pairs, w, q, n, sweeps);
+  kernel<<<bz, WARPS * 32, smem, stream>>>(in, pairs, exports, w, v, n, sweeps);
   return (int)cudaGetLastError();
 }
 
-// The pair-block form at np <= kPairSlots, one warp count a width (a thread
-// for each row of V at least): one warp up to 24 slots, two at 40-56, and at
-// 32 and 64 slots four, the fastest of 1, 2 and 4 (PERF.md, section 6).
-int pair_form(const float* h, const int* pairs, float* w, float* q, int bz, int n, int np,
-              int sweeps, cudaStream_t stream) {
+
+// The pair-block form at np <= kPairSlots, one warp count a width. K7
+// (HERM; batches of ~1600 pencils, so few warps a pencil), two barriers a
+// round: one warp up to 24 slots, two at 40-56, and at 32 and 64 slots
+// four, the fastest of 1, 2 and 4. K4 (batches of 2), K4_PIPELINED's
+// round form: four warps up to 32 slots, six at 40-56, K4_PAIR_WARPS at 64
+// (the pipelined roles need 3 warps up to 32 slots, 5 above).
+template <bool HERM>
+int pair_form(const float* in, const int* pairs, const int* exports, float* w, float* v,
+              int bz, int n, int np, int sweeps, cudaStream_t stream) {
+  constexpr bool kPipe = !HERM && K4_PIPELINED != 0;
+  constexpr int kSmall = HERM ? 1 : 4, kMid = HERM ? 2 : 6, kWide = HERM ? 4 : K4_PAIR_WARPS;
+#define K4_PAIRS(NP, W) \
+  launch_pairs<NP, W, HERM, kPipe>(in, pairs, exports, w, v, bz, n, sweeps, stream)
   switch (np) {
-    case 8: return launch_pairs<8, 1>(h, pairs, w, q, bz, n, sweeps, stream);
-    case 16: return launch_pairs<16, 1>(h, pairs, w, q, bz, n, sweeps, stream);
-    case 24: return launch_pairs<24, 1>(h, pairs, w, q, bz, n, sweeps, stream);
-    case 32: return launch_pairs<32, 4>(h, pairs, w, q, bz, n, sweeps, stream);
-    case 40: return launch_pairs<40, 2>(h, pairs, w, q, bz, n, sweeps, stream);
-    case 48: return launch_pairs<48, 2>(h, pairs, w, q, bz, n, sweeps, stream);
-    case 56: return launch_pairs<56, 2>(h, pairs, w, q, bz, n, sweeps, stream);
-    case 64: return launch_pairs<64, 4>(h, pairs, w, q, bz, n, sweeps, stream);
+    case 8: return K4_PAIRS(8, kSmall);
+    case 16: return K4_PAIRS(16, kSmall);
+    case 24: return K4_PAIRS(24, kSmall);
+    case 32: return K4_PAIRS(32, 4);
+    case 40: return K4_PAIRS(40, kMid);
+    case 48: return K4_PAIRS(48, kMid);
+    case 56: return K4_PAIRS(56, kMid);
+    case 64: return K4_PAIRS(64, kWide);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef K4_PAIRS
 }
 
 }  // namespace
 
-// a (bz, n, n) symmetric, src (np,) int32 tournament schedule -> w (bz, n)
-// ascending, v (bz, n, n) eigenvectors in columns; float32, contiguous;
-// np = max(8, ceil8(n)) <= 512; above kSharedSlots, work holds 4 bz np^2
-// floats (else it may be null).
-extern "C" int jacobi_eigh_launch(const float* a, const int* src, float* w, float* v,
-                                  float* work, int bz, int n, int np, int sweeps,
-                                  cudaStream_t stream) {
+// a (bz, n, n) symmetric; src (np,) int32, the tournament schedule; pairs
+// ((np - 1) * np / 2,) int32, its relabeled pair table, and exports
+// ((np - 1) * export_ints,) int32, the pipelined form's export table (both
+// read up to kPairSlots slots, else may be null) -> w (bz, n) ascending, v (bz, n, n)
+// eigenvectors in columns; float32, contiguous; np = max(8, ceil8(n)) <=
+// 512; above kSharedSlots, work holds 4 bz np^2 floats (else it may be
+// null). The pair-block form serves np <= kPairSlots, the template form
+// the rest.
+extern "C" int jacobi_eigh_launch(const float* a, const int* src, const int* pairs,
+                                  const int* exports, float* w, float* v, float* work, int bz,
+                                  int n, int np, int sweeps, cudaStream_t stream) {
+  if (np % 8 || np < n || np > kMaxSlots || (np > kSharedSlots && !work) ||
+      (np <= kPairSlots && (!pairs || !exports)))
+    return (int)cudaErrorInvalidValue;
+  if (np <= kPairSlots)
+    return pair_form<false>(a, pairs, exports, w, v, bz, n, np, sweeps, stream);
+  return dispatch<false>(a, src, w, v, work, bz, n, np, sweeps, stream);
+}
+
+// K4's template form at every width, for tests and tools: the pair-block
+// form must equal it bit for bit. Arguments as jacobi_eigh_launch, without
+// the pair table.
+extern "C" int jacobi_eigh_template_launch(const float* a, const int* src, float* w, float* v,
+                                           float* work, int bz, int n, int np, int sweeps,
+                                           cudaStream_t stream) {
   if (np % 8 || np < n || np > kMaxSlots || (np > kSharedSlots && !work))
     return (int)cudaErrorInvalidValue;
   return dispatch<false>(a, src, w, v, work, bz, n, np, sweeps, stream);
@@ -698,6 +1045,7 @@ extern "C" int jacobi_eigh_hermitian_launch(const float* h, const int* src, cons
   if (np % 8 || np < 2 * n || np > kMaxSlots || (np > kSharedSlots && !work) ||
       (np <= kPairSlots && !pairs))
     return (int)cudaErrorInvalidValue;
-  if (np <= kPairSlots) return pair_form(h, pairs, w, q, bz, n, np, sweeps, stream);
+  if (np <= kPairSlots)
+    return pair_form<true>(h, pairs, nullptr, w, q, bz, n, np, sweeps, stream);
   return dispatch<true>(h, src, w, q, work, bz, n, np, sweeps, stream);
 }

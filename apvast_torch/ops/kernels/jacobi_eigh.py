@@ -10,11 +10,15 @@ round-robin tournament schedule, the angle formula with its sign rule and
 ``1e-30`` guard, ``c = 1/sqrt(1 + t^2)``, the rotation-permutation matrix
 of every round, and the sort-free ranking with pad slots keyed to +inf and
 a first-index tie-break. Bound on the H100: latency (126 dependent rounds
-of an O(n^2) gather-and-rotate at n = 64; see the kernel's note).
+at n = 64, on 2 of the card's 132 SMs; see the kernel's note).
 
-The plain version serves every width, as the JAX function does. The card
-keeps A and V in shared memory up to ``SHARED_SLOTS`` padded slots and in
-a workspace (:func:`workspace`) up to ``MAX_SLOTS``; it raises above that.
+Up to ``PAIR_SLOTS`` padded slots the card runs the pair-block form: A
+rotated in place along the relabeled pair table (:func:`pair_table`), V's
+rows in registers, one block barrier a round; it equals the template form
+(:func:`jacobi_eigh_template`, for tests and tools) bit for bit. The plain
+version serves every width, as the JAX function does. The card keeps A and
+V in shared memory up to ``SHARED_SLOTS`` padded slots and in a workspace
+(:func:`workspace`) up to ``MAX_SLOTS``; it raises above that.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch
 
 from apvast_torch.ops.kernels import _build
 
+PAIR_SLOTS = 64  # the widest matrix of the pair-block form (K4 and K7)
 SHARED_SLOTS = 160  # A and V of a padded matrix sit in one block's shared memory
 MAX_SLOTS = 512  # the card's bound: the global-memory form past SHARED_SLOTS
 
@@ -97,6 +102,36 @@ def bank_order(pairs: np.ndarray, banks: int = 32) -> np.ndarray:
         first = pairs[k, np.arange(half), order[k]] % banks
         assert len(set(first.tolist())) == half, "bank order is not conflict-free"
     return order
+
+
+def export_table(npad: int) -> np.ndarray:
+    """(npad - 1, words + npad // 2) int32, per round of the relabeled pair
+    table (:func:`relabeled_pairs`): which of the round's 2 x 2 pair blocks
+    hold the next round's rotation inputs, for the card's pipelined
+    pair-block form. The next round's pair (P, Q) reads A[P, P] and A[Q, Q],
+    which lie in this round's diagonal blocks, and A[P, Q], which lies in
+    the block (pair of P, pair of Q) of this round, never a diagonal one
+    (a pair meets once a sweep). Per round: ``words`` = ceil((npad/2)^2 /
+    32) bit masks, bit t of the blocks t = i * npad/2 + j that are
+    exported (the diagonal ones and the listed ones), then the distinct
+    off-diagonal blocks, -1 past them."""
+    pairs = relabeled_pairs(npad)
+    rounds, half, _ = pairs.shape
+    words = -(-half * half // 32)
+    out = np.full((rounds, words + half), -1, np.int64)
+    for k in range(rounds):
+        owner = {int(slot): i for i in range(half) for slot in pairs[k, i]}
+        listed: list[int] = []
+        for p, q in pairs[(k + 1) % rounds]:
+            i, j = owner[int(p)], owner[int(q)]
+            assert i != j, "a pair met in two consecutive rounds"
+            if i * half + j not in listed:
+                listed.append(i * half + j)
+        bits = np.zeros(words * 32, np.int64)
+        bits[[i * half + i for i in range(half)] + listed] = 1
+        out[k, :words] = (bits.reshape(words, 32) << np.arange(32)).sum(1)
+        out[k, words:words + len(listed)] = listed
+    return out.astype(np.uint32).view(np.int32)  # bit 31 as the sign
 
 
 def padded_size(n: int) -> int:
@@ -187,6 +222,17 @@ def pair_table(npad: int, device: torch.device) -> torch.Tensor:
     return _pair_tables[key]
 
 
+_export_tables: dict[tuple[int, torch.device], torch.Tensor] = {}
+
+
+def exports(npad: int, device: torch.device) -> torch.Tensor:
+    """:func:`export_table` of ``npad`` slots on ``device``, cached."""
+    key = (npad, device)
+    if key not in _export_tables:
+        _export_tables[key] = torch.as_tensor(export_table(npad), device=device)
+    return _export_tables[key]
+
+
 def workspace(bz: int, npad: int, device: torch.device) -> torch.Tensor:
     """The card's buffers for ``bz`` matrices of ``npad`` slots: A, V and
     their second buffers in global memory past ``SHARED_SLOTS`` (empty
@@ -219,15 +265,36 @@ def jacobi_eigh(a: torch.Tensor, sweeps: int) -> tuple[torch.Tensor, torch.Tenso
         raise ValueError("sweeps must be >= 0")
     if a.device.type == "cpu":
         return jacobi_eigh_plain(a, sweeps)
+    return _launch(a, sweeps, template=False)
+
+
+def jacobi_eigh_template(a: torch.Tensor, sweeps: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`jacobi_eigh` through the card's template form at every width:
+    the form the pair-block form is held to, bit for bit (tests and tools;
+    no path calls it). A CUDA tensor only."""
+    _build.check_input(a, "a", 3)
+    if a.device.type != "cuda" or a.shape[1] != a.shape[2] or sweeps < 0:
+        raise ValueError("jacobi_eigh_template takes a batch of square CUDA matrices")
+    return _launch(a, sweeps, template=True)
+
+
+def _launch(a: torch.Tensor, sweeps: int, template: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    bz, n, _ = a.shape
     npad = padded_size(n)
     work = workspace(bz, npad, a.device)
     w = torch.empty((bz, n), dtype=torch.float32, device=a.device)
     v = torch.empty((bz, n, n), dtype=torch.float32, device=a.device)
     if bz:
-        _build.launch(
-            "jacobi_eigh", "jacobi_eigh_launch",
-            a, schedule(npad, a.device), w, v, work, bz, n, npad, sweeps,
-        )
+        src = schedule(npad, a.device)
+        if template:
+            _build.launch("jacobi_eigh", "jacobi_eigh_template_launch",
+                          a, src, w, v, work, bz, n, npad, sweeps)
+        else:
+            pair_form = npad <= PAIR_SLOTS
+            _build.launch("jacobi_eigh", "jacobi_eigh_launch", a, src,
+                          pair_table(npad, a.device) if pair_form else None,
+                          exports(npad, a.device) if pair_form else None,
+                          w, v, work, bz, n, npad, sweeps)
         jacobi_eigh.launches += 1
     return w, v
 

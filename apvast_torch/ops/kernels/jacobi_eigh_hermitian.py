@@ -26,14 +26,13 @@ import torch
 
 from apvast_torch.ops.kernels import _build
 from apvast_torch.ops.kernels.jacobi_eigh import (
+    PAIR_SLOTS,
     jacobi_eigh_plain,
     padded_size,
     pair_table,
     schedule,
     workspace,
 )
-
-PAIR_SLOTS = 64  # the widest pencil of the pair-block form
 
 
 def embed(h: torch.Tensor) -> torch.Tensor:

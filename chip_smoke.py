@@ -12,10 +12,13 @@ Phase 1  build: every kernel of apvast_torch/csrc with nvcc (one process
 Phase 2  each kernel against its plain PyTorch version on the card, at the
          north-star shapes and at ragged small shapes:
          max|kernel - plain| / max|plain| <= 1e-4 (fp32 sums taken in
-         another order). K3 in both forms; K4 at (2, 64, 64) with 2 sweeps
-         on a warm-start-like (near-diagonal) input and with 8 sweeps on a
-         cold random one (eigenvector columns compared up to sign: a
-         converged column's sign is the rotation history's choice), and at
+         another order). K3 in both forms; K4 at (2, 64, 64) with 2 and 3
+         sweeps on a warm-start-like (near-diagonal) input and with 8 sweeps
+         on a cold random one (eigenvector columns compared up to sign: a
+         converged column's sign is the rotation history's choice); K4's
+         pair-block form (the wrapper's up to 64 slots) against its template
+         form there and at (3, 10) and (5, 37), w and v equal bit for bit
+         (max |diff| printed, required 0); and K4 at
          3 sweeps on the invert path's own Rayleigh-Ritz matrices (captured
          from its first hops on the card), where rounding picks rotations
          and the eigenvectors are chaotic: there the eigenvalues, their
@@ -58,8 +61,8 @@ Phase 2  each kernel against its plain PyTorch version on the card, at the
          (2, 128) complex at 8 sweeps, eigenvalues to 1e-4 of scale and the
          eigenvector residual and orthonormality within 1.5x the plain
          version's. K1 and K6, whose products run on the tensor cores in
-         3xTF32, and K9 and K10a, whose factorizations and sums take another
-         order than their plain versions', also against a float64 oracle
+         3xTF32, and K2, K9 and K10a, whose factorizations and sums take
+         another order than their plain versions', also against a float64 oracle
          (the plain version in float64 on the card) at every shape above
          (K9 also at (3, 50, 8) with 1 iteration, (1, 40, 16) with none and
          k = 112): per output, max|kernel - oracle| / max|oracle| within 2x
@@ -357,6 +360,24 @@ def _hermitian_against_k4(K, cases, card):
                TOL_SAME_ROTATIONS)
 
 
+def _jacobi_pair_against_template(cases, card):
+    """K4's pair-block form (the wrapper's form up to 64 slots) against its
+    template form on (label, a, sweeps): the same rotations with the same
+    products, so w and v must be equal bit for bit (max |diff| printed)."""
+    from apvast_torch.ops.kernels.jacobi_eigh import jacobi_eigh, jacobi_eigh_template
+
+    for label, a, sweeps in cases:
+        pair, template = jacobi_eigh(a, sweeps), jacobi_eigh_template(a, sweeps)
+        torch.cuda.synchronize()
+        diffs = [float((x - y).abs().max()) for x, y in zip(pair, template)]
+        print(f"[phase 2] jacobi_eigh {label} {tuple(a.shape)}, {sweeps} sweeps: pair-block "
+              f"form against the template form, max |diff| w {diffs[0]:.3e} v {diffs[1]:.3e} "
+              f"(required 0) card={card}", flush=True)
+        if not all(torch.equal(x, y) for x, y in zip(pair, template)):
+            raise AssertionError(f"jacobi_eigh {label}, {sweeps} sweeps: the pair-block form "
+                                 "differs from the template form")
+
+
 def _rowwise_checks(K, x, k_t, taps, b, card):
     """K8 against a float64 oracle (its plain version in double precision)
     within TOL_ORACLE of scale; and with one NaN sample, NaN in exactly the
@@ -556,6 +577,8 @@ def phase2(scene, dev, card):
             kernel=lambda: K.lag_corr(x2, j),
             plain=lambda: K.lag_corr_plain(x2, j),
             library=lambda: F.conv1d(c0_in, c0_w, groups=4),
+            oracle=[("north star", lambda a: K.lag_corr(a, j), lambda a: K.lag_corr_plain(a, j),
+                     (x2,))],
             flops=2 * 4 * m * (s + 1) ** 2 * j * k2,
             bytes=4 * (x2.numel() + 4 * (s + 1) ** 2 * j),
             ragged=[
@@ -654,6 +677,9 @@ def phase2(scene, dev, card):
                  (_warm(g, dev, 5, 37),)),
             ],
             extra=[
+                dict(label="warm_3_sweeps",
+                     kernel=lambda: K.jacobi_eigh(h_warm, 3),
+                     plain=lambda: K.jacobi_eigh_plain(h_warm, 3)),
                 dict(label="cold_8_sweeps", up_to_sign=True,
                      kernel=lambda: K.jacobi_eigh(h_cold, 8),
                      plain=lambda: K.jacobi_eigh_plain(h_cold, 8)),
@@ -802,6 +828,10 @@ def phase2(scene, dev, card):
         ("degenerate_pairs", _degenerate_pairs(dev), 10),
     ], card)
     _hermitian_against_k4(K, [("frame_taps_1", h7), ("frame_taps_2", h7b)], card)
+    _jacobi_pair_against_template([
+        ("north star", h_warm, 2), ("north star", h_warm, 3), ("cold", h_cold, 8),
+        ("ragged", _warm(g, dev, 3, 10), 2), ("ragged", _warm(g, dev, 5, 37), 3),
+    ], card)
     _rowwise_checks(K, x8, k8, taps8, b8, card)
     for c in cases:
         cmp = c.get("compare", _errs)
@@ -1498,17 +1528,16 @@ def phase3_fd(scene, dev, card, results):
 
 
 def _kernel_of(key):
-    """The wrapper whose kernel a profiler key names: K7 is
-    hermitian_pair_kernel<NP, WARPS> up to 64 slots, and past them, as K4,
-    a form of jacobi_eigh_kernel<PER, DOUBLE, HERM>; K5 and K11 are forms of
-    output_filter_kernel<OVERLAP>."""
+    """The wrapper whose kernel a profiler key names: K4 and K7 are
+    jacobi_pair_kernel<NP, WARPS, HERM, ONE_BARRIER> up to 64 slots and
+    jacobi_eigh_kernel<PER, DOUBLE, HERM, ...> past them; K5 and K11 are
+    forms of output_filter_kernel<OVERLAP>."""
     from apvast_torch.ops import kernels as K
 
-    if "hermitian_pair_kernel<" in key:
-        return "jacobi_eigh_hermitian"
-    if "jacobi_eigh_kernel<" in key:  # its third template argument is HERM
-        herm = key.split("jacobi_eigh_kernel<", 1)[1].split(",")[2].strip() == "true"
-        return "jacobi_eigh_hermitian" if herm else "jacobi_eigh"
+    for name in ("jacobi_pair_kernel<", "jacobi_eigh_kernel<"):
+        if name in key:  # the third template argument is HERM
+            herm = key.split(name, 1)[1].split(",")[2].strip() == "true"
+            return "jacobi_eigh_hermitian" if herm else "jacobi_eigh"
     if "output_filter_kernel<false>" in key:
         return "circular_filter"
     return next((name for name in K.WRAPPERS if f"{name}_kernel" in key), None)

@@ -527,6 +527,100 @@ def test_whiten_propagates_nan_as_plain(dev):
         assert _rel(x[finite], w[finite]) <= 1e-4
 
 
+# K2 at the north star and at the ragged shapes of chip_smoke.py's phase 2.
+_K2_CASES = {
+    "north star": ((4, 17, 17, 999), 50),
+    "(4, 3, 5, 70) J 9": ((4, 3, 5, 70), 9),
+    "(4, 2, 33, 120) J 40": ((4, 2, 33, 120), 40),
+}
+
+
+def _k2_inputs(dev, case, seed):
+    shape, j = _K2_CASES[case]
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=g).to(dev), j
+
+
+@pytest.mark.parametrize("case", list(_K2_CASES))
+def test_lag_corr_within_twice_plain_error_against_float64(dev, case):
+    """K2 against a float64 oracle (its plain version in float64 on the
+    card): within 2x the plain float32 version's own error, and within
+    1e-4 of the plain version's scale."""
+    x, j = _k2_inputs(dev, case, 71)
+    got, want = K.lag_corr(x, j), K.lag_corr_plain(x, j)
+    oracle = K.lag_corr_plain(x.double(), j)
+    torch.cuda.synchronize()
+    assert _rel(got, want) <= 1e-4
+    assert _rel(got, oracle) <= TOL_ORACLE_RATIO * _rel(want, oracle), (
+        _rel(got, oracle), _rel(want, oracle))
+
+
+def test_lag_corr_repeats_bit_for_bit(dev):
+    """Two launches on the same inputs give the same bits: the depth
+    slices' partials are added in slice order, no atomics."""
+    x, j = _k2_inputs(dev, "north star", 73)
+    first, second = K.lag_corr(x, j), K.lag_corr(x, j)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_lag_corr_propagates_nan_as_plain(dev):
+    """A NaN past K in an s2 row reaches only the lags whose window holds
+    it (lags l > t - K of that s2, every s1); a NaN in the all-zero target
+    row of a dark path reaches that row's and that column's outputs (0 x
+    NaN stays NaN: the zero row is not skipped). The plain version's NaN
+    pattern, and its values elsewhere."""
+    x, j = _k2_inputs(dev, "north star", 79)
+    _, _, s, n = x.shape
+    k = n - j + 1
+    x[0, 3, 5, k + 20] = float("nan")  # lags 21-49 of s2 = 5
+    x[1, :, s - 1] = 0.0  # a dark path's target row
+    x[1, 7, s - 1, 100] = float("nan")
+    got, want = K.lag_corr(x, j), K.lag_corr_plain(x, j)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert int(torch.isnan(got[0]).sum()) == s * (j - 21)
+    assert int(torch.isnan(got[1]).sum()) == 2 * s * j - j
+    assert not torch.isnan(got[2:]).any()
+    finite = ~torch.isnan(want)
+    assert _rel(got[finite], want[finite]) <= 1e-4
+
+
+@pytest.mark.parametrize("sweeps", [2, 3, 8])
+@pytest.mark.parametrize("n", [10, 37, 64], ids=["16-slots", "40-slots", "64-slots"])
+def test_jacobi_pair_form_equals_template_bit_for_bit(dev, n, sweeps):
+    """K4's pair-block form (the wrapper's form up to 64 slots) runs the
+    template form's rotations in the same order with the same products:
+    w and v equal bit for bit, on a warm-start-like and a cold matrix."""
+    from apvast_torch.ops.kernels.jacobi_eigh import jacobi_eigh_template
+
+    g = torch.Generator().manual_seed(83 + n)
+    rnd = lambda *sh: torch.randn(sh, generator=g).to(dev)  # noqa: E731
+    cold = rnd(1, n, n)
+    a = torch.cat([_warm(rnd, 1, n), (cold + cold.transpose(1, 2)) / 2]).contiguous()
+    before = K.jacobi_eigh.launches
+    pair, template = K.jacobi_eigh(a, sweeps), jacobi_eigh_template(a, sweeps)
+    torch.cuda.synchronize()
+    assert K.jacobi_eigh.launches == before + 2
+    assert torch.equal(pair[0], template[0]) and torch.equal(pair[1], template[1])
+
+
+def test_jacobi_pair_form_propagates_nan_as_plain(dev):
+    """A NaN entry of one matrix spreads through its rotations: as in the
+    plain version's one-hot contraction (0 x NaN is NaN), all of its w and
+    v are NaN; the matrices beside it are finite and equal the plain
+    version."""
+    g = torch.Generator().manual_seed(89)
+    a = _warm(lambda *sh: torch.randn(sh, generator=g).to(dev), 3, 64).contiguous()
+    a[1, 5, 9] = float("nan")
+    got, want = K.jacobi_eigh(a, 2), K.jacobi_eigh_plain(a, 2)
+    torch.cuda.synchronize()
+    for x, w in zip(got, want):
+        assert torch.equal(torch.isnan(x), torch.isnan(w))
+        assert torch.isnan(x[1]).all() and torch.isfinite(x[[0, 2]]).all()
+        assert _rel(x[[0, 2]], w[[0, 2]]) <= 1e-4
+
+
 def test_jacobi_card_bound(dev):
     """The card serves up to 512 padded slots and names its bound past it."""
     with pytest.raises(ValueError, match="512"):

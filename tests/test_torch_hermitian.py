@@ -34,6 +34,7 @@ from apvast_torch.ops.kernels.jacobi_eigh import _rank, padded_size, relabeled_p
 from apvast_torch.ops.kernels.jacobi_eigh_hermitian import embed, select_pairs
 from apvast_torch.ops.small_chol import cholesky_small, posdef_solve_small
 from apvast_tpu.ops.jdiag import jdiag_hermitian_batched as jax_jdiag_hermitian_batched
+from apvast_tpu.ops.pallas.jacobi_eigh import jacobi_eigh as jax_jacobi_eigh
 from apvast_tpu.ops.pallas.jacobi_eigh import jacobi_eigh_hermitian as jax_jacobi_hermitian
 from apvast_tpu.ops.small_chol import cholesky_small as jax_cholesky_small
 from apvast_tpu.ops.small_chol import posdef_solve_small as jax_posdef_solve_small
@@ -99,16 +100,14 @@ def test_hermitian_plain_matches_jax_and_oracle(rng, n, bz, sweeps):
     assert np.abs(proj - jproj)[sep].max() <= 1e-4
 
 
-def _pair_block_rounds(h: torch.Tensor, sweeps: int):
-    """A float32 emulation of the card's pair-block form of K7: K4's
-    rotations on the real embedding, each round applied in place to the
-    physical slot pairs of the relabeled table (nothing moves), then K4's
-    ranking and the pair selection."""
-    n = h.shape[-1]
-    a = embed(h)
-    bz, n2, _ = a.shape
-    npad = padded_size(n2)
-    a = torch.nn.functional.pad(a, (0, npad - n2, 0, npad - n2))
+def _pair_block_rounds_real(a: torch.Tensor, sweeps: int):
+    """A float32 emulation of the card's pair-block form on a real
+    symmetric batch (K4's, and K7's on the embedding): K4's rotations, each
+    round applied in place to the physical slot pairs of the relabeled
+    table (nothing moves), then K4's ranking and output gather."""
+    bz, n, _ = a.shape
+    npad = padded_size(n)
+    a = torch.nn.functional.pad(a.float(), (0, npad - n, 0, npad - n))
     v = torch.eye(npad).repeat(bz, 1, 1)
     pairs = torch.from_numpy(relabeled_pairs(npad))
     for _ in range(sweeps):
@@ -127,8 +126,15 @@ def _pair_block_rounds(h: torch.Tensor, sweeps: int):
             ap, aq = a[:, p, :], a[:, q, :]  # rows: R^T (A R)
             a[:, p, :], a[:, q, :] = cr * ap - sr * aq, cr * aq + sr * ap
     w = torch.diagonal(a, dim1=-2, dim2=-1)
-    perm = (_rank(w, n2)[:, :, None] == torch.arange(n2)).float()
-    return select_pairs(torch.einsum("bi,bic->bc", w, perm), (v @ perm)[:, :n2, :], n)
+    perm = (_rank(w, n)[:, :, None] == torch.arange(n)).float()
+    return torch.einsum("bi,bic->bc", w, perm), (v @ perm)[:, :n, :]
+
+
+def _pair_block_rounds(h: torch.Tensor, sweeps: int):
+    """The emulation of the card's pair-block form of K7: the real form on
+    the embedding, then the pair selection."""
+    n = h.shape[-1]
+    return select_pairs(*_pair_block_rounds_real(embed(h), sweeps), n)
 
 
 @pytest.mark.parametrize("n,bz,sweeps", [(5, 3, 10), (8, 9, 8), (16, 4, 6)])
@@ -147,6 +153,25 @@ def test_pair_block_rounds_match_plain_and_jax(rng, n, bz, sweeps):
     if sweeps >= 8:  # converged: unit eigenvectors
         res, orth = _residual(a, w.numpy(), v.numpy())
         assert res <= 5e-5 and orth <= 5e-5
+
+
+@pytest.mark.parametrize("n", [10, 22, 64])
+def test_pair_block_rounds_real_match_plain_and_jax(n):
+    """The real form of the in-place rounds (K4's pair-block form) on
+    warm-start-like inputs at the production count of 2 sweeps: eigenvalues
+    and eigenvectors element for element within 1e-5 of the plain version
+    (the TPU wrapper's formula) and of the JAX kernel in interpret mode,
+    the tolerance of test_torch_jacobi.py's two-sweep comparison (n = 10
+    and 22 pad to 16 and 24 slots)."""
+    rng = np.random.default_rng(n)
+    e = 1e-2 * rng.standard_normal((3, n, n))
+    a = (np.linspace(-3.0, 5.0, n) * np.eye(n) + (e + np.swapaxes(e, 1, 2)) / 2).astype(np.float32)
+    w, v = _pair_block_rounds_real(torch.from_numpy(a), 2)
+    wp, vp = K.jacobi_eigh(torch.from_numpy(a), 2)  # CPU: the plain version
+    jw, jv = jax_jacobi_eigh(jnp.asarray(a), sweeps=2, interpret=True)
+    for got, want in ((w, wp), (v, vp), (w, jw), (v, jv)):
+        want = np.asarray(want, np.float64)
+        assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
 
 
 def test_hermitian_plain_serves_widths_past_64(rng):

@@ -26,6 +26,7 @@ import torch
 from apvast_torch.ops import kernels as K
 from apvast_torch.ops.kernels.jacobi_eigh import (
     bank_order,
+    export_table,
     padded_size,
     pair_table,
     relabeled_pairs,
@@ -97,6 +98,30 @@ def test_relabeled_pair_table(npad):
         np.testing.assert_array_equal(packed & 0xFF, pairs[..., 0])
         np.testing.assert_array_equal(packed >> 8 & 0xFF, pairs[..., 1])
         np.testing.assert_array_equal(packed >> 16, order)
+
+
+@pytest.mark.parametrize("npad", [8, 24, 40, 64])
+def test_export_table(npad):
+    """The card's pipelined pair-block form: the next round's rotation
+    inputs A[P, P], A[Q, Q] and A[P, Q] lie in this round's export blocks
+    (bit set), the listed blocks are distinct and off-diagonal, and every
+    set bit is a diagonal or a listed block."""
+    pairs = relabeled_pairs(npad)
+    table = export_table(npad)
+    rounds, half, _ = pairs.shape
+    words = -(-half * half // 32)
+    assert table.shape == (rounds, words + half) and table.dtype == np.int32
+    for k in range(rounds):
+        owner = {int(s): i for i in range(half) for s in pairs[k, i]}
+        bits = (table[k, :words].view(np.uint32)[:, None] >> np.arange(32)) & 1
+        marked = set(np.flatnonzero(bits.reshape(-1)).tolist())
+        listed = [int(t) for t in table[k, words:] if t >= 0]
+        assert len(set(listed)) == len(listed)
+        assert all(t // half != t % half for t in listed)
+        assert marked == {i * half + i for i in range(half)} | set(listed)
+        for p, q in pairs[(k + 1) % rounds]:
+            for r, c in ((p, p), (q, q), (p, q)):
+                assert owner[int(r)] * half + owner[int(c)] in marked
 
 
 @pytest.mark.parametrize("n", [64, 22, 10])

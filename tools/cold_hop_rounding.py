@@ -13,17 +13,17 @@ CPU, for 8 hops of each configuration, it prints:
 
 - each hop's largest loudspeaker feed sample (hop 1 is the cold one: the
   statistics hold only the initial noise);
-- hop 1's feeds with K1 and K6's plain versions computed in float64 and
-  rounded once to float32 ("exact kernels"), against the float32 run,
+- hop 1's feeds with K1, K2 and K6's plain versions computed in float64
+  and rounded once to float32 ("exact kernels"), against the float32 run,
   relative to hop 1's own scale;
 - hop 1's spread under 1e-7 relative changes of the initial noise (3
   draws), relative to its own scale.
 
 With ``--card``, instead: each card hop against the CPU hop from the card's state,
 as the test compares them (relative to the hop's own scale), three times:
-with K1 and K6 as shipped, with their plain versions in float32 on the card
-(cuBLAS, TF32 off) and with them exact (float64, rounded once). The last
-two show how far the card's other operations alone carry the hop.
+with K1, K2 and K6 as shipped, with their plain versions in float32 on the
+card (cuBLAS, TF32 off) and with them exact (float64, rounded once). The
+last two show how far the card's other operations alone carry the hop.
 """
 
 from __future__ import annotations
@@ -43,6 +43,7 @@ from apvast_torch import ApVast, production_overrides  # noqa: E402
 from apvast_torch.engine import hop as HOP  # noqa: E402
 from apvast_torch.engine import process_hop  # noqa: E402
 from apvast_torch.ops import kernels as K  # noqa: E402
+from apvast_torch.ops import lag_statistics as LS  # noqa: E402
 from test_torch_cuda import _CARD_PATHS, _rel, _s8_kwargs, _state_to  # noqa: E402
 
 FEEDS = ("out_a", "out_b")
@@ -56,11 +57,24 @@ def _exact_cov(b, t, j):
     return tuple(x.float() for x in K.covariance_plain(b.double(), t.double(), j))
 
 
+def _exact_lag(x, j):
+    return K.lag_corr_plain(x.double(), j).float()
+
+
+def _kernels():
+    """The hop's K1, K6 and K2 as it calls them."""
+    return HOP.streaming_conv, HOP.covariance, LS.lag_corr
+
+
+def _use(forms) -> None:
+    HOP.streaming_conv, HOP.covariance, LS.lag_corr = forms
+
+
 def _run(overrides, exact=False, jitter_seed=None):
     """8 hops of the scene on the CPU: the feeds of each hop."""
-    shipped = HOP.streaming_conv, HOP.covariance
+    shipped = _kernels()
     if exact:
-        HOP.streaming_conv, HOP.covariance = _exact_conv, _exact_cov
+        _use((_exact_conv, _exact_cov, _exact_lag))
     try:
         rng = np.random.default_rng(10)
         kwargs = _s8_kwargs(rng, production_overrides() | overrides)
@@ -72,7 +86,7 @@ def _run(overrides, exact=False, jitter_seed=None):
         return [model.process_input_buffers(a, b)[:2]
                 for a, b in rng.standard_normal((8, 2, 64)).astype(np.float32)]
     finally:
-        HOP.streaming_conv, HOP.covariance = shipped
+        _use(shipped)
 
 
 def cpu_report() -> None:
@@ -92,13 +106,14 @@ def cpu_report() -> None:
 def card_report(dev: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    shipped = HOP.streaming_conv, HOP.covariance
-    forms = {"kernels": shipped, "plain": (K.streaming_conv_plain, K.covariance_plain),
-             "exact": (_exact_conv, _exact_cov)}
+    shipped = _kernels()
+    forms = {"kernels": shipped,
+             "plain": (K.streaming_conv_plain, K.covariance_plain, K.lag_corr_plain),
+             "exact": (_exact_conv, _exact_cov, _exact_lag)}
     try:
         for config, (overrides, _) in _CARD_PATHS.items():
-            for form, (conv, cov) in forms.items():
-                HOP.streaming_conv, HOP.covariance = conv, cov
+            for form, chosen in forms.items():
+                _use(chosen)
                 rng = np.random.default_rng(10)
                 kwargs = _s8_kwargs(rng, production_overrides() | overrides)
                 card, cpu = ApVast(device=dev, **kwargs), ApVast(device="cpu", **kwargs)
@@ -106,15 +121,15 @@ def card_report(dev: str) -> None:
                 for a, b in rng.standard_normal((8, 2, 64)).astype(np.float32):
                     start = _state_to(card.state, "cpu")
                     got = card.process_input_buffers(a, b)[:2]
-                    HOP.streaming_conv, HOP.covariance = shipped  # the CPU hop: plain
+                    _use(shipped)  # the CPU hop: plain
                     cpu.state, out = process_hop(cpu.config, cpu.plan, start,
                                                  torch.from_numpy(a), torch.from_numpy(b))
-                    HOP.streaming_conv, HOP.covariance = conv, cov
+                    _use(chosen)
                     own.append([_rel(g, getattr(out, name)) for g, name in zip(got, FEEDS)])
-                print(f"card {config}, K1 and K6 {form}: per hop, own scale (out_a, out_b) "
+                print(f"card {config}, K1, K2 and K6 {form}: per hop, own scale (out_a, out_b) "
                       f"{[f'{x:.1e}/{y:.1e}' for x, y in own]}", flush=True)
     finally:
-        HOP.streaming_conv, HOP.covariance = shipped
+        _use(shipped)
 
 
 def main() -> int:
