@@ -4,15 +4,20 @@ K11: the same circular filter bank unfused.
 Kernel: ``apvast_torch/csrc/output_filter.cu``. K5 replaces
 ``apvast_tpu/ops/pallas/output_filter.py::circular_filter_overlap_pallas``.
 Bound on the H100: bytes (~15.7 MB of tail in, emit and new tail out at
-the north-star shapes, against 0.26 GFLOP). One block per (zone, row
-tile, sample tile) stages the circularly extended input slice and its
-filter rows in shared memory and writes emit or new tail directly, so the
-full (rows, block) synthesis tile never reaches device memory.
+the north-star shapes, against 0.26 GFLOP). One block per (zone, 32-row
+tile, 128-sample tile) stages its filter rows and the circularly extended
+input slice in shared memory and issues its tail loads before the loop;
+each thread sums 8 rows x 4 consecutive samples over a sliding window of
+the input, and the epilogue writes emit or new tail directly, so the full
+(rows, block) synthesis tile never reaches device memory.
 
 K11 replaces ``output_filter.py::circular_filter_pallas``, which nothing in
 either package's engine calls: the template form of K5's kernel with the
 window and the overlap-add switched off, writing the whole (rows, block)
 output.
+
+On the card both take up to :func:`max_taps` taps (the filter rows of a
+32-row tile in shared memory) and raise ValueError past it.
 """
 
 from __future__ import annotations
@@ -20,6 +25,23 @@ from __future__ import annotations
 import torch
 
 from apvast_torch.ops.kernels import _build
+
+SMEM_LIMIT = 227 * 1024  # bytes of shared memory a block may use
+
+
+def max_taps(overlap: bool) -> int:
+    """The most taps the card serves, 1632 for K5 and 1756 for K11: a
+    block's shared memory (``smem_floats`` in the source) holds 32 filter
+    rows and the input slice of 128 samples, taps padded to a multiple of
+    4 (33 floats a tap), and for K5 the 32 x 128 tail tile."""
+    floats = SMEM_LIMIT // 4 - 128 - (32 * 128 if overlap else 0)
+    return floats // 33 // 4 * 4
+
+
+def _check_taps(taps: int, overlap: bool) -> None:
+    if taps > max_taps(overlap):
+        raise ValueError(f"{taps} taps exceed the card's {max_taps(overlap)} (32 filter rows "
+                         f"in a block's {SMEM_LIMIT} bytes of shared memory)")
 
 
 def circular_filter_overlap_plain(
@@ -74,6 +96,7 @@ def circular_filter_overlap(
         raise ValueError(f"tail shape {tuple(tail.shape)} != {(z, rows, block - hop)}")
     if dev.type == "cpu":
         return circular_filter_overlap_plain(windowed_input, filters, window, tail, hop)
+    _check_taps(taps, True)
     emit = torch.empty((z, rows, hop), dtype=torch.float32, device=dev)
     new_tail = torch.empty((z, rows, block - hop), dtype=torch.float32, device=dev)
     _build.launch(
@@ -110,6 +133,7 @@ def circular_filter(windowed_input: torch.Tensor, filters: torch.Tensor) -> torc
         raise ValueError(f"filters shape {tuple(filters.shape)} does not fit input")
     if dev.type == "cpu":
         return circular_filter_plain(windowed_input, filters)
+    _check_taps(taps, False)
     out = torch.empty((z, rows, block), dtype=torch.float32, device=dev)
     _build.launch(
         "output_filter", "circular_filter_launch", windowed_input, filters, out,

@@ -7,18 +7,52 @@ forms: ``half_scaled=True`` writes the half matrix M with R = M + M^T
 which the tracking solver consumes without a symmetric completion.
 Bound on the H100: bytes (the 10.24 MB output of the north-star shapes).
 The TPU kernel's sequential band recursion
-``acc_a = shift_left(acc_{a-1}) + lhsT[a] . rhs`` unrolls into independent
-running sums along lane diagonals, so one thread per (path, s1, diagonal)
-carries its sum in a register. Unlike the TPU kernel it serves any source
+``acc_a = shift_left(acc_{a-1}) + lhsT[a] . rhs`` unrolls into running
+sums along lane diagonals that never leave a (p, s1, s2) J x J tile: a
+block computes the tile's products for a group of source blocks in
+register tiles, in row bands (:func:`skew_plan`), and sums the diagonals
+in place in shared memory. Unlike the TPU kernel it serves any source
 count (no multiple-of-8 rule, no lane padding) and writes zeros, not
 garbage, in the strict-upper-tap lanes.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from apvast_torch.ops.kernels import _build
+
+SMEM_LIMIT = 227 * 1024  # bytes of shared memory a block may use
+SMEM_PREFERRED = 96 * 1024  # the whole J x J tile up to this: two blocks an SM
+
+
+def skew_plan(j: int, c: int) -> tuple[int, int]:
+    """The kernel's plan ``(g, band)``: ``g`` source blocks a block, the
+    fewest with g * J a multiple of 4 (rows store as float4), and T walked
+    in bands of ``band`` rows (a multiple of 4): the whole tile (J rounded
+    up to 4) if its shared memory, ``skew_smem_bytes``, stays within
+    SMEM_PREFERRED, else the widest band within it, else the widest within
+    SMEM_LIMIT. Raises ValueError when not even 4 rows fit."""
+    g = 4 // math.gcd(j, 4)
+    top = -(-j // 4) * 4
+    for limit in (SMEM_PREFERRED, SMEM_LIMIT):
+        band = next((b for b in range(top, 0, -4) if skew_smem_bytes(j, c, g, b) <= limit), 0)
+        if band:
+            return g, band
+    raise ValueError(
+        f"K3 on the card: C={c} rows of {g * j} staged lanes (J={j}) and a 4-row band "
+        f"need {skew_smem_bytes(j, c, g, 4)} bytes of shared memory, above the block's "
+        f"{SMEM_LIMIT} (227 KB)")
+
+
+def skew_smem_bytes(j: int, c: int, g: int, band: int) -> int:
+    """Shared memory of a block (``smem_bytes`` in the source): the staged rhs columns (C x gJ), a band of T (band x gJ), the
+    band's lhs rows (C x band) and the diagonals' sums (gJ) in float32, and
+    the list of the band's 4 x 4 tiles with its count in int32."""
+    ld = g * j
+    return 4 * (c * ld + band * ld + c * band + ld + (band // 4) * (ld // 4) + 1)
 
 
 def lag_skew_assemble_plain(
@@ -87,14 +121,13 @@ def lag_skew_assemble(
         raise ValueError(f"rhs_sm shape {tuple(rhs_sm.shape)} does not match lhs_t")
     if tuple(c0_sm.shape) != (p, s1, w):
         raise ValueError(f"c0_sm shape {tuple(c0_sm.shape)} != {(p, s1, w)}")
-    if j * c * 4 > 227 * 1024:
-        raise ValueError("J * C lhs rows exceed the block's shared memory")
     if lhs_t.device.type == "cpu":
         return lag_skew_assemble_plain(lhs_t, rhs_sm, c0_sm, j, half_scaled)
+    g, band = skew_plan(j, c)
     out = torch.empty((p, s1, j, w), dtype=torch.float32, device=lhs_t.device)
     _build.launch(
         "skew_assembly", "skew_assembly_launch",
-        lhs_t, rhs_sm, c0_sm, out, p, s1, j, c, w, int(half_scaled),
+        lhs_t, rhs_sm, c0_sm, out, p, s1, j, c, w, int(half_scaled), g, band,
     )
     lag_skew_assemble.launches += 1
     return out

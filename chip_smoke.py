@@ -61,14 +61,16 @@ Phase 2  each kernel against its plain PyTorch version on the card, at the
          (2, 128) complex at 8 sweeps, eigenvalues to 1e-4 of scale and the
          eigenvector residual and orthonormality within 1.5x the plain
          version's. K1 and K6, whose products run on the tensor cores in
-         3xTF32, and K2, K9 and K10a, whose factorizations and sums take
-         another order than their plain versions', also against a float64 oracle
-         (the plain version in float64 on the card) at every shape above
-         (K9 also at (3, 50, 8) with 1 iteration, (1, 40, 16) with none and
-         k = 112): per output, max|kernel - oracle| / max|oracle| within 2x
-         the plain float32 version's own error against it. Times
-         by CUDA events after warm-up, with the 50 MB L2 flushed (a 64 MB
-         read) before every launch; the bound is the larger of bytes over
+         3xTF32, and K2, K3, K5, K9, K10a and K11, whose factorizations and
+         sums take another order than their plain versions', also against a
+         float64 oracle (the plain version in float64 on the card) at every
+         shape above (K3 also at S = 33, J = 3 and, like its plain check, at
+         J = 100 and S = 32; K5 also at (2, 37, 9); K9 also at (3, 50, 8)
+         with 1 iteration, (1, 40, 16) with none and k = 112): per output,
+         max|kernel - oracle| / max|oracle| within 2x the plain float32
+         version's own error against it. Times by CUDA events after warm-up,
+         with the 50 MB L2 flushed (a 64 MB read) before every launch and the
+         card spinning while the host enqueues it (SPIN_CYCLES); the bound is the larger of bytes over
          3.35 TB/s and fp32 operations over 67 TFLOP/s (H100 SXM published
          peaks), for K1 and K6 three TF32 passes of their products over 495
          TFLOP/s (their fp32 bound printed beside it). K1's yardstick is the
@@ -207,6 +209,10 @@ TOL_ORACLE_RATIO = 2.0
 # The truncated weighting's tap count: the JAX package's production value
 # (tools/device_breakdown.py, tests/test_weighting_conv.py).
 WEIGHTING_TAPS = 257
+# Cycles the card spins (torch.cuda._sleep) before each timed launch, ~0.1
+# ms at 1980 MHz: the card stays busy while the host runs the wrapper
+# (tens of microseconds of Python), so the events time the device alone.
+SPIN_CYCLES = 200_000
 
 
 def _nvidia_smi() -> str:
@@ -219,13 +225,15 @@ def _nvidia_smi() -> str:
 def _time_ms(fn, iters: int, flush: torch.Tensor) -> float:
     """Mean device time of ``fn`` over ``iters`` launches, L2 flushed
     before each by reading a buffer larger than it (a read leaves no dirty
-    lines whose write-back would land inside the timed launch)."""
+    lines whose write-back would land inside the timed launch), the card
+    kept busy (SPIN_CYCLES) while the host enqueues the launch."""
     for _ in range(3):
         fn()
     total = 0.0
     events = []
     for _ in range(iters):
         flush.sum()
+        torch.cuda._sleep(SPIN_CYCLES)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -463,6 +471,16 @@ def phase2(scene, dev, card):
 
     # K3 skew assembly: lhsT (4, J*S, 2M), rhs (4, 2M, S*J), c0 (4, S, S*J).
     lhs3, rhs3, c03 = rnd(4, j * s, 2 * m), rnd(4, 2 * m, s * j), rnd(4, s, s * j)
+    # Ragged and wide K3 shapes of their own generator (the inputs of every
+    # other check are as before): reference_scene()'s J = 100 (S = 8, C =
+    # 18), scale_scene(32)'s S = 32 (C = 66), and S = 33 at J = 3.
+    g3 = torch.Generator().manual_seed(SEED + 3)
+
+    def k3_inputs(s_, j_, c_):
+        return tuple(torch.randn(sh, generator=g3).to(dev)
+                     for sh in ((4, j_ * s_, c_), (4, c_, s_ * j_), (4, s_, s_ * j_)))
+
+    r3_j100, r3_s32, r3_s33 = k3_inputs(8, 100, 18), k3_inputs(32, 50, 66), k3_inputs(33, 3, 4)
 
     # K4 Jacobi: the tracking solver's (2, k, k) Rayleigh-Ritz matrices,
     # k = V + oversample = 64, 2 sweeps (production_overrides()).
@@ -599,6 +617,11 @@ def phase2(scene, dev, card):
             library=None,
             flops=2 * 4 * (j * s) * (2 * m) * (s * j),
             bytes=4 * (lhs3.numel() + rhs3.numel() + c03.numel() + 4 * s * j * s * j),
+            oracle=[("north star", lambda a, b, c: K.lag_skew_assemble(a, b, c, j, True),
+                     lambda a, b, c: K.lag_skew_assemble_plain(a, b, c, j, True),
+                     (lhs3, rhs3, c03)),
+                    ("S33 J3 full form", lambda a, b, c: K.lag_skew_assemble(a, b, c, 3),
+                     lambda a, b, c: K.lag_skew_assemble_plain(a, b, c, 3), r3_s33)],
             ragged=[
                 (lambda a, b, c, hf=hf: K.lag_skew_assemble(a, b, c, 9, half_scaled=hf),
                  lambda a, b, c, hf=hf: K.lag_skew_assemble_plain(a, b, c, 9, half_scaled=hf),
@@ -608,6 +631,11 @@ def phase2(scene, dev, card):
                 (lambda a, b, c: K.lag_skew_assemble(a, b, c, 3, half_scaled=True),
                  lambda a, b, c: K.lag_skew_assemble_plain(a, b, c, 3, half_scaled=True),
                  (rnd(2, 33 * 3, 4), rnd(2, 4, 33 * 3), rnd(2, 33, 99))),
+            ] + [
+                (lambda a, b, c, jj=jj: K.lag_skew_assemble(a, b, c, jj, half_scaled=True),
+                 lambda a, b, c, jj=jj: K.lag_skew_assemble_plain(a, b, c, jj, half_scaled=True),
+                 args)
+                for jj, args in ((100, r3_j100), (50, r3_s32))
             ],
             extra=[
                 dict(label="full_form",
@@ -717,6 +745,13 @@ def phase2(scene, dev, card):
             kernel=lambda: K.circular_filter_overlap(x5, f5, plan.window, t5, hop),
             plain=lambda: K.circular_filter_overlap_plain(x5, f5, plan.window, t5, hop),
             library=lambda: F.conv1d(ext5, w5, groups=2),
+            oracle=[("north star", lambda a, b, w, t: K.circular_filter_overlap(a, b, w, t, hop),
+                     lambda a, b, w, t: K.circular_filter_overlap_plain(a, b, w, t, hop),
+                     (x5, f5, plan.window, t5)),
+                    ("(2, 37, 9) hop 30", lambda a, b, w, t: K.circular_filter_overlap(a, b, w, t, 30),
+                     lambda a, b, w, t: K.circular_filter_overlap_plain(a, b, w, t, 30),
+                     tuple(torch.randn(sh, generator=g3).to(dev)
+                           for sh in ((2, 100), (2, 37, 9), (100,), (2, 37, 70))))],
             flops=2 * 2 * v * s * j * block,
             bytes=4 * (x5.numel() + f5.numel() + block + t5.numel()
                        + 2 * v * s * hop + t5.numel()),
@@ -809,6 +844,7 @@ def phase2(scene, dev, card):
             kernel=lambda: K.circular_filter(x5, f5),
             plain=lambda: K.circular_filter_plain(x5, f5),
             library=lambda: F.conv1d(ext5, w5, groups=2),
+            oracle=[("north star", K.circular_filter, K.circular_filter_plain, (x5, f5))],
             flops=2 * 2 * v * s * j * block,
             bytes=4 * (x5.numel() + f5.numel() + 2 * v * s * block),
             ragged=[

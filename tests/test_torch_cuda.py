@@ -1,7 +1,9 @@
 """The port on a CUDA device: each kernel wrapper against its plain version
 at ragged shapes, its launch count, its input checks on the card; K1 and
 K6 (3xTF32 on the tensor cores) against a float64 oracle, on views with a
-storage offset, and K6's exact symmetry and repeatability; and the hop on
+storage offset, and K6's exact symmetry and repeatability; K3 (both
+forms), K5 and K11 against a float64 oracle, K3's exact zero and half
+lanes, their NaN patterns, repeatability and width limits; and the hop on
 the card (exact, production and 'invert' solver, the dense
 statistics with K6, the truncated weighting with K8, and the
 frequency-domain engine with K7) against the same hop on the CPU; K9 and
@@ -19,12 +21,15 @@ its real embedding: eigenvalues, residual, orthonormality); K1 and K6
 against float64 within twice the plain float32 version's own error; hop
 outputs as in tests/test_torch_hop.py (statistics 1e-4, target feeds 1e-5,
 loudspeaker feeds 5e-2 of each hop's scale; the cold first hop's feeds
-max(5e-2, 4 x the CPU hop's own spread under 1e-7 input changes)), the
+against the CPU hop with exact statistics kernels, within the larger of
+max(5e-2, 4 x the CPU hop's own spread under 1e-7 input changes) and 2 x
+the CPU float32 hop's own distance from it), the
 production hop compared hop by hop from the card's state
 (tests/test_torch_tracking.py says why); K9 and K10a against float64
 within twice the plain float32 version's own error.
 """
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -32,8 +37,10 @@ import pytest
 import torch
 
 from apvast_torch import ApVast, ApVastFD, GevdSolver, production_overrides
+from apvast_torch.engine import hop as HOP
 from apvast_torch.engine import hop_statistics, process_hop, process_hop_fd
 from apvast_torch.ops import kernels as K
+from apvast_torch.ops import lag_statistics as LS
 from apvast_torch.utils.rir import synthetic_rirs
 
 pytestmark = pytest.mark.cuda
@@ -586,6 +593,170 @@ def test_lag_corr_propagates_nan_as_plain(dev):
     assert _rel(got[finite], want[finite]) <= 1e-4
 
 
+# K3 at the north star, at scale_scene(32)'s shapes, at J = 100
+# (reference_scene()) and at two ragged shapes (source groups that do not
+# divide S): (S, J, C).
+_K3_CASES = {
+    "north star": (16, 50, 34),
+    "32 sources": (32, 50, 66),
+    "J 100": (8, 100, 18),
+    "S5 J9 C6": (5, 9, 6),
+    "S33 J3 C4": (33, 3, 4),
+}
+
+
+def _k3_inputs(dev, case, seed):
+    s, j, c = _K3_CASES[case]
+    g = torch.Generator().manual_seed(seed)
+    lhs = torch.randn((4, j * s, c), generator=g)
+    lhs[:, :s] = 0.0  # row a = 0 of the edge factors is zero by construction
+    rhs, c0 = torch.randn((4, c, s * j), generator=g), torch.randn((4, s, s * j), generator=g)
+    return lhs.to(dev), rhs.to(dev), c0.to(dev), j
+
+
+@pytest.mark.parametrize("half", [False, True], ids=["full", "half"])
+@pytest.mark.parametrize("case", list(_K3_CASES))
+def test_skew_assembly_within_twice_plain_error_against_float64(dev, case, half):
+    """K3 against a float64 oracle (its plain version in float64 on the
+    card): within 2x the plain float32 version's own error, and within
+    1e-4 of the plain version's scale."""
+    lhs, rhs, c0, j = _k3_inputs(dev, case, 91)
+    got = K.lag_skew_assemble(lhs, rhs, c0, j, half)
+    want = K.lag_skew_assemble_plain(lhs, rhs, c0, j, half)
+    oracle = K.lag_skew_assemble_plain(lhs.double(), rhs.double(), c0.double(), j, half)
+    torch.cuda.synchronize()
+    assert _rel(got, want) <= 1e-4
+    assert _rel(got, oracle) <= TOL_ORACLE_RATIO * _rel(want, oracle), (
+        _rel(got, oracle), _rel(want, oracle))
+
+
+@pytest.mark.parametrize("case", ["north star", "S5 J9 C6"])
+def test_skew_assembly_zero_and_half_lanes_exact(dev, case):
+    """The strict-upper-tap lanes are exactly 0 in both forms; the half
+    form's tap-diagonal lanes are exactly half the full form's and its
+    other lanes equal it bit for bit (the same sums, an exact scaling)."""
+    lhs, rhs, c0, j = _k3_inputs(dev, case, 93)
+    full, half = K.lag_skew_assemble(lhs, rhs, c0, j), K.lag_skew_assemble(lhs, rhs, c0, j, True)
+    torch.cuda.synchronize()
+    t2 = torch.arange(full.shape[-1], device=dev) % j
+    t1 = torch.arange(j, device=dev)
+    upper = (t2[None, :] > t1[:, None]).expand_as(full)
+    diag = (t2[None, :] == t1[:, None]).expand_as(full)
+    assert not full[upper].any() and not half[upper].any()
+    assert torch.equal(half[diag], 0.5 * full[diag])
+    assert torch.equal(half[~diag], full[~diag])
+
+
+def test_skew_assembly_and_output_filter_repeat_bit_for_bit(dev):
+    """Two launches on the same inputs give the same bits (fixed orders,
+    no atomics)."""
+    lhs, rhs, c0, j = _k3_inputs(dev, "north star", 95)
+    k5 = _k5_inputs(dev, "north star", 96)
+    first = (K.lag_skew_assemble(lhs, rhs, c0, j, True), *K.circular_filter_overlap(*k5))
+    second = (K.lag_skew_assemble(lhs, rhs, c0, j, True), *K.circular_filter_overlap(*k5))
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+@pytest.mark.parametrize("where", ["lhs_t", "rhs"])
+def test_skew_assembly_propagates_nan_as_plain(dev, where):
+    """One NaN in an lhs row (source s1 = 3, tap band a = 7) reaches the
+    rows of that s1 from band 7 on; one in an rhs column reaches the lanes
+    whose diagonal sums hold it, for every s1. The plain version's NaN
+    pattern in both forms (the strict-upper-tap lanes stay 0), its values
+    elsewhere."""
+    lhs, rhs, c0, j = _k3_inputs(dev, "north star", 97)
+    s = c0.shape[1]
+    if where == "lhs_t":
+        lhs[1, 7 * s + 3, 5] = float("nan")
+    else:
+        rhs[2, 11, 3 * j + 20] = float("nan")
+    for half in (False, True):
+        got = K.lag_skew_assemble(lhs, rhs, c0, j, half)
+        want = K.lag_skew_assemble_plain(lhs, rhs, c0, j, half)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        assert torch.isnan(got).any()
+        finite = ~torch.isnan(want)
+        assert _rel(got[finite], want[finite]) <= 1e-4
+
+
+def test_skew_assembly_card_bound(dev):
+    """Past 227 KB of shared memory for a 4-row band the wrapper names the
+    limit (the CPU serves the shape)."""
+    s, j, c = 1, 2000, 30
+    args = (torch.zeros(1, j * s, c), torch.zeros(1, c, s * j), torch.zeros(1, s, s * j))
+    assert K.lag_skew_assemble(*args, j).shape == (1, s, j, s * j)
+    with pytest.raises(ValueError, match="227 KB"):
+        K.lag_skew_assemble(*(a.to(dev) for a in args), j)
+
+
+# K5 at the north star, at scale_scene(32)'s rows, at J = 100
+# (reference_scene(): 400 rows) and at two ragged shapes, hop below and
+# above block - hop: (block, rows, taps, hop).
+_K5_CASES = {
+    "north star": (1600, 800, 50, 800),
+    "32 sources": (1600, 1600, 50, 800),
+    "J 100": (1600, 400, 100, 800),
+    "(2, 37, 9) hop 30": (100, 37, 9, 30),
+    "(2, 37, 9) hop 60": (100, 37, 9, 60),
+}
+
+
+def _k5_inputs(dev, case, seed):
+    block, rows, taps, hop = _K5_CASES[case]
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn((2, block), generator=g).to(dev),
+            (1e-2 * torch.randn((2, rows, taps), generator=g)).to(dev),
+            torch.rand(block, generator=g).to(dev),
+            (1e-2 * torch.randn((2, rows, block - hop), generator=g)).to(dev), hop)
+
+
+@pytest.mark.parametrize("case", list(_K5_CASES))
+def test_output_filter_within_twice_plain_error_against_float64(dev, case):
+    """K5 (emit and new tail) and K11 against a float64 oracle: within 2x
+    the plain float32 version's own error, and within 1e-4 of its scale."""
+    x, f, w, t, hop = _k5_inputs(dev, case, 99)
+    runs = [(K.circular_filter_overlap(x, f, w, t, hop),
+             K.circular_filter_overlap_plain(x, f, w, t, hop),
+             K.circular_filter_overlap_plain(x.double(), f.double(), w.double(), t.double(), hop)),
+            ((K.circular_filter(x, f),), (K.circular_filter_plain(x, f),),
+             (K.circular_filter_plain(x.double(), f.double()),))]
+    torch.cuda.synchronize()
+    for got, want, oracle in runs:
+        for g_, w_, o_ in zip(got, want, oracle):
+            assert _rel(g_, w_) <= 1e-4
+            assert _rel(g_, o_) <= TOL_ORACLE_RATIO * _rel(w_, o_), (_rel(g_, o_), _rel(w_, o_))
+
+
+def test_output_filter_propagates_nan_as_plain(dev):
+    """One NaN in the tail reaches only its own output (emit, below hop, in
+    the north star's hop = block - hop), as in the plain version."""
+    x, f, w, t, hop = _k5_inputs(dev, "north star", 101)
+    t[1, 300, 17] = float("nan")
+    got = K.circular_filter_overlap(x, f, w, t, hop)
+    want = K.circular_filter_overlap_plain(x, f, w, t, hop)
+    torch.cuda.synchronize()
+    for g_, w_ in zip(got, want):
+        assert torch.equal(torch.isnan(g_), torch.isnan(w_))
+        finite = ~torch.isnan(w_)
+        assert _rel(g_[finite], w_[finite]) <= 1e-4
+    assert torch.isnan(got[0][1, 300, 17]) and int(torch.isnan(got[0]).sum()) == 1
+    assert not torch.isnan(got[1]).any()
+
+
+def test_output_filter_card_bound(dev):
+    """Past 1632 taps (K5) and 1756 (K11) the filter rows outgrow a block's
+    shared memory and the wrappers name the limit."""
+    block = 1760
+    x, w = torch.zeros(1, block, device=dev), torch.zeros(block, device=dev)
+    f5, f11 = torch.zeros(1, 1, 1633, device=dev), torch.zeros(1, 1, 1757, device=dev)
+    with pytest.raises(ValueError, match="1632"):
+        K.circular_filter_overlap(x, f5, w, torch.zeros(1, 1, block - 800, device=dev), 800)
+    with pytest.raises(ValueError, match="1756"):
+        K.circular_filter(x, f11)
+
+
 @pytest.mark.parametrize("sweeps", [2, 3, 8])
 @pytest.mark.parametrize("n", [10, 37, 64], ids=["16-slots", "40-slots", "64-slots"])
 def test_jacobi_pair_form_equals_template_bit_for_bit(dev, n, sweeps):
@@ -707,6 +878,50 @@ def _cold_hop_spread(overrides):
     return max(_rel(x, y) for seed in COLD_SPREAD_SEEDS for x, y in zip(first_hop(seed), base))
 
 
+# The statistics kernels the hop calls (K1, K6 in engine/hop.py; K2, K3 in
+# ops/lag_statistics.py), by module and name, and their exact forms: the
+# plain version in float64, rounded once to float32.
+_STATISTICS_KERNELS = {
+    "streaming_conv": (HOP, lambda s, k, h: K.streaming_conv_plain(s.double(), k.double(), h)),
+    "covariance": (HOP, lambda b, t, j: K.covariance_plain(b.double(), t.double(), j)),
+    "lag_corr": (LS, lambda x, j: K.lag_corr_plain(x.double(), j)),
+    "lag_skew_assemble": (LS, lambda lhs, rhs, c0, j, half_scaled=False: (
+        K.lag_skew_assemble_plain(lhs.double(), rhs.double(), c0.double(), j, half_scaled))),
+}
+
+
+def _rounded(fn):
+    def exact(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        return tuple(x.float() for x in out) if isinstance(out, tuple) else out.float()
+    return exact
+
+
+EXACT_KERNELS = {name: _rounded(fn) for name, (_, fn) in _STATISTICS_KERNELS.items()}
+
+
+@contextlib.contextmanager
+def statistics_kernels(forms):
+    """The hop with ``forms`` (name -> function, names of
+    _STATISTICS_KERNELS) in place of those statistics kernels."""
+    shipped = {name: getattr(_STATISTICS_KERNELS[name][0], name) for name in forms}
+    try:
+        for name, fn in forms.items():
+            setattr(_STATISTICS_KERNELS[name][0], name, fn)
+        yield
+    finally:
+        for name, fn in shipped.items():
+            setattr(_STATISTICS_KERNELS[name][0], name, fn)
+
+
+def exact_hop(config, plan, state, a, b):
+    """The CPU hop from ``state`` with every statistics kernel that the
+    configuration launches computed exactly (EXACT_KERNELS): the first
+    hop's float64 reference (tools/cold_hop_rounding.py reads it too)."""
+    with statistics_kernels(EXACT_KERNELS):
+        return process_hop(config, plan, state, torch.from_numpy(a), torch.from_numpy(b))[1]
+
+
 # K4 at 8 sweeps: at the round-3 solvers' 2-3 sweeps it is unconverged on
 # their Rayleigh-Ritz matrices, and card and CPU then part by rounding
 # (chip_smoke.py, CONVERGED_SWEEPS).
@@ -732,7 +947,11 @@ def test_production_hop_on_the_card_matches_cpu(dev, config):
     """The production configuration launches its five kernels every hop,
     the 'invert' one (k = 16, JL = 96: one panel) all seven, the dense one
     K6 in place of K2 and K3, the truncated weighting K8 besides the five;
-    each card hop equals the CPU hop from the same state."""
+    each card hop equals the CPU hop from the same state. The cold first
+    hop's loudspeaker feeds are held, as every kernel is, against a float64
+    reference: the CPU hop with exact statistics kernels (exact_hop), within
+    max(cold_bar, TOL_ORACLE_RATIO x d), d the CPU float32 hop's own
+    distance from that reference."""
     rng = np.random.default_rng(10)
     overrides, kernels = _CARD_PATHS[config]
     kwargs = _s8_kwargs(rng, production_overrides() | overrides)
@@ -750,14 +969,21 @@ def test_production_hop_on_the_card_matches_cpu(dev, config):
         # noise: rounding alone moves its feeds on the CPU by the spread
         # that cold_bar scales (tools/cold_hop_rounding.py); for 'invert'
         # also through the ill-conditioned dark matrix's float32 inverse
-        # factor. The later hops are held to 5e-2.
+        # factor, by more than that spread. So hop 1 is held against the
+        # float64 reference. The later hops are held to 5e-2.
+        if hop == 0:
+            ref = exact_hop(cpu.config, cpu.plan, start, a, b)
+            d = max(_rel(getattr(want, name), getattr(ref, name)) for name in ("out_a", "out_b"))
+            bar = max(cold_bar, TOL_ORACLE_RATIO * d)
         for f, name in enumerate(("out_a", "out_b", "out_a_t", "out_b_t")):
             w = getattr(want, name)
             assert torch.isfinite(got[f]).all()
             if name.endswith("_t"):
                 assert _rel(got[f], w) <= 1e-5, name
+            elif hop == 0:
+                assert _rel(got[f], getattr(ref, name)) <= bar, (name, d, bar)
             else:
-                assert _rel(got[f], w) <= (cold_bar if hop == 0 else 5e-2), name
+                assert _rel(got[f], w) <= 5e-2, name
         # The card's buffers, through the CPU statistics (no launches).
         for x, y in zip(
             hop_statistics(card.config, card.state.wresp_stat.cpu(), card.state.wtarget_stat.cpu()),

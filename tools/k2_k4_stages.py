@@ -103,13 +103,16 @@ __device__ __forceinline__ unsigned long long* stage_last() {
     }                                                                           \
   } while (0)
 #define STAGE_STAMP(kind) STAGE_STAMP_AT(kind, 0, 0)
-__device__ unsigned long long stage_block[4][1024];
+// Per block (linear index, the first STAGE_BLOCKS of the grid) and kind.
+#define STAGE_BLOCKS 4096
+__device__ unsigned long long stage_block[4][STAGE_BLOCKS];
 #define STAGE_BLOCK(kind)                                                       \
   do {                                                                          \
-    if (threadIdx.x == 0 && blockIdx.x < 1024) {                                \
+    const unsigned b_ = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z); \
+    if (threadIdx.x == 0 && b_ < STAGE_BLOCKS) {                                \
       unsigned long long t_;                                                    \
       asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));                    \
-      stage_block[kind][blockIdx.x] = t_;                                       \
+      stage_block[kind][b_] = t_;                                               \
     }                                                                           \
   } while (0)
 extern "C" int stage_blocks(unsigned long long* out) {
@@ -118,7 +121,7 @@ extern "C" int stage_blocks(unsigned long long* out) {
   return (int)e;
 }
 extern "C" int stage_reset() {
-  static unsigned long long zb[4][1024];
+  static unsigned long long zb[4][STAGE_BLOCKS];
   unsigned long long z[32] = {};
   unsigned zn[32] = {};
   cudaError_t e = cudaMemcpyToSymbol(stage_sum, z, sizeof(z));
@@ -133,6 +136,17 @@ extern "C" int stage_read(unsigned long long* sum, unsigned* n) {
   return (int)e;
 }
 """
+
+
+STAGE_BLOCKS = 4096  # the header's STAGE_BLOCKS
+
+
+def stage_blocks(lib: ctypes.CDLL) -> list[list[int]]:
+    """The last stamped launch's per-block timer reads, by kind (0-3)."""
+    blocks = (ctypes.c_ulonglong * (4 * STAGE_BLOCKS))()
+    if lib.stage_blocks(blocks):
+        raise RuntimeError("stage_blocks failed")
+    return [list(blocks[k * STAGE_BLOCKS:(k + 1) * STAGE_BLOCKS]) for k in range(4)]
 
 
 def _kernel_body(src: str, signature: str) -> tuple[int, int]:
@@ -198,7 +212,7 @@ def build(jobs: dict[str, tuple[str, bool, tuple[str, ...]]],
         with open(path) as f:
             src = f.read()
         if stamped:
-            if "STAGE_STAMP(" not in src:
+            if "STAGE_STAMP" not in src:  # STAGE_STAMP(kind) or STAGE_STAMP_AT(...)
                 src = (_insert_k2_stamps(src) if "lag_corr_kernel" in src
                        else _insert_k4_stamps(src))
             src = STAMP_HEADER + src
@@ -331,12 +345,8 @@ def stages(label: str, lib: ctypes.CDLL, fn, flush: torch.Tensor, per: int = 1) 
             if counts[k]:
                 totals[k] = totals.get(k, 0.0) + sums[k] * 1e-6 / LAUNCHES
                 n_of[k] = counts[k]
-    blocks = (ctypes.c_ulonglong * 4096)()
-    if lib.stage_blocks(blocks):
-        raise RuntimeError("stage_blocks failed")
-    starts, ends = list(blocks[:1024]), list(blocks[1024:2048])
-    landed, fmas = list(blocks[2048:3072]), list(blocks[3072:])
-    timed = [b for b in range(1024) if starts[b] and ends[b]]
+    starts, ends, landed, fmas = stage_blocks(lib)
+    timed = [b for b in range(STAGE_BLOCKS) if starts[b] and ends[b]]
     if timed:
         t0 = min(starts[b] for b in timed)
 
