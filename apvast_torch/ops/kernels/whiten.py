@@ -264,8 +264,7 @@ def chol_tri_inverse(b: torch.Tensor) -> torch.Tensor:
     bz, n, _ = b.shape
     out = torch.empty_like(b)
     if bz:
-        # Per matrix: the trailing matrix and L, X = L^-1, the panel inverses.
-        ws = torch.empty(bz * (2 * npad * npad + PANEL * npad), dtype=torch.float32,
+        ws = torch.empty(chol_tri_inverse_workspace_floats(bz, npad), dtype=torch.float32,
                          device=b.device)
         _build.launch("chol_tri_inverse", "chol_tri_inverse_launch", b, out, ws, bz, n, npad)
         chol_tri_inverse.launches += 1
@@ -273,3 +272,14 @@ def chol_tri_inverse(b: torch.Tensor) -> torch.Tensor:
 
 
 chol_tri_inverse.launches = 0
+
+# The kernel's ready counters a matrix, and those of a launch
+# (csrc/chol_tri_inverse.cu: kCounters, kGlobalCounters).
+K10B_COUNTERS, K10B_GLOBAL_COUNTERS = 1024, 32
+
+
+def chol_tri_inverse_workspace_floats(bz: int, npad: int) -> int:
+    """Floats of K10b's workspace (csrc/chol_tri_inverse.cu's layout): per
+    matrix the trailing matrix and L, and X = L^-1, then the ready
+    counters, which the launch zeroes."""
+    return 2 * bz * npad * npad + K10B_GLOBAL_COUNTERS + bz * K10B_COUNTERS

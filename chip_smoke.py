@@ -53,9 +53,12 @@ Phase 2  each kernel against its plain PyTorch version on the card, at the
          oracle, both within 1e-5 of scale (the JAX package's bound), with
          exact zeros above the diagonal; on an ill-conditioned batch (its
          whitening residual within 2x that of cholesky_ex +
-         solve_triangular) and a non-PD one (non-finite output); timed beside
-         two chains: (a) cholesky_ex + solve_triangular, (b) the invert
-         path's blocked_cholesky (K10a x 7) + triangular_inverse. K4 and K7
+         solve_triangular) and a non-PD one (non-finite output, its
+         non-finite lower-triangle entries the plain version's); three
+         launches with other work on the stream between them, bit for bit;
+         timed beside two chains: (a) cholesky_ex + solve_triangular, (b)
+         the invert path's blocked_cholesky (K10a x 7) + triangular_inverse
+         (behind a longer spin, so the events see their device time). K4 and K7
          past 128 slots (the wide shared form and the global-memory form):
          warm-start-like (2, 136), (2, 200), (2, 256) real and (64, 72),
          (2, 128) complex at 8 sweeps, eigenvalues to 1e-4 of scale and the
@@ -213,6 +216,9 @@ WEIGHTING_TAPS = 257
 # ms at 1980 MHz: the card stays busy while the host runs the wrapper
 # (tens of microseconds of Python), so the events time the device alone.
 SPIN_CYCLES = 200_000
+# ~2 ms: before a timed chain of library calls (K10b's yardsticks, ~10 to
+# ~60 launches), so the events time the chain's device work.
+CHAIN_SPIN_CYCLES = 4_000_000
 
 
 def _nvidia_smi() -> str:
@@ -222,18 +228,18 @@ def _nvidia_smi() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def _time_ms(fn, iters: int, flush: torch.Tensor) -> float:
+def _time_ms(fn, iters: int, flush: torch.Tensor, spin: int = SPIN_CYCLES) -> float:
     """Mean device time of ``fn`` over ``iters`` launches, L2 flushed
     before each by reading a buffer larger than it (a read leaves no dirty
     lines whose write-back would land inside the timed launch), the card
-    kept busy (SPIN_CYCLES) while the host enqueues the launch."""
+    kept busy (``spin`` cycles) while the host enqueues the launch."""
     for _ in range(3):
         fn()
     total = 0.0
     events = []
     for _ in range(iters):
         flush.sum()
-        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(spin)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -902,7 +908,7 @@ def phase2(scene, dev, card):
         plain_ms = _time_ms(c["plain"], 10, flush)
         library_ms = _time_ms(c["library"], 50, flush) if c["library"] else None
         for key, fn in c.get("context", {}).items():
-            extra_ms[key] = _time_ms(fn, 50, flush)
+            extra_ms[key] = _time_ms(fn, 50, flush, CHAIN_SPIN_CYCLES)
             print(f"[phase 2] {c['name']}: {key} (see the docstring) "
                   f"{extra_ms[key]:.5f} ms card={card}", flush=True)
         t_ops = c["flops"] / PEAK_FP32_FLOPS * 1e3
@@ -970,8 +976,11 @@ def _chol_tri_inverse_checks(K, spd, batches, card):
     above the diagonal; on an ill-conditioned (2, 800, 800) batch (a 1e5
     rank-one boost) its whitening residual max |X B X^T - I| within twice
     that of cholesky_ex + solve_triangular (plus 1e-5), as
-    tests/test_whiten_kernel.py holds the TPU kernel; and a non-PD matrix
-    gives non-finite output while the PD one beside it stays finite."""
+    tests/test_whiten_kernel.py holds the TPU kernel; a non-PD matrix gives
+    non-finite output, in the plain version's lower-triangle entries, while
+    the PD one beside it stays finite; and three launches with other work on
+    the stream between them repeat bit for bit (the kernel's ready counters
+    are zeroed inside each launch)."""
     for b in batches:
         x = K.chol_tri_inverse(b)
         n = b.shape[-1]
@@ -1004,12 +1013,27 @@ def _chol_tri_inverse_checks(K, spd, batches, card):
     bad = spd(2, n)
     bad[1, 300, 300] = -1.0
     x = K.chol_tri_inverse(bad)
+    want = K.chol_tri_inverse_plain(bad)
     torch.cuda.synchronize()
     if torch.isfinite(x[1]).all() or not torch.isfinite(x[0]).all():
         raise AssertionError("chol_tri_inverse: a non-PD matrix must give non-finite output, "
                              "a PD one finite")
-    print(f"[phase 2] chol_tri_inverse non-PD matrix: non-finite output (PD matrix beside it "
-          f"finite) card={card}", flush=True)
+    lower = torch.ones(n, n, dtype=torch.bool, device=bad.device).tril()
+    if not torch.equal(torch.isfinite(x[1])[lower], torch.isfinite(want[1])[lower]):
+        raise AssertionError("chol_tri_inverse: the non-PD matrix's non-finite entries differ "
+                             "from the plain version's")
+    print(f"[phase 2] chol_tri_inverse non-PD matrix: non-finite output in the plain version's "
+          f"entries (PD matrix beside it finite) card={card}", flush=True)
+    other = torch.full((2, 2048, 2048), 0.5, device=bad.device)
+    runs = []
+    for _ in range(3):
+        runs.append(K.chol_tri_inverse(batches[0]))
+        other = other @ other.transpose(1, 2) / 2048
+    torch.cuda.synchronize()
+    if not (torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])):
+        raise AssertionError("chol_tri_inverse: three launches differ")
+    print(f"[phase 2] chol_tri_inverse {tuple(batches[0].shape)}: three launches, other work "
+          f"between them, bit for bit card={card}", flush=True)
 
 
 def _jacobi_wide_checks(K, g, dev, card, flush):

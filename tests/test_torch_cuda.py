@@ -137,8 +137,10 @@ def _cases(rnd):
             (rnd(1, 64), rnd(1, 5, 64)),
             (rnd(2, 1600), rnd(2, 33, 50)),
         ],
-        # One panel, the padding path, the main path's shape.
-        "chol_tri_inverse": [(_spd(rnd, 2, 128),), (_spd(rnd, 1, 200),), (_spd(rnd, 2, 800),)],
+        # One panel, the padding path, the main path's shape; the most panels
+        # (the longest look-ahead chain) and an odd batch.
+        "chol_tri_inverse": [(_spd(rnd, 2, 128),), (_spd(rnd, 1, 200),), (_spd(rnd, 2, 800),),
+                             (_spd(rnd, 1, 1024),), (_spd(rnd, 3, 300),)],
     }
 
 
@@ -203,18 +205,83 @@ def test_whiten_kernel_non_pd_panel_is_non_finite(dev):
     assert (torch.triu(l[0], 1) == 0).all() and (torch.triu(inv[0], 1) == 0).all()
 
 
-def test_chol_tri_inverse_non_pd_is_non_finite(dev):
-    """K10b: a negative pivot gives non-finite rows from its sub-panel down,
+@pytest.mark.parametrize("n,bad", [(300, 150), (800, 300), (800, 700)],
+                         ids=["panel1", "panel2-second-sub-panel", "last-panel"])
+def test_chol_tri_inverse_non_pd_is_non_finite(dev, n, bad):
+    """K10b: a negative pivot gives non-finite rows from its sub-panel down
+    (and, past the first panel, in the columns before its panel of the
+    panel's rows above it, as the plain version's refinement spreads it),
+    the non-finite entries of the lower triangle are the plain version's,
     the SPD matrix beside it stays finite, and both keep exact zeros above
     the diagonal."""
     g = torch.Generator().manual_seed(4)
-    b = _spd(lambda *s: torch.randn(s, generator=g).to(dev), 2, 300)
-    b[1, 150, 150] = -1.0
+    b = _spd(lambda *s: torch.randn(s, generator=g).to(dev), 2, n)
+    b[1, bad, bad] = -1.0
     x = K.chol_tri_inverse(b)
+    want = K.chol_tri_inverse_plain(b)
     torch.cuda.synchronize()
     assert torch.isfinite(x[0]).all() and not torch.isfinite(x[1]).all()
-    assert torch.isfinite(x[1, :128]).all()
+    assert torch.isfinite(x[1, : bad // 128 * 128]).all()
+    r0 = bad // 32 * 32
+    rows_lower = torch.ones(n - r0, n, dtype=torch.bool, device=dev).tril(r0)
+    assert not torch.isfinite(x[1, r0:])[rows_lower].any()
+    lower = torch.ones(n, n, dtype=torch.bool, device=dev).tril()
+    assert torch.equal(torch.isfinite(x[1])[lower], torch.isfinite(want[1])[lower])
     assert (torch.triu(x, 1) == 0).all()
+
+
+# K10b against its plain version (the JAX package's bound, chip_smoke.py's
+# TOL_CHOL_TRI) and a float64 oracle at each shape of _cases.
+TOL_CHOL_TRI = 1e-5
+
+
+# (9, 256): more matrices than one launch takes (7 on a 132-SM card).
+@pytest.mark.parametrize("bz,n", [(2, 128), (1, 200), (2, 800), (1, 1024), (3, 300), (9, 256)])
+def test_chol_tri_inverse_within_1e5_of_plain_and_float64(dev, bz, n):
+    g = torch.Generator().manual_seed(n + bz)
+    b = _spd(lambda *s: torch.randn(s, generator=g).to(dev), bz, n)
+    x = K.chol_tri_inverse(b)
+    torch.cuda.synchronize()
+    assert _rel(x, K.chol_tri_inverse_plain(b)) <= TOL_CHOL_TRI
+    eye = torch.eye(n, dtype=torch.float64, device=dev).expand(bz, n, n)
+    oracle = torch.linalg.solve_triangular(torch.linalg.cholesky(b.double()), eye, upper=False)
+    assert _rel(x, oracle) <= TOL_CHOL_TRI
+    assert (torch.triu(x, 1) == 0).all()
+
+
+def test_chol_tri_inverse_repeats_bit_for_bit(dev):
+    """Three launches with other work on the stream between them: the
+    ready counters are zeroed inside each launch, and each tile's sums keep
+    their order whatever block takes the tile."""
+    g = torch.Generator().manual_seed(12)
+    b = _spd(lambda *s: torch.randn(s, generator=g).to(dev), 2, 800)
+    other = torch.randn(2, 4096, 4096, generator=g).to(dev)
+    runs = []
+    for _ in range(3):
+        runs.append(K.chol_tri_inverse(b))
+        other = other @ other.transpose(1, 2) / 4096
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
+
+
+def test_chol_tri_inverse_ill_conditioned_residual(dev):
+    """The whitening residual max |X B X^T - I| of a 1e5 rank-one boost
+    within twice that of cholesky_ex + solve_triangular, plus 1e-5."""
+    g = torch.Generator().manual_seed(13)
+    x0 = torch.randn(2, 800, 800, generator=g)
+    b = x0 @ x0.transpose(1, 2) / 800 + torch.eye(800)
+    b[0] += 1e5 * torch.outer(x0[0, 0], x0[0, 0]) / 800
+    b = b.to(dev).contiguous()
+    eye = torch.eye(800, device=dev)
+    x = K.chol_tri_inverse(b)
+    chain = torch.linalg.solve_triangular(torch.linalg.cholesky_ex(b)[0], eye.expand(2, 800, 800),
+                                          upper=False)
+
+    def residual(m):
+        m = m.double()
+        return float((m @ b.double() @ m.transpose(1, 2) - eye.double()).abs().max())
+
+    assert residual(x) <= 2.0 * residual(chain) + 1e-5
 
 
 def _eigen_state(a, w, v):

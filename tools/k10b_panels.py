@@ -7,25 +7,22 @@ For n = 128, 256, ..., 1024 (1 to 8 panels) and a batch of 2 random SPD
 matrices: K10b's time, and the two chains that compute the same L^-1,
 (a) ``cholesky_ex`` + ``solve_triangular`` and (b) the invert path's
 ``blocked_cholesky`` (K10a once per panel) + ``triangular_inverse``, each by
-CUDA events with the L2 flushed before every launch. The step from one panel
-count to the next is what one more panel costs: its factorization, its
-solve and inverse tiles, its trailing update and three grid-wide barriers.
-Each result is checked against the plain version first.
+CUDA events with the L2 flushed before every launch and the card spinning
+while the host enqueues it (the chains, ~10 to ~60 launches each, behind a
+spin long enough for all of their host time), so the events time the
+device. The step from one panel count to the next is what one more panel
+costs. Each kernel result is checked against the plain version first.
 
-Then, at the main path's shape (2, 800, 800), the time that each phase
-takes, by ablation: the source is built again (into
-``apvast_torch/_build/k10b_ablations/``) with the block-row inverse tiles,
-the panel-solve tiles, the trailing update, or all three left out, and each
-build is timed beside the full kernel (full, ablations, full). The ablated
-builds compute wrong results; they only time what is left. Prints the
-card's name and power limit.
+``tools/k10b_stages.py`` runs the same sweep with an earlier tree's K10b
+beside this one, and splits the kernel into stages by timer stamps. (This
+tool once split the first design into phases by ablated builds; those
+edits matched that design's source text only, and the stamps replaced
+them.) Prints the card's name and power limit.
 """
 
 from __future__ import annotations
 
-import ctypes
 import os
-import re
 import subprocess
 import sys
 
@@ -34,66 +31,25 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from apvast_torch.ops import kernels as K  # noqa: E402
-from apvast_torch.ops.kernels import _build  # noqa: E402
 from apvast_torch.ops.trisolve import triangular_inverse  # noqa: E402
 
 BATCH = 2
 PANEL = 128
-# name -> (pattern, replacement) edits of csrc/chol_tri_inverse.cu.
-ABLATIONS = {
-    "no inverse tiles": [(r"per = solves \+ lo / kInvCols", "per = solves")],
-    "no solve tiles": [(r"const int solves = \(np - hi\) / kSolveRows", "const int solves = 0")],
-    "no trailing update": [(r"share\(a\.bz \* tiles, first, last\)", "share(0, first, last)")],
-}
-ABLATIONS["factor panels only"] = [e for v in ABLATIONS.values() for e in v]
+TOL = 1e-5  # chip_smoke.py's TOL_CHOL_TRI
+SPIN_CYCLES = 200_000  # chip_smoke.py's: ~0.1 ms, covers one wrapper's host path
+CHAIN_SPIN_CYCLES = 4_000_000  # ~2 ms: covers a chain's launches
 
 
-def build_ablations(out_dir: str) -> dict[str, ctypes.CDLL]:
-    with open(os.path.join(_build.CSRC, "chol_tri_inverse.cu")) as f:
-        src = f.read()
-    os.makedirs(out_dir, exist_ok=True)
-    procs = {}
-    for i, (name, edits) in enumerate(ABLATIONS.items()):
-        text = src
-        for pattern, repl in edits:
-            text, count = re.subn(pattern, repl, text)
-            if count != 1:
-                raise RuntimeError(f"ablation {name!r}: {pattern!r} matched {count} times")
-        path = os.path.join(out_dir, f"k10b_{i}.cu")
-        with open(path, "w") as f:
-            f.write(text)
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", path[:-3] + ".so", path]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT),
-                       path[:-3] + ".so")
-    libs = {}
-    for name, (proc, so) in procs.items():
-        log = proc.communicate()[0].decode()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name!r}:\n{log}")
-        libs[name] = ctypes.CDLL(so)
-    return libs
-
-
-def launch(lib: ctypes.CDLL, b: torch.Tensor) -> None:
-    bz, n, _ = b.shape
-    npad = -(-n // PANEL) * PANEL
-    out = torch.empty_like(b)
-    ws = torch.empty(bz * (2 * npad * npad + PANEL * npad), device=b.device)
-    fn = lib.chol_tri_inverse_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(b.data_ptr(), out.data_ptr(), ws.data_ptr(), bz, n, npad,
-             torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"launch failed: cudaError {err}")
-
-
-def time_ms(fn, flush: torch.Tensor, iters: int = 20) -> float:
+def time_ms(fn, flush: torch.Tensor, iters: int = 20, spin: int = SPIN_CYCLES) -> float:
+    """Mean CUDA-event time of ``fn``, the L2 flushed before each launch
+    (a 64 MB read) and the card spinning ``spin`` cycles while the host
+    enqueues it."""
     for _ in range(3):
         fn()
     events = []
     for _ in range(iters):
         flush.sum()
+        torch.cuda._sleep(spin)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -103,41 +59,55 @@ def time_ms(fn, flush: torch.Tensor, iters: int = 20) -> float:
     return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
+def spd(n: int, g: torch.Generator, dev: torch.device) -> torch.Tensor:
+    x = torch.randn((BATCH, n, n), generator=g)
+    return (x @ x.transpose(1, 2) / n + torch.eye(n)).to(dev).contiguous()
+
+
+def sweep(forms: dict, flush: torch.Tensor, panels=range(1, 9)) -> dict:
+    """Per panel count: each of ``forms`` (name -> function of b giving
+    L^-1), checked against the plain version, then timed with chains (a)
+    and (b) in the same loop. Returns {panels: {name: ms}}."""
+    dev = flush.device
+    g = torch.Generator().manual_seed(0)
+    prev, out = {}, {}
+    for count in panels:
+        n = PANEL * count
+        b = spd(n, g, dev)
+        want = K.chol_tri_inverse_plain(b)
+        for name, fn in forms.items():
+            err = float((fn(b) - want).abs().max() / want.abs().max())
+            if not err <= TOL:
+                raise AssertionError(f"{name} at n={n}: {err:.3e} against plain > {TOL}")
+        eye = torch.eye(n, device=dev).expand(BATCH, n, n)
+        times = {name: time_ms(lambda fn=fn: fn(b), flush) for name, fn in forms.items()}
+        times["chain (a)"] = time_ms(lambda: torch.linalg.solve_triangular(
+            torch.linalg.cholesky_ex(b)[0], eye, upper=False), flush, spin=CHAIN_SPIN_CYCLES)
+        times["chain (b)"] = time_ms(lambda: triangular_inverse(K.blocked_cholesky(b)), flush,
+                                     spin=CHAIN_SPIN_CYCLES)
+        steps = "".join(f", {name} +{ms - prev[name]:.5f}" for name, ms in times.items()
+                        if name in prev)
+        print(f"({BATCH}, {n}, {n}), {count} panels (ms): "
+              + ", ".join(f"{name} {ms:.5f}" for name, ms in times.items())
+              + (f"; a panel more:{steps[1:]}" if steps else ""), flush=True)
+        prev, out[count] = times, times
+    return out
+
+
+def nvidia_smi() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm",
+                           "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device("cuda")
-    g = torch.Generator().manual_seed(0)
-    flush = torch.zeros(64 * 2**20 // 4, device=dev)
-    prev = None
-    for panels in range(1, 9):
-        n = 128 * panels
-        x = torch.randn((BATCH, n, n), generator=g)
-        b = (x @ x.transpose(1, 2) / n + torch.eye(n)).to(dev).contiguous()
-        eye = torch.eye(n, device=dev).expand(BATCH, n, n)
-        got, want = K.chol_tri_inverse(b), K.chol_tri_inverse_plain(b)
-        err = float((got - want).abs().max() / want.abs().max())
-        ms = time_ms(lambda: K.chol_tri_inverse(b), flush)
-        chain_a = time_ms(lambda: torch.linalg.solve_triangular(
-            torch.linalg.cholesky_ex(b)[0], eye, upper=False), flush)
-        chain_b = time_ms(lambda: triangular_inverse(K.blocked_cholesky(b)), flush)
-        step = "" if prev is None else f", +{ms - prev:.5f} for the panel"
-        prev = ms
-        print(f"({BATCH}, {n}, {n}), {panels} panels: K10b {ms:.5f} ms{step}; chain (a) "
-              f"{chain_a:.5f}, chain (b) {chain_b:.5f} ms; rel_err against plain {err:.2e}",
-              flush=True)
-    libs = build_ablations(os.path.join(_build.BUILD_DIR, "k10b_ablations"))
-    x = torch.randn((BATCH, 800, 800), generator=g)
-    b = (x @ x.transpose(1, 2) / 800 + torch.eye(800)).to(dev).contiguous()
-    full = [time_ms(lambda: K.chol_tri_inverse(b), flush)]
-    times = {name: time_ms(lambda: launch(lib, b), flush) for name, lib in libs.items()}
-    full.append(time_ms(lambda: K.chol_tri_inverse(b), flush))
-    print(f"({BATCH}, 800, 800): full kernel {full[0]:.5f} / {full[1]:.5f} ms; "
-          + "; ".join(f"{name} {ms:.5f} ms" for name, ms in times.items()), flush=True)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60).stdout.strip())
+    print(nvidia_smi(), flush=True)
+    flush = torch.zeros(64 * 2**20 // 4, device="cuda")
+    sweep({"K10b": K.chol_tri_inverse}, flush)
     return 0
 
 
