@@ -20,6 +20,7 @@ from apvast_torch.engine import (
     stitch_outputs,
 )
 from apvast_torch.models import ApVast, ApVastFD
+from apvast_torch.runtime import StreamHost
 
 __all__ = [
     "ApVast",
@@ -27,6 +28,7 @@ __all__ = [
     "ApVastFD",
     "GevdSolver",
     "HopOutputs",
+    "StreamHost",
     "build_plan",
     "init_state",
     "process_hop",

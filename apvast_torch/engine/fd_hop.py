@@ -40,7 +40,7 @@ from apvast_torch.engine.hop import (
     convolve_inputs,
     weighted_spectra,
 )
-from apvast_torch.engine.plan import ApVastPlan
+from apvast_torch.engine.plan import ApVastPlan, hop_gates
 from apvast_torch.engine.state import response_tails
 from apvast_torch.ops.jdiag import eigh, jdiag_hermitian_batched
 from apvast_torch.ops.small_chol import cholesky_small, posdef_solve_small
@@ -370,7 +370,7 @@ def process_hop_fd(
     else:
         h_vec = r_spec
     new_cov = torch.einsum("pmsf,pmtf->pfst", h_vec.conj(), h_vec)
-    new_cross = torch.einsum("zmsf,zmf->zfs", h_vec[[0, 3]].conj(), wt_spec)
+    new_cross = torch.einsum("zmsf,zmf->zfs", h_vec[0::3].contiguous().conj(), wt_spec)
     cov = forgetting * state.cov + new_cov
     cross = forgetting * state.cross + new_cross
 
@@ -396,8 +396,8 @@ def process_hop_fd(
 
     # ---- batched per-bin Hermitian GEVD --------------------------------
     # Zone A pencil per bin: (cov[AA], cov[AB]); zone B: (cov[BB], cov[BA]).
-    a_stack = cov_d[[0, 3]].reshape(2 * bins, sb, sb)
-    b_stack = cov_d[[1, 2]].reshape(2 * bins, sb, sb)
+    a_stack = cov_d[0::3].reshape(2 * bins, sb, sb)
+    b_stack = cov_d[1:3].reshape(2 * bins, sb, sb)
     if reg is None:
         trace = torch.diagonal(b_stack, dim1=-2, dim2=-1).sum(-1).real / sb
         reg_vec = config.reg_b + 1e-4 * trace
@@ -412,7 +412,7 @@ def process_hop_fd(
         h = a_stack + mu * b_loaded
         if config.fd_group_size > 1:
             g = config.fd_group_size
-            q_raw = cov[[0, 3]] + mu * cov[[1, 2]]
+            q_raw = cov[0::3] + mu * cov[1:3]
             h_diag = h.reshape(2, bins, sb, sb)
             w = _solve_bin_groups(config, h_diag, q_raw, cross_d, p_o, offs, 0)
             if config.fd_group_overlap:
@@ -427,7 +427,7 @@ def process_hop_fd(
         else:
             w = posdef_solve_small(h, cross_d.reshape(2 * bins, sb, 1))
             if config.fd_coupled_iters > 0:
-                q_raw = cov[[0, 3]] + mu * cov[[1, 2]]
+                q_raw = cov[0::3] + mu * cov[1:3]
                 w = _coupled_refine(
                     config, plan, h.reshape(2, bins, sb, sb), cross, q_raw,
                     reg_vec.reshape(2, bins), w.reshape(2, bins, sb),
@@ -450,10 +450,7 @@ def process_hop_fd(
         w_all = torch.cumsum(
             coef[..., :v, None] * u.transpose(2, 3)[:, :, :v, :], dim=2
         )  # (2, bins, V, sb)
-    zone_gate = torch.tensor(
-        [float(config.run_a), float(config.run_b)], dtype=dtype, device=device
-    )
-    w_all = w_all * zone_gate[:, None, None, None]
+    w_all = w_all * hop_gates(config, device).zone[:, None, None, None]
     # Silence non-finite bins instead of letting them into the output chain.
     bad_w = ~torch.isfinite(w_all)
     silenced = bad_w.sum(dtype=torch.int32)

@@ -1,0 +1,256 @@
+"""The hop captured once as a CUDA graph per rebuild branch and replayed:
+the counterpart of the JAX package's ``jax.jit(process_hop)``
+(``apvast_tpu/models/apvast.py``, ``models/apvast_fd.py``).
+
+A time-domain production hop is about 650 kernel launches, an FD hop
+about 300; enqueued one by one from Python they leave the card idle most
+of the hop. :class:`GraphedHop` owns static buffers (the two input hops,
+the state, the outputs), captures the hop body :func:`hop_into` once per
+branch (the tracking solver's rebuild and no-rebuild hops; one graph for
+every other configuration) into one memory pool, and replays it: one
+launch a hop.
+
+The body reads nothing from the device and builds no tensor from host
+data, so a graph replays the hop exactly. The tracking solver's rebuild
+decision stays on the host (warmup, cadence, the previous hop's residual
+above ``tracking_residual_rebuild``): when the next hop needs the
+residual, it is copied into pinned host memory behind the previous
+replay and read after that copy's event, one read a hop at most and none
+on warmup and cadence hops. Configurations
+whose hop must read the device mid-hop stay eager (:func:`eager_reason`).
+A capture or replay error raises; nothing falls back to the eager hop.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import torch
+
+from apvast_torch.config import ApVastConfig, uses_subspace_solver, uses_tracking_solver
+from apvast_torch.engine.fd_hop import FdState, process_hop_fd
+from apvast_torch.engine.hop import HopOutputs, process_hop, rebuild_predicate
+from apvast_torch.engine.plan import ApVastPlan
+from apvast_torch.ops import kernels as K
+from apvast_torch.utils.device import torch_dtype
+
+_EIGH = "torch.linalg.eigh, which checks its result on the host (a device read mid-hop)"
+
+
+def eager_reason(config: ApVastConfig, fd: bool = False) -> str | None:
+    """Why the hop of ``config`` (the FD engine's when ``fd``) cannot be
+    captured, or None when it can: a hop that reads the device mid-hop."""
+    if fd:
+        if config.fd_span == "all" and config.fd_eigh == "lapack":
+            return f"fd_eigh='lapack' solves each bin with {_EIGH}"
+        if config.fd_span == "full" and config.fd_group_size > 1:
+            if config.fd_group_rank_tol > 0:
+                return f"the group solve's rank cutoff (fd_group_rank_tol > 0) runs {_EIGH}"
+            return ("the group solve (fd_group_size > 1) builds its overlap mask from host "
+                    "data and its LU solve (torch.linalg.solve_ex) is not held capture-safe")
+        return None
+    if not uses_subspace_solver(config):
+        return f"the exact solver runs {_EIGH}"
+    if config.subspace_whiten == "newton":
+        return ("'newton' decides between a Newton-Schulz step and a rebuild from the "
+                "carried inverse's residual, read from the device mid-hop")
+    if config.small_eigh != "jacobi":
+        return f"small_eigh='{config.small_eigh}' solves the Rayleigh-Ritz matrices with {_EIGH}"
+    if config.subspace_orth != "cholqr2" and config.subspace_whiten != "tracking":
+        return ("subspace_orth='qr' runs torch.linalg.qr, whose cuSOLVER and MAGMA paths "
+                "are not held capture-safe")
+    return None
+
+
+def _tensors(state):
+    return {f.name: getattr(state, f.name) for f in dataclasses.fields(state)
+            if isinstance(getattr(state, f.name), torch.Tensor)}
+
+
+def _overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether the storages of two tensors overlap in memory (a view of a
+    tensor overlaps it, wherever its offset)."""
+    if a.device != b.device:
+        return False
+    sa, sb = a.untyped_storage(), b.untyped_storage()
+    a0, b0 = sa.data_ptr(), sb.data_ptr()
+    return a0 < b0 + sb.nbytes() and b0 < a0 + sa.nbytes()
+
+
+def copy_state_into(dst, src) -> None:
+    """Write the state ``src`` into the tensors of ``dst`` in place (host
+    fields by assignment). A field that is ``dst``'s own tensor (a carry
+    that a hop returns unchanged, such as a tracking hop's preconditioner
+    without a rebuild) is skipped; a field whose memory overlaps any of
+    ``dst``'s tensors otherwise is cloned first, so that no copy reads
+    memory that an earlier copy has written."""
+    targets = _tensors(dst)
+    staged = {}
+    for f in dataclasses.fields(dst):
+        new = getattr(src, f.name)
+        old = getattr(dst, f.name)
+        if not isinstance(old, torch.Tensor):
+            setattr(dst, f.name, new)
+            continue
+        if new is old or (new.data_ptr() == old.data_ptr() and new.stride() == old.stride()
+                          and new.shape == old.shape):
+            continue
+        if any(_overlaps(new, t) for t in targets.values()):
+            new = new.clone()
+        staged[f.name] = new
+    for name, new in staged.items():
+        targets[name].copy_(new)
+
+
+def clone_state(state):
+    """A copy of a hop state whose tensors are contiguous clones."""
+    return dataclasses.replace(state, **{
+        name: t.clone(memory_format=torch.contiguous_format)
+        for name, t in _tensors(state).items()
+    })
+
+
+def hop_into(
+    config: ApVastConfig,
+    plan: ApVastPlan,
+    state,
+    hop_a: torch.Tensor,
+    hop_b: torch.Tensor,
+    rebuilt: bool = False,
+    forgetting: float = 0.9,
+) -> HopOutputs:
+    """The captured body: one hop of either engine from ``state``, the new
+    state written back into ``state``'s tensors (:func:`copy_state_into`).
+
+    ``rebuilt`` is the tracking solver's rebuild decision, taken by the
+    caller (ignored by the other solvers); ``forgetting`` is the FD
+    engine's covariance decay. Returns the hop's outputs, fresh tensors."""
+    if isinstance(state, FdState):
+        new, out = process_hop_fd(config, plan, state, hop_a, hop_b, forgetting=forgetting)
+    else:
+        new, out = process_hop(config, plan, state, hop_a, hop_b, rebuild_override=rebuilt)
+    copy_state_into(state, new)
+    return out
+
+
+def _static_like(t: torch.Tensor | None) -> torch.Tensor | None:
+    return None if t is None else torch.empty(t.shape, dtype=t.dtype, device=t.device)
+
+
+class GraphedHop:
+    """One hop of ``config`` on the card, captured once per branch and
+    replayed (see the module docstring).
+
+    ``state`` is copied into the static state, which :attr:`state` holds
+    from then on (its tensors change in place with every replay). Every
+    branch is warmed up eagerly on a side stream before capture, on a
+    scratch copy of the state, so that every per-shape cache (K2's
+    workspace size, the Jacobi kernels' tables, the kernels' attributes,
+    cuBLAS and cuFFT plans) is filled before capture. The kernel wrappers'
+    launch counters run in Python and so count only while a graph is
+    captured: each graph keeps the counts of its capture, which
+    :meth:`replay` adds, and the counts of the warmup and the captures
+    are taken back out."""
+
+    def __init__(self, config: ApVastConfig, plan: ApVastPlan, state, forgetting: float = 0.9):
+        device = plan.window.device
+        if device.type != "cuda":
+            raise ValueError(f"a CUDA graph needs a CUDA device, the plan is on {device}")
+        fd = isinstance(state, FdState)
+        reason = eager_reason(config, fd)
+        if reason is not None:
+            raise ValueError(f"this configuration's hop cannot be captured: {reason}")
+        self.config, self.plan, self.forgetting = config, plan, forgetting
+        self.tracking = not fd and uses_tracking_solver(config)
+        self.hops = torch.zeros((2, config.hop), dtype=torch_dtype(config), device=device)
+        self.state = clone_state(state)
+        self.out: HopOutputs | None = None
+        self.graphs: dict[bool, torch.cuda.CUDAGraph] = {}
+        self.launches: dict[bool, dict[str, int]] = {}
+        self.capture_seconds: dict[bool, float] = {}
+        # The previous hop's residual in pinned host memory, its copy's
+        # event, and how many hops read it.
+        self._resid_host = torch.zeros((), dtype=torch.float32, pin_memory=True)
+        self._resid_event = torch.cuda.Event()
+        self.resid_reads = 0
+        self._capture(device, (True, False) if self.tracking else (False,))
+
+    def _body(self, state, rebuilt: bool) -> HopOutputs:
+        return hop_into(self.config, self.plan, state, self.hops[0], self.hops[1], rebuilt,
+                        self.forgetting)
+
+    def _capture(self, device, branches) -> None:
+        counts = K.launch_counts()
+        hop0 = getattr(self.state, "gevd_hop", None)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            for rebuilt in branches:
+                out = self._body(clone_state(self.state), rebuilt)
+        torch.cuda.current_stream(device).wait_stream(side)
+        self.out = HopOutputs(**{
+            f.name: _static_like(getattr(out, f.name)) for f in dataclasses.fields(out)
+            if f.name != "rebuilt"
+        })
+        pool = None
+        for rebuilt in branches:
+            K.reset_launch_counts()
+            graph = torch.cuda.CUDAGraph()
+            t0 = time.perf_counter()
+            with torch.cuda.graph(graph, pool=pool):
+                out = self._body(self.state, rebuilt)
+                for name in ("out_a", "out_b", "out_a_t", "out_b_t", "silenced"):
+                    if getattr(out, name) is not None:
+                        getattr(self.out, name).copy_(getattr(out, name))
+            torch.cuda.synchronize(device)
+            self.capture_seconds[rebuilt] = time.perf_counter() - t0
+            self.launches[rebuilt] = K.launch_counts()
+            self.graphs[rebuilt] = graph
+            pool = graph.pool()
+            if hop0 is not None:
+                self.state.gevd_hop = hop0
+            del out
+        K.reset_launch_counts()
+        K.add_launch_counts(counts)
+
+    def load(self, state) -> None:
+        """Copy ``state`` into the static state (what the next replay
+        starts from)."""
+        copy_state_into(self.state, state)
+
+    def stage(self, hop_a, hop_b) -> None:
+        """Copy the next hop's two inputs into the static input buffer:
+        one copy of the stacked pair for host arrays, one each for device
+        tensors."""
+        if isinstance(hop_a, torch.Tensor) and isinstance(hop_b, torch.Tensor):
+            self.hops[0].copy_(hop_a.reshape(-1))
+            self.hops[1].copy_(hop_b.reshape(-1))
+        else:
+            self.hops.copy_(torch.stack([torch.as_tensor(hop_a).reshape(-1),
+                                         torch.as_tensor(hop_b).reshape(-1)]))
+
+    def _read_resid(self) -> float:
+        """The previous hop's residual: copied into pinned memory behind
+        its replay, read once the copy's event has passed."""
+        self._resid_host.copy_(self.state.gevd_resid, non_blocking=True)
+        self._resid_event.record()
+        self._resid_event.synchronize()
+        self.resid_reads += 1
+        return self._resid_host.item()
+
+    def decide_rebuild(self) -> bool:
+        """The tracking solver's rebuild decision for the next hop (False
+        for every other solver)."""
+        if not self.tracking:
+            return False
+        return rebuild_predicate(self.config, self.state.gevd_hop, self._read_resid)
+
+    def replay(self, rebuilt: bool) -> HopOutputs:
+        """Replay the branch ``rebuilt`` on the staged inputs. Returns the
+        static outputs, which the next replay overwrites."""
+        self.graphs[bool(rebuilt)].replay()
+        K.add_launch_counts(self.launches[bool(rebuilt)])
+        if self.tracking:
+            self.state.gevd_hop += 1
+        return dataclasses.replace(self.out, rebuilt=bool(rebuilt))

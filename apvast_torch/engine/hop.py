@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from apvast_torch.config import (
@@ -33,7 +34,7 @@ from apvast_torch.config import (
     uses_subspace_solver,
     uses_tracking_solver,
 )
-from apvast_torch.engine.plan import ApVastPlan
+from apvast_torch.engine.plan import ApVastPlan, hop_gates
 from apvast_torch.engine.state import ApVastState, SubspaceState, TrackingState
 from apvast_torch.ops.framing import framed_statistics
 from apvast_torch.ops.jdiag import (
@@ -58,10 +59,11 @@ from apvast_torch.ops.wola import (
 from apvast_torch.perceptual.model import perceptual_gain
 from apvast_torch.utils.device import torch_dtype
 
-# Path axis: 0=A->A, 1=A->B, 2=B->A, 3=B->B.
-_PATH_SIGNAL = [0, 0, 1, 1]  # which program signal drives the path
-_PATH_RIR = [0, 1, 0, 1]  # which zone's RIR set the path goes through
-_PATH_ZONE = [0, 1, 0, 1]  # destination zone == weighting zone
+# Path axis: 0=A->A, 1=A->B, 2=B->A, 3=B->B. Program signal A drives paths
+# 0 and 1, B paths 2 and 3; path p goes through zone p % 2's RIR set and
+# is weighted by zone p % 2 (its destination). A hop indexes by slices and
+# concatenations only: an index list would copy an index tensor from the
+# host every hop, which a captured hop cannot do.
 
 
 @dataclasses.dataclass
@@ -98,7 +100,10 @@ def convolve_inputs(config, plan, conv_history, resp, target_resp, hops):
         new_target = out[:, 2 * ms :, :]  # (2, m, hop)
     else:
         seg_spec = torch.fft.rfft(segments, dim=-1)  # (2, nf/2+1)
-        path_spec = plan.rir_spec[_PATH_RIR] * seg_spec[_PATH_SIGNAL][:, None, None, :]
+        # Rows by path: the RIR sets [A, B, A, B], the signals [A, A, B, B].
+        path_rir = torch.cat([plan.rir_spec, plan.rir_spec])
+        path_signal = seg_spec[:, None].expand(2, 2, seg_spec.shape[-1]).reshape(4, -1)
+        path_spec = path_rir * path_signal[:, None, None, :]
         new_resp = irfft_batched(path_spec, nf)[..., nf - hop :]
         tgt_path_spec = plan.target_rir_spec * seg_spec[:, None, :]
         new_target = irfft_batched(tgt_path_spec, nf)[..., nf - hop :]
@@ -148,13 +153,6 @@ def target_weighting(config, plan, target_resp):
     return t_spec, weighting
 
 
-def _signal_gate(config, dtype, device):
-    """Zone run flags gate by signal: paths 0,1 carry A, paths 2,3 B."""
-    return torch.tensor(
-        [float(config.run_a)] * 2 + [float(config.run_b)] * 2, dtype=dtype, device=device
-    )
-
-
 def weighted_spectra(config, plan, resp, target_resp):
     """Stages 2+3 (spectral part): WOLA analysis of the target and response
     blocks, the perceptual weighting derived from the target spectra, and
@@ -162,8 +160,9 @@ def weighted_spectra(config, plan, resp, target_resp):
     response spectra)."""
     t_spec, weighting = target_weighting(config, plan, target_resp)
     r_spec = _analyze(config, plan, resp)  # (4, m, s, bins)
-    r_spec = r_spec * _signal_gate(config, weighting.dtype, r_spec.device)[:, None, None, None]
-    r_spec = r_spec * weighting[_PATH_ZONE][:, :, None, :]
+    gates = hop_gates(config, r_spec.device)
+    r_spec = r_spec * gates.signal[:, None, None, None]
+    r_spec = r_spec * torch.cat([weighting, weighting])[:, :, None, :]
     return t_spec * weighting, r_spec
 
 
@@ -179,18 +178,20 @@ def half_form(config: ApVastConfig) -> bool:
     )
 
 
-def rebuild_predicate(config: ApVastConfig, state: ApVastState) -> bool:
-    """Whether the tracking solver refreshes its preconditioner this hop:
-    inside the warmup window, on the cadence, or when the previous hop's
-    Ritz residual exceeds ``tracking_residual_rebuild``. The JAX engine
-    decides this on the device under ``lax.cond``; here the hop counter is
-    a host int and the residual costs one device read per hop, so the
-    factorization runs only on the hops that take it."""
-    hop = state.gevd_hop
-    if hop < config.tracking_warmup_hops or hop % config.tracking_rebuild_period == 0:
+def rebuild_predicate(config: ApVastConfig, gevd_hop: int, read_resid) -> bool:
+    """Whether the tracking solver refreshes its preconditioner on hop
+    ``gevd_hop``: inside the warmup window, on the cadence, or when the
+    previous hop's Ritz residual exceeds ``tracking_residual_rebuild``. The
+    JAX engine decides this on the device under ``lax.cond``; here the hop
+    counter is a host int and ``read_resid()`` gives the residual (float32)
+    from the device, called only on the hops that need it, so the
+    factorization runs only on the hops that take it and the hop body
+    takes the decision as an argument."""
+    if gevd_hop < config.tracking_warmup_hops or gevd_hop % config.tracking_rebuild_period == 0:
         return True
     threshold = config.tracking_residual_rebuild
-    return threshold > 0 and bool(state.gevd_resid > threshold)
+    # In float32, as the tensor comparison with a Python threshold is.
+    return threshold > 0 and bool(np.float32(read_resid()) > np.float32(threshold))
 
 
 _JACOBI_F64 = (
@@ -303,7 +304,7 @@ def process_hop(
         wt_spec = t_spec * weighting
         kernels = weighting_kernel(weighting, block, taps, plan.idft_cos_plain)  # (2, m, T)
         y = circular_weighting_conv(win * torch.cat(resp, dim=-1), kernels, taps)
-        new_wr = win * (y * _signal_gate(config, dtype, device)[:, None, None, None])
+        new_wr = win * (y * hop_gates(config, device).signal[:, None, None, None])
     else:
         wt_spec, r_spec = weighted_spectra(config, plan, resp, target_resp)
         new_wr = _synthesize(config, plan, r_spec, block)
@@ -327,8 +328,8 @@ def process_hop(
     # ---- 5. GEVD + variable-span synthesis -----------------------------
     # Zone A pencil: (R_AA, R_AB); zone B pencil: (R_BB, R_BA).
     half = half_form(config)
-    a_stack = r_mats[[0, 3]]
-    b_stack = r_mats[[1, 2]]
+    a_stack = r_mats[0::3].contiguous()
+    b_stack = r_mats[1:3].contiguous()
     eye = torch.eye(s * j, dtype=dtype, device=device)
     if config.effective_reg_b_relative > 0:
         # In half form tr(M) = tr(B) / 2 and M takes half of B's loading,
@@ -358,7 +359,7 @@ def process_hop(
         )
     elif whiten == "tracking":
         rebuilt = (
-            rebuild_predicate(config, state)
+            rebuild_predicate(config, state.gevd_hop, lambda: state.gevd_resid.item())
             if rebuild_override is None
             else bool(rebuild_override)
         )
@@ -403,12 +404,10 @@ def process_hop(
         )  # (2, jl, v), (2, v), (2, jl, k), int32
         carry["gevd_minv"] = None
     w_family = variable_span_filters(u, lam, r_vecs, config.mu, v)  # (2, v, jl)
-    zone_gate = torch.tensor(
-        [float(config.run_a), float(config.run_b)], dtype=dtype, device=device
-    )
-    w_family = w_family * zone_gate[:, None, None]
-    if config.output_spans is not None:
-        w_family = w_family[:, [sp - 1 for sp in config.output_spans]]
+    gates = hop_gates(config, device)
+    w_family = w_family * gates.zone[:, None, None]
+    if gates.spans is not None:
+        w_family = w_family[:, gates.spans]
     v = config.num_solutions
     filters = w_family.reshape(2, v, s, j)  # source-major w[s*J + tap]
 

@@ -10,6 +10,7 @@ perceptual tables. All tensors live on one device.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -58,6 +59,40 @@ class ApVastPlan:
     ca: torch.Tensor | None
     leff: torch.Tensor | None
     spectrum_scale: torch.Tensor | None
+
+
+@dataclasses.dataclass(frozen=True)
+class HopGates:
+    """The zone run flags as device tensors, which every hop multiplies in:
+    ``signal`` (4,) by path (paths 0 and 1 carry program A, 2 and 3 B),
+    ``zone`` (2,) by zone; and ``spans`` (the 0-based ranks of
+    ``config.output_spans``, int64) or None."""
+
+    signal: torch.Tensor
+    zone: torch.Tensor
+    spans: torch.Tensor | None
+
+
+def hop_gates(config: ApVastConfig, device: torch.device) -> HopGates:
+    """:class:`HopGates` of ``config`` on ``device``, built on the first
+    call and then reused, so that no hop copies them from the host (a
+    captured hop cannot). They live beside the plan, whose fields are the
+    JAX plan's."""
+    return _hop_gates(config.run_a, config.run_b, config.output_spans,
+                      torch_dtype(config), torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _hop_gates(run_a, run_b, output_spans, dtype, device) -> HopGates:
+    flags = [float(run_a), float(run_b)]
+    spans = None
+    if output_spans is not None:
+        spans = torch.tensor([sp - 1 for sp in output_spans], device=device)
+    return HopGates(
+        signal=torch.tensor(flags[:1] * 2 + flags[1:] * 2, dtype=dtype, device=device),
+        zone=torch.tensor(flags, dtype=dtype, device=device),
+        spans=spans,
+    )
 
 
 def _delayed_target_rir(rir: np.ndarray, ref_index: int, delay: int) -> np.ndarray:

@@ -1,7 +1,10 @@
 """Stateful wrapper with the reference's calling convention (port of
 ``apvast_tpu/models/apvast.py::ApVast``): build once, then call
-``process_input_buffers(hop_a, hop_b)`` per hop, or ``process_signals``
-for whole signals."""
+``process_input_buffers(hop_a, hop_b)`` per hop, ``process_signals`` for
+whole signals, or ``process_hops_span`` to drain a backlog. On the card
+the hop runs as a captured CUDA graph where the configuration allows
+(``models/base.py``, ``engine/graph.py``), as the JAX package jit-compiles
+it once."""
 
 from __future__ import annotations
 
@@ -12,11 +15,11 @@ from apvast_torch.config import ApVastConfig
 from apvast_torch.engine.hop import process_hop
 from apvast_torch.engine.plan import build_plan
 from apvast_torch.engine.state import init_state
-from apvast_torch.engine.stream import run_stream, stitch_outputs
-from apvast_torch.utils.device import resolve_device, torch_dtype
+from apvast_torch.models.base import HopModel
+from apvast_torch.utils.device import resolve_device
 
 
-class ApVast:
+class ApVast(HopModel):
     def __init__(
         self,
         block_size: int,
@@ -38,6 +41,7 @@ class ApVast:
         generator: torch.Generator | None = None,
         response_noise=None,
         subspace_init=None,
+        graph: bool | None = None,
         **config_overrides,
     ):
         """Parameters mirror the reference constructor; extra keyword
@@ -46,7 +50,10 @@ class ApVast:
         The initial response noise is injected (``response_noise``), drawn
         from ``generator``, or zero; a subspace solver's cold basis is
         injected (``subspace_init``, (2, jl, subspace_rank)) or drawn
-        (``engine.state.init_state``)."""
+        (``engine.state.init_state``). ``graph``: see
+        :class:`apvast_torch.models.base.HopModel` (None: a CUDA graph on
+        the card where the configuration allows; False: eager; True: a
+        graph or ValueError)."""
         self.config = ApVastConfig.for_rirs(
             rir_a,
             rir_b,
@@ -67,6 +74,7 @@ class ApVast:
         )
         self.device = resolve_device(device)
         self.plan = build_plan(self.config, rir_a, rir_b, self.device)
+        self._init_dispatch(graph)
         self.reset(
             generator=generator, response_noise=response_noise,
             subspace_init=subspace_init,
@@ -85,52 +93,12 @@ class ApVast:
         # the 'newton' solver rebuilt its carried inverse.
         self.rebuilds = 0
 
-    def _signal(self, x) -> torch.Tensor:
-        return torch.as_tensor(x).reshape(-1).to(
-            device=self.device, dtype=torch_dtype(self.config)
-        )
+    @property
+    def _num_outputs(self) -> int:
+        return self.config.num_solutions
 
-    def process_input_buffers(self, input_a, input_b):
-        """One hop. Returns (out_a, out_b, out_a_t, out_b_t), each
-        (V, hop, srcs) or None for a disabled zone."""
-        hop = self.config.hop
-        input_a, input_b = self._signal(input_a), self._signal(input_b)
-        if input_a.shape[0] != hop or input_b.shape[0] != hop:
-            raise ValueError(f"inputs must be exactly hop={hop} samples")
-        self.state, outputs = process_hop(
-            self.config, self.plan, self.state, input_a, input_b
+    def _eager_hop(self, input_a, input_b):
+        self._state, outputs = process_hop(
+            self.config, self.plan, self._state, input_a, input_b
         )
-        self.silenced = self.silenced + outputs.silenced
-        self.rebuilds += int(outputs.rebuilt)
-        v = self.config.num_solutions
-        return (
-            outputs.out_a,
-            outputs.out_b,
-            outputs.out_a_t.expand(v, *outputs.out_a_t.shape),
-            outputs.out_b_t.expand(v, *outputs.out_b_t.shape),
-        )
-
-    def process_signals(self, signal_a, signal_b):
-        """All whole hops of two program signals. Returns stitched signals
-        (V, T, srcs) per field (None for disabled zones)."""
-        signal_a, signal_b = self._signal(signal_a), self._signal(signal_b)
-        self.state, outs = run_stream(
-            self.config, self.plan, self.state, signal_a, signal_b
-        )
-        self.silenced = self.silenced + outs.silenced.sum(dtype=torch.int32)
-        self.rebuilds += int(outs.rebuilt.sum())
-        v = self.config.num_solutions
-
-        def stitch(x):
-            return None if x is None else stitch_outputs(x)
-
-        def stitch_target(t):  # (hops, hop, s) -> (v, T, s)
-            flat = t.reshape(-1, t.shape[-1])
-            return flat.expand(v, *flat.shape)
-
-        return (
-            stitch(outs.out_a),
-            stitch(outs.out_b),
-            stitch_target(outs.out_a_t),
-            stitch_target(outs.out_b_t),
-        )
+        return outputs

@@ -9,18 +9,21 @@ import torch
 from apvast_torch.config import ApVastConfig
 from apvast_torch.engine.fd_hop import init_fd_state, process_hop_fd
 from apvast_torch.engine.plan import build_plan
-from apvast_torch.engine.stream import stitch_outputs
-from apvast_torch.utils.device import resolve_device, torch_dtype
+from apvast_torch.models.base import HopModel
+from apvast_torch.utils.device import resolve_device
 
 
-class ApVastFD:
+class ApVastFD(HopModel):
     """Frequency-domain AP-VAST (see ``engine/fd_hop.py``).
 
     The constructor surface of :class:`apvast_torch.ApVast`, except that
     ``number_of_eigenvectors`` is the per-bin span rank (at most
     ``num_srcs * fd_frame_taps``), ``forgetting`` sets the covariance
     recursion's decay, and there is no statistics buffer (the config holds
-    ``2 * filter_length + 1``, valid and unused)."""
+    ``2 * filter_length + 1``, valid and unused). ``graph`` as for
+    :class:`apvast_torch.ApVast`."""
+
+    _fd = True
 
     def __init__(
         self,
@@ -42,6 +45,7 @@ class ApVastFD:
         device: str | torch.device | None = None,
         generator: torch.Generator | None = None,
         response_noise=None,
+        graph: bool | None = None,
         **config_overrides,
     ):
         """Runs on ``"cuda"`` unless ``device`` says otherwise (raises if no
@@ -74,65 +78,27 @@ class ApVastFD:
         self.forgetting = float(forgetting)
         self.device = resolve_device(device)
         self.plan = build_plan(self.config, rir_a, rir_b, self.device)
+        self._init_dispatch(graph)
         self.reset(generator=generator, response_noise=response_noise)
 
     def reset(self, generator=None, response_noise=None) -> None:
-        """Fresh state; ``silenced`` restarts at 0."""
+        """Fresh state; ``silenced`` restarts at 0 (``rebuilds`` stays 0:
+        the FD engine has no rebuild)."""
         self.state = init_fd_state(
             self.config, self.device, response_noise=response_noise, generator=generator
         )
         # Non-finite per-bin filters silenced since the reset (an int32
         # tensor on the device, read without a sync until asked).
         self.silenced = torch.zeros((), dtype=torch.int32, device=self.device)
+        self.rebuilds = 0
 
-    def _signal(self, x) -> torch.Tensor:
-        return torch.as_tensor(x).reshape(-1).to(
-            device=self.device, dtype=torch_dtype(self.config)
-        )
+    @property
+    def _num_outputs(self) -> int:
+        return self.config.fd_num_solutions
 
-    def _hop(self, input_a, input_b):
-        self.state, out = process_hop_fd(
-            self.config, self.plan, self.state, input_a, input_b,
+    def _eager_hop(self, input_a, input_b):
+        self._state, out = process_hop_fd(
+            self.config, self.plan, self._state, input_a, input_b,
             forgetting=self.forgetting,
         )
-        self.silenced = self.silenced + out.silenced
         return out
-
-    def process_input_buffers(self, input_a, input_b):
-        """One hop. Returns (out_a, out_b, out_a_t, out_b_t), each
-        (fd_num_solutions, hop, srcs), or None for a disabled zone."""
-        hop = self.config.hop
-        input_a, input_b = self._signal(input_a), self._signal(input_b)
-        if input_a.shape[0] != hop or input_b.shape[0] != hop:
-            raise ValueError(f"inputs must be exactly hop={hop} samples")
-        out = self._hop(input_a, input_b)
-        v = self.config.fd_num_solutions
-        return (
-            out.out_a,
-            out.out_b,
-            out.out_a_t.expand(v, *out.out_a_t.shape),
-            out.out_b_t.expand(v, *out.out_b_t.shape),
-        )
-
-    def process_signals(self, signal_a, signal_b):
-        """All whole hops of two program signals. Returns stitched signals
-        (fd_num_solutions, T, srcs) per field (None for disabled zones)."""
-        signal_a, signal_b = self._signal(signal_a), self._signal(signal_b)
-        hop = self.config.hop
-        num_hops = min(signal_a.shape[0], signal_b.shape[0]) // hop
-        outs = [
-            self._hop(signal_a[i * hop : (i + 1) * hop], signal_b[i * hop : (i + 1) * hop])
-            for i in range(num_hops)
-        ]
-        v = self.config.fd_num_solutions
-
-        def stitch(name):
-            if getattr(outs[0], name) is None:
-                return None
-            return stitch_outputs(torch.stack([getattr(o, name) for o in outs]))
-
-        def stitch_target(name):  # (hops, hop, s) -> (v, T, s)
-            flat = torch.cat([getattr(o, name) for o in outs])
-            return flat.expand(v, *flat.shape)
-
-        return stitch("out_a"), stitch("out_b"), stitch_target("out_a_t"), stitch_target("out_b_t")

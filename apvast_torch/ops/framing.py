@@ -38,5 +38,5 @@ def framed_statistics(
     """
     y = window_rows(buf, j)
     r_mats = torch.einsum("pmak,pmbk->pab", y, y)
-    r_vecs = torch.einsum("zmak,zmk->za", y[[0, 3]], d)
+    r_vecs = torch.einsum("zmak,zmk->za", y[0::3].contiguous(), d)
     return r_mats, r_vecs

@@ -77,8 +77,16 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
+def add_launch_counts(counts: dict[str, int]) -> None:
+    """Add ``counts`` (name -> launches) to the wrappers' counts: a replayed
+    CUDA graph adds the launches its capture counted."""
+    for name, n in counts.items():
+        WRAPPERS[name].launches += n
+
+
 __all__ = [
     "WRAPPERS",
+    "add_launch_counts",
     "blocked_cholesky",
     "chol_panel",
     "chol_panel_plain",

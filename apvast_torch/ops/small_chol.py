@@ -31,7 +31,7 @@ def cholesky_small(h: torch.Tensor) -> torch.Tensor:
     rows = torch.arange(n, device=h.device)
     tr = torch.diagonal(h, dim1=-2, dim2=-1).sum(-1).real / n
     info = torch.finfo(tr.dtype)
-    floor = torch.maximum(tr, torch.tensor(info.tiny, dtype=tr.dtype, device=h.device)) * info.eps
+    floor = tr.clamp_min(info.tiny) * info.eps
     a = h
     cols = []
     for k in range(n):

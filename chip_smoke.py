@@ -151,10 +151,37 @@ Phase 3  the main path, ``ApVast`` on ``scale_scene(16)`` for 64 hops (two
          reported for every FD path, and every path's first 8 hops are held
          against the CPU (loudspeaker feeds to 5e-2 of scale outside the
          Jacobi path).
+         Every path above runs its hop as one CUDA graph per rebuild branch,
+         replayed (``engine/graph.py``), except those whose hop reads the
+         device mid-hop, which run eagerly: exact, newton, fd-lapack and
+         fd-group (``engine.graph.eager_reason``). Then, for the graph:
+         graph    each graphed configuration (production, invert, solve,
+                  dense, weighting-conv, fd-jacobi, fd-full, fd-coupled) and
+                  its eager hop (``graph=False``), 8 hops each from the
+                  graphed model's state: launch counts equal, statistics and
+                  target feeds within 1e-5 of scale (max |diff| printed, 0
+                  where bit for bit), silenced 0, the same rebuilds;
+                  loudspeaker feeds within 5e-2 (the time-domain solvers in
+                  a rerun with K4 at 8 sweeps, as above). Production's two
+                  graphs each replayed three times from one state with other
+                  work between: bit for bit. K2, K9 and K10b (cooperative
+                  launches; K10b has no engine caller) captured alone at the
+                  main path's shapes and replayed on fresh inputs against
+                  their eager launch: bit for bit.
+         serve    ``StreamHost`` on the graphed production hop: 64 hops
+                  pushed in 256-sample chunks, drained hop by hop, in
+                  batches of 8 (``process_hops_span``) and in batches of 8
+                  as int16 PCM: every ring against ``process_input_buffers``
+                  from the same state (bit for bit; PCM within half a
+                  quantization step), no chunk dropped, ms per hop.
+         time     host-clock steady-state ms/hop, eager against graphed in
+                  turns, of production, invert, dense, weighting-conv,
+                  fd-jacobi and fd-full; each graph's capture time, the
+                  residual reads per hop; production's against 16.67 ms.
 Phase 4  (``--profile``) device time by kernel and by stage over 32
-         steady-state hops of the production, the invert, the dense, the
-         weighting-conv, the fd-jacobi and the fd-full path, and the
-         device's idle share.
+         steady-state hops of the six timed paths, eager and graphed (a
+         graphed hop's kernels by name only), and the device's idle
+         share.
 
 The last line of output is ``{"ok": true, "device": {...}}``; any failure
 exits non-zero before it.
@@ -1124,7 +1151,8 @@ def _jacobi_on_invert_hops(scene, dev, card):
     from apvast_torch.ops import kernels as K
 
     noise, sig = _inputs(scene)
-    model = _model(scene, dev, noise, production_overrides() | INVERT)
+    # Eager: the matrices are taken where the solver's Python calls K4.
+    model = _model(scene, dev, noise, production_overrides() | INVERT | {"graph": False})
     sig = torch.as_tensor(sig).to(dev).reshape(2, HOPS, -1)
     captured = []
     solve = jdiag.jacobi_eigh
@@ -1260,6 +1288,7 @@ def _run_hops(model, label, sig, dev, hops, want_counts, card, per_hop):
     ``per_hop(i, out)`` runs after each hop. Returns the CPU input hops, the
     states and outputs of the first CPU_HOPS hops, the counts and the
     steady-state ms/hop (None without a steady-state window)."""
+    from apvast_torch.engine.graph import clone_state
     from apvast_torch.ops import kernels as K
 
     cfg = model.config
@@ -1269,7 +1298,8 @@ def _run_hops(model, label, sig, dev, hops, want_counts, card, per_hop):
     torch.cuda.synchronize()
 
     K.reset_launch_counts()
-    states, outs = [model.state], []
+    # A graphed model's state is its graph's static buffers: keep copies.
+    states, outs = [clone_state(model.state)], []
     t_first = t0 = time.perf_counter()
     for i in range(hops):
         if i == CPU_HOPS:
@@ -1278,7 +1308,7 @@ def _run_hops(model, label, sig, dev, hops, want_counts, card, per_hop):
         out = model.process_input_buffers(hops_a_dev[i], hops_b_dev[i])
         if i < CPU_HOPS:
             outs.append(out)
-            states.append(model.state)
+            states.append(clone_state(model.state))
         per_hop(i, out)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -1324,7 +1354,7 @@ def drive(scene, dev, card, label, overrides, want_counts, sig, noise, hops=None
 
     def per_hop(i, out):
         if tracking:
-            resid.append(model.state.gevd_resid)
+            resid.append(model.state.gevd_resid.clone())
         if i >= TAIL_FROM:
             tail_a.append(out[0][:: v - 1])  # a view of ranks 1 and V
 
@@ -1447,8 +1477,6 @@ def phase3(scene, dev, card, results):
     print(f"[phase 3] steady state: production {prod[3]:.3f} ms/hop, exact {exact[3]:.3f} "
           f"ms/hop, invert {invert[3]:.3f} ms/hop, dense {dense[3]:.3f} ms/hop, weighting-conv "
           f"{wconv[3]:.3f} ms/hop card={card}", flush=True)
-    return {"production": prod[:4], "invert": invert[:4], "dense": dense[:4],
-            "weighting-conv": wconv[:4]}
 
 
 def _fd_model(scene, device, noise, overrides):
@@ -1584,7 +1612,287 @@ def phase3_fd(scene, dev, card, results):
                                  f"{delta:+.4f} dB")
     print(f"[phase 3] FD steady state: fd-jacobi {jac[3]:.3f}, fd-lapack {lap[3]:.3f}, "
           f"fd-full {full[3]:.3f}, fd-coupled {coupled[3]:.3f} ms/hop card={card}", flush=True)
-    return {"fd-jacobi": jac[:4], "fd-full": full[:4]}
+
+# ---- phase 3, graphed: the hop as one CUDA graph (engine/graph.py) ---------
+
+# Overrides of the graphed configurations (FD: of ApVastFD's FD_SETTINGS),
+# and which engine; the six timed and profiled paths.
+GRAPHED = ("production", "invert", "solve", "dense", "weighting-conv", "fd-jacobi", "fd-full",
+           "fd-coupled")
+TIMED = ("production", "invert", "dense", "weighting-conv", "fd-jacobi", "fd-full")
+TOL_GRAPH = 1e-5  # statistics and target feeds, graphed against eager
+TIME_WARM, TIME_HOPS = 8, 32  # timing: warm-up hops, then two windows each
+SERVE_HOPS, SERVE_CHUNK = 64, 256  # StreamHost: hops pushed, samples a push
+REALTIME_MS = 1e3 * 800 / 48000  # one hop of the north-star scene
+
+
+def _path_overrides(scene):
+    from apvast_torch import production_overrides
+
+    s = scene.config.num_srcs
+    base = {"number_of_eigenvectors": s, "fd_jacobi_sweeps": FD_SWEEPS}
+    prod = production_overrides()
+    return {
+        "production": (False, prod),
+        "invert": (False, prod | {"subspace_whiten": "invert"} | INVERT),
+        "solve": (False, prod | {"subspace_whiten": "solve"}),
+        "dense": (False, prod | DENSE),
+        "weighting-conv": (False, prod | WEIGHTING_CONV),
+        "fd-jacobi": (True, base | {"fd_eigh": "jacobi"}),
+        "fd-full": (True, base | {"fd_span": "full"}),
+        "fd-coupled": (True, base | {"fd_span": "full", "fd_bin_coupling": 7,
+                                     "fd_frame_taps": 2, "number_of_eigenvectors": 2 * s}),
+    }
+
+
+def _path_model(scene, dev, noise, label, graph, **extra):
+    fd, overrides = _path_overrides(scene)[label]
+    return (_fd_model if fd else _model)(scene, dev, noise, overrides | extra | {"graph": graph})
+
+
+def _statistics(model):
+    """The statistics the solver is handed, from a model's state on the card."""
+    from apvast_torch import ApVastFD
+    from apvast_torch.engine import hop_statistics
+
+    if isinstance(model, ApVastFD):
+        return model.state.cov, model.state.cross
+    return hop_statistics(model.config, model.state.wresp_stat, model.state.wtarget_stat)
+
+
+def _graph_against_eager(scene, dev, card, label, noise, x, **extra):
+    """CPU_HOPS hops of a graphed and an eager model, each hop from the
+    graphed model's state: launch counts equal, statistics and target feeds
+    within TOL_GRAPH of scale, loudspeaker feeds printed (returned),
+    silenced == 0, the same rebuilds. Returns the feeds' worst rel_err."""
+    from apvast_torch.engine.graph import clone_state
+    from apvast_torch.ops import kernels as K
+
+    graphed = _path_model(scene, dev, noise, label, None, **extra)
+    eager = _path_model(scene, dev, noise, label, False, **extra)
+    if extra:
+        label = f"{label} ({extra['jacobi_sweeps']} sweeps)"
+    if not graphed.graphed or eager.graphed:
+        raise AssertionError(f"{label}: graphed={graphed.graphed}, eager={eager.graphed}")
+    worst = {"statistics": (0.0, 0.0), "target feeds": (0.0, 0.0),
+             "loudspeaker feeds": (0.0, 0.0)}
+
+    def note(key, a, b):
+        diff, rel = _rel(a, b)
+        worst[key] = (max(worst[key][0], rel), max(worst[key][1], diff))
+
+    for i in range(CPU_HOPS):
+        eager.state = clone_state(graphed.state)
+        K.reset_launch_counts()
+        got = graphed.process_input_buffers(x[0, i], x[1, i])
+        counts = K.launch_counts()
+        K.reset_launch_counts()
+        want = eager.process_input_buffers(x[0, i], x[1, i])
+        if counts != K.launch_counts():
+            raise AssertionError(f"{label} hop {i + 1}: graphed launches {counts}, eager "
+                                 f"{K.launch_counts()}")
+        for a, b in zip(_statistics(graphed), _statistics(eager)):
+            note("statistics", a, b)
+        for f in range(4):
+            if want[f] is not None:
+                note("target feeds" if f >= 2 else "loudspeaker feeds", got[f], want[f])
+    silenced = (int(graphed.silenced.item()), int(eager.silenced.item()))
+    print(f"[phase 3 graph] {label}: {CPU_HOPS} hops from one state, graphed against eager: "
+          + ", ".join(f"{k} rel_err {r:.3e} max|diff| {d:.3e}" for k, (r, d) in worst.items())
+          + f"; launches equal; rebuilds {graphed.rebuilds} / {eager.rebuilds}; silenced "
+          f"{silenced}; capture s {_capture_s(graphed)} card={card}", flush=True)
+    for key in ("statistics", "target feeds"):
+        _check(f"{label} graphed {key}", worst[key][0], TOL_GRAPH)
+    if silenced != (0, 0) or graphed.rebuilds != eager.rebuilds:
+        raise AssertionError(f"{label}: silenced {silenced}, rebuilds {graphed.rebuilds} / "
+                             f"{eager.rebuilds}")
+    return worst["loudspeaker feeds"][0]
+
+
+def _capture_s(model):
+    return {("rebuild" if k else "hop"): round(v, 3)
+            for k, v in model.graph.capture_seconds.items()}
+
+
+def _replays_bit_for_bit(scene, dev, card, noise, x):
+    """The production graph's two branches, each replayed three times from
+    one saved state with other work on the stream between the replays."""
+    from apvast_torch.engine.graph import clone_state
+
+    model = _path_model(scene, dev, noise, "production", None)
+    for i in range(TAIL_FROM + 1):  # past the warmup
+        model.process_input_buffers(x[0, i], x[1, i])
+    saved = clone_state(model.state)
+    for rebuilt in (False, True):
+        runs = []
+        for _ in range(3):
+            model.state = saved
+            y = torch.randn(2048, 2048, device=dev)
+            (y @ y).sum()
+            model.graph.stage(x[0, TAIL_FROM + 1], x[1, TAIL_FROM + 1])
+            out = model.graph.replay(rebuilt)
+            runs.append([t.clone() for t in (out.out_a, out.out_b, out.out_a_t, out.out_b_t)]
+                        + [t.clone() for t in vars(model.state).values()
+                           if isinstance(t, torch.Tensor)])
+        diff = max(float((a - b).abs().max()) for run in runs[1:] for a, b in zip(run, runs[0]))
+        print(f"[phase 3 graph] production {'rebuild' if rebuilt else 'no-rebuild'} graph, three "
+              f"replays from one state, other work between them: outputs and state max |diff| "
+              f"{diff:.3e} (required 0) card={card}", flush=True)
+        if diff != 0:
+            raise AssertionError("graph replays differ")
+
+
+def _cooperative_alone(dev, card):
+    """K2, K9 and K10b (cooperative launches) captured alone at the main
+    path's shapes, replayed on fresh inputs against the eager launch: bit
+    for bit (K10b has no engine caller, so this is its only capture)."""
+    from apvast_torch.ops import kernels as K
+
+    def spd(g, b, n):
+        x = torch.randn(b, n, n, generator=g).to(dev)
+        return (x @ x.transpose(1, 2) / n + torch.eye(n, device=dev)).contiguous()
+
+    def args(name, seed):
+        g = torch.Generator().manual_seed(seed)
+        if name == "lag_corr":
+            return (torch.randn(4, 17, 17, 999, generator=g).to(dev), 50)
+        if name == "subspace":
+            li = torch.linalg.inv(torch.linalg.cholesky(spd(g, 2, 800))).contiguous()
+            return (spd(g, 2, 800), li, torch.randn(2, 800, 64, generator=g).to(dev), 2)
+        return (spd(g, 2, 800),)
+
+    for name in ("lag_corr", "subspace", "chol_tri_inverse"):
+        fn = K.WRAPPERS[name]
+        static = args(name, 1)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn(*static)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fn(*static)
+        out = out if isinstance(out, tuple) else (out,)
+        diff = 0.0
+        for seed in (2, 3):
+            fresh = args(name, seed)
+            for a, b in zip(static, fresh):
+                if isinstance(a, torch.Tensor):
+                    a.copy_(b)
+            graph.replay()
+            want = fn(*fresh)
+            want = want if isinstance(want, tuple) else (want,)
+            diff = max(diff, max(float((a - b).abs().max()) for a, b in zip(out, want)))
+        print(f"[phase 3 graph] {name} captured alone, two replays on fresh inputs against the "
+              f"eager launch: max |diff| {diff:.3e} (required 0) card={card}", flush=True)
+        if diff != 0:
+            raise AssertionError(f"{name}: a replay differs from the eager launch")
+
+
+def phase3_graph(scene, dev, card):
+    """Every graphed configuration against its eager hop, hop by hop from
+    one state (the solvers with K4 also at CONVERGED_SWEEPS, where the
+    loudspeaker feeds are gated at TOL_FEEDS; the FD paths' feeds gated at
+    TOL_FEEDS as configured), replays bit for bit, and K2, K9 and K10b
+    captured alone."""
+    noise, sig = _inputs(scene)
+    x = torch.as_tensor(sig).to(dev).reshape(2, HOPS, -1)
+    for label in GRAPHED:
+        fd = _path_overrides(scene)[label][0]
+        feeds = _graph_against_eager(scene, dev, card, label, noise, x)
+        if not fd:
+            feeds = _graph_against_eager(scene, dev, card, label, noise, x,
+                                         jacobi_sweeps=CONVERGED_SWEEPS)
+            print(f"[phase 3 graph] {label} at {CONVERGED_SWEEPS} sweeps: loudspeaker feeds "
+                  f"rel_err {feeds:.3e} (limit {TOL_FEEDS})", flush=True)
+        _check(f"{label} graphed loudspeaker feeds", feeds, TOL_FEEDS)
+    _replays_bit_for_bit(scene, dev, card, noise, x)
+    _cooperative_alone(dev, card)
+
+
+def phase3_serve(scene, dev, card):
+    """StreamHost on the graphed production hop: SERVE_HOPS hops pushed in
+    SERVE_CHUNK-sample chunks, drained hop by hop (batch_hops 1), in
+    batches of 8, and in batches of 8 as int16 PCM; every ring against the
+    feeds of process_input_buffers from the same state (bit for bit, PCM
+    within half a quantization step), no chunk dropped, ms per hop of each
+    drain."""
+    from apvast_torch import StreamHost
+
+    noise, sig = _inputs(scene)
+    cfg = scene.config
+    hop, s, n = cfg.hop, cfg.num_srcs, SERVE_HOPS
+    ref = _path_model(scene, dev, noise, "production", None)
+    x = torch.as_tensor(sig).to(dev).reshape(2, HOPS, -1)
+    want = [ref.process_input_buffers(x[0, i], x[1, i])[:2] for i in range(n)]
+    want = np.stack([torch.cat([w[z][-1] for w in want]).cpu().numpy().T for z in (0, 1)])
+    peak = float(np.abs(want).max())
+    for batch, pcm in ((1, False), (8, False), (8, True)):
+        model = _path_model(scene, dev, noise, "production", None)
+        host = StreamHost(model, span_index=-1, backlog_hops=n, batch_hops=batch, pcm_feeds=pcm)
+        for start in range(0, n * hop, SERVE_CHUNK):
+            chunk = slice(start, start + SERVE_CHUNK)
+            host.push_input(sig[0, chunk], sig[1, chunk])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = host.process_pending()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / n * 1e3
+        got = np.stack([[host.pull_output(z, k, n * hop) for k in range(s)] for z in ("a", "b")])
+        diff = float(np.abs(got - want).max())
+        # Half a quantization step, and the float32 rounding of the scale
+        # and of the dequantization.
+        bar = peak * (0.5 / 32766 + 4 * np.finfo(np.float32).eps) if pcm else 0.0
+        print(f"[phase 3 serve] StreamHost batch_hops={batch} pcm_feeds={pcm}: {done} hops in "
+              f"{SERVE_CHUNK}-sample chunks, {ms:.3f} ms/hop (host clock, drain of the whole "
+              f"backlog), dropped_input_chunks={host.dropped_input_chunks}, rings against "
+              f"process_input_buffers max |diff| {diff:.3e} (limit {bar:.3e}); residual reads "
+              f"{model.graph.resid_reads} in {n} hops card={card}", flush=True)
+        if done != n or host.dropped_input_chunks or got.shape != want.shape or diff > bar:
+            raise AssertionError(f"StreamHost batch_hops={batch} pcm={pcm}: {done} hops, "
+                                 f"{host.dropped_input_chunks} drops, max |diff| {diff:.3e}")
+
+
+def phase3_time(scene, dev, card):
+    """Host-clock steady-state ms/hop of each TIMED path, eager against
+    graphed, both from one state and input, in turns (eager, graphed,
+    graphed, eager over two TIME_HOPS windows after TIME_WARM hops); the
+    capture time of each graph and the residual reads per hop. Returns
+    label -> (eager model, graphed model, inputs, eager ms, graphed ms)."""
+    noise, sig = _inputs(scene)
+    x = torch.as_tensor(sig).to(dev).reshape(2, HOPS, -1)
+    out = {}
+    for label in TIMED:
+        models = [_path_model(scene, dev, noise, label, graph) for graph in (False, None)]
+        for m in models:
+            for i in range(TIME_WARM):
+                m.process_input_buffers(x[0, i], x[1, i])
+
+        def timed(m, start):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(start, start + TIME_HOPS):
+                m.process_input_buffers(x[0, i % HOPS], x[1, i % HOPS])
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / TIME_HOPS * 1e3
+
+        reads0 = models[1].graph.resid_reads
+        w1, w2 = TIME_WARM, TIME_WARM + TIME_HOPS
+        e1, g1, g2, e2 = (timed(models[0], w1), timed(models[1], w1), timed(models[1], w2),
+                          timed(models[0], w2))
+        eager, graphed = (e1 + e2) / 2, (g1 + g2) / 2
+        reads = (models[1].graph.resid_reads - reads0) / (2 * TIME_HOPS)
+        print(f"[phase 3 time] {label}: steady state eager {eager:.3f} ms/hop ({e1:.3f}, "
+              f"{e2:.3f}), graphed {graphed:.3f} ms/hop ({g1:.3f}, {g2:.3f}), "
+              f"{eager / graphed:.2f}x; "
+              f"capture s {_capture_s(models[1])}; residual reads {reads:.3f} a hop; rebuilds "
+              f"{models[0].rebuilds} / {models[1].rebuilds} (host clock, synchronized) "
+              f"card={card}", flush=True)
+        out[label] = (*models, x, eager, graphed)
+    print(f"[phase 3 time] production graphed {out['production'][4]:.3f} ms/hop against the "
+          f"{REALTIME_MS:.2f} ms real-time limit of one stream (a measurement, not a gate) "
+          f"card={card}", flush=True)
+    return out
 
 
 def _kernel_of(key):
@@ -1603,10 +1911,12 @@ def _kernel_of(key):
     return next((name for name in K.WRAPPERS if f"{name}_kernel" in key), None)
 
 
-def phase4(label, model, hops_a, hops_b, card, wall_ms_hop):
+def phase4(label, model, x, card, wall_ms_hop):
     """Device time by kernel and by stage over PROFILE_HOPS steady-state hops
     of one path (for the production path one rebuild period), and the
-    device's idle share against the unprofiled steady-state hop time."""
+    device's idle share against the unprofiled steady-state hop time. A
+    graphed hop runs no torch op on the host, so its kernels are listed by
+    name only (the stages need the ops' input shapes)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1619,7 +1929,7 @@ def phase4(label, model, hops_a, hops_b, card, wall_ms_hop):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
         for i in range(n):
-            model.process_input_buffers(hops_a[i % HOPS], hops_b[i % HOPS])
+            model.process_input_buffers(x[0, i % HOPS], x[1, i % HOPS])
         torch.cuda.synchronize()
     rows = sorted(
         (
@@ -1629,12 +1939,25 @@ def phase4(label, model, hops_a, hops_b, card, wall_ms_hop):
         ),
         reverse=True,
     )
-    busy_ms = max(sum(r[0] for r in rows) / n / 1e3, 1e-9)
+    busy_ms = sum(r[0] for r in rows) / n / 1e3
+    if busy_ms == 0:
+        print(f"[phase 4] {label}: idle share not measured (the profiler saw no kernel) "
+              f"card={card}", flush=True)
+        return
     print(f"[phase 4] {label} path, hops {HOPS + 1}-{HOPS + n} "
           f"({getattr(model, 'rebuilds', 0) - rebuilds} preconditioner rebuilds): kernel time "
           f"{busy_ms:.3f} ms/hop ({sum(r[2] for r in rows) // n} kernels/hop); idle share "
           f"{1 - busy_ms / wall_ms_hop:.3f} of the {wall_ms_hop:.3f} ms/hop "
           f"steady state; card={card}", flush=True)
+    if model.graph is not None:
+        for name in K.WRAPPERS:
+            ms = sum(r[0] for r in rows if _kernel_of(r[1]) == name) / n / 1e3
+            if ms:
+                print(f"[phase 4] {label} kernel {name} {ms:8.4f} ms/hop", flush=True)
+        for dev_us, key, count in rows[:25]:
+            print(f"[phase 4] {label}   {dev_us / n / 1e3:8.4f} ms/hop  {count / n:5.1f}/hop  "
+                  f"{key[:90]}", flush=True)
+        return
     # Device time by stage: the kernels each library op launched (the
     # (2, JL, JL) factorization, a rebuild's under the tracking solver and
     # every hop's under 'invert', apart from the small ones), and the port
@@ -1718,12 +2041,16 @@ def main() -> int:
     results = phase2(scene, dev, card)
 
     # ---- phase 3: the main path ----------------------------------------
-    paths = phase3(scene, dev, card, results)
-    paths |= phase3_fd(scene, dev, card, results)
+    phase3(scene, dev, card, results)
+    phase3_fd(scene, dev, card, results)
+    phase3_graph(scene, dev, card)
+    phase3_serve(scene, dev, card)
+    timed = phase3_time(scene, dev, card)
 
     if args.profile:
-        for label, (model, hops_a, hops_b, ms_hop) in paths.items():
-            phase4(label, model, hops_a, hops_b, card, ms_hop)
+        for label, (eager, graphed, x, eager_ms, graphed_ms) in timed.items():
+            phase4(f"{label} eager", eager, x, card, eager_ms)
+            phase4(f"{label} graphed", graphed, x, card, graphed_ms)
     print(f"[phase 4] chip_smoke.py took {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": results}))

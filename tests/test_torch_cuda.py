@@ -7,7 +7,12 @@ lanes, their NaN patterns, repeatability and width limits; and the hop on
 the card (exact, production and 'invert' solver, the dense
 statistics with K6, the truncated weighting with K8, and the
 frequency-domain engine with K7) against the same hop on the CPU; K9 and
-K10a against a float64 oracle, their repeatability and NaN propagation.
+K10a against a float64 oracle, their repeatability and NaN propagation;
+and the hop captured as a CUDA graph (engine/graph.py): each graphed
+configuration against the eager hop, replays bit for bit, launch counts
+under replay, graph=True refused where the hop reads the device mid-hop,
+K2, K9 and K10b captured alone, and the serving drain against the hop
+loop.
 
 Needs a card: every test is marked ``cuda`` and skips without one. This
 file imports neither JAX nor the shared fixtures, so on a machine without
@@ -39,6 +44,7 @@ import torch
 from apvast_torch import ApVast, ApVastFD, GevdSolver, production_overrides
 from apvast_torch.engine import hop as HOP
 from apvast_torch.engine import hop_statistics, process_hop, process_hop_fd
+from apvast_torch.engine.graph import clone_state
 from apvast_torch.ops import kernels as K
 from apvast_torch.ops import lag_statistics as LS
 from apvast_torch.utils.rir import synthetic_rirs
@@ -1117,3 +1123,203 @@ def test_fd_hop_on_the_card_matches_cpu(dev, span):
         g = torch.stack([x[f] for x in got])
         w = torch.stack([x[f].expand_as(g[0]) for x in want])
         assert torch.isfinite(g).all() and _rel(g, w) <= (1e-4 if f >= 2 else 1e-3)
+
+
+# ---- the graphed hop (engine/graph.py) -------------------------------------
+
+# Each graphed configuration's overrides: the time-domain ones of
+# production_overrides() on the S = 8 scene, the FD ones on the FD scene.
+_GRAPHED_TD = {
+    "production": {},
+    "invert": _INVERT,
+    "solve": {"subspace_whiten": "solve"},
+    "dense": {"use_lag_statistics": False},
+    "weighting-conv": {"weighting_conv_taps": 31},
+}
+_GRAPHED_FD = {
+    "fd-jacobi": {"fd_eigh": "jacobi"},
+    "fd-full": {"fd_span": "full"},
+    "fd-coupled": {"fd_span": "full", "fd_bin_coupling": 7, "fd_frame_taps": 2,
+                   "number_of_eigenvectors": 8},
+    "fd-cg": {"fd_span": "full", "fd_coupled_iters": 4, "fd_coupled_method": "cg"},
+}
+
+
+def _fd_kwargs(rng, overrides):
+    noise = (1e-3 * rng.standard_normal((4, 3, 4, 128)), 1e-3 * rng.standard_normal((2, 3, 128)))
+    return dict(
+        block_size=128, rir_a=synthetic_rirs(120, 4, 3, seed=1),
+        rir_b=synthetic_rirs(120, 4, 3, seed=2), filter_length=16, modeling_delay=5,
+        reference_index_a=1, reference_index_b=2, number_of_eigenvectors=4, mu=1.0,
+        sampling_rate=8000, perceptual=True, response_noise=noise, dtype="float32",
+        use_matmul_dft=True, use_pallas_conv=True, forgetting=0.97,
+    ) | overrides
+
+
+def _graphed_pair(dev, config, seed=13):
+    """A graphed and an eager model of one configuration, one initial state."""
+    rng = np.random.default_rng(seed)
+    if config in _GRAPHED_FD:
+        kwargs = _fd_kwargs(rng, _GRAPHED_FD[config])
+        build = ApVastFD
+    else:
+        kwargs = _s8_kwargs(rng, production_overrides() | _GRAPHED_TD[config])
+        build = ApVast
+    return build(device=dev, **kwargs), build(device=dev, graph=False, **kwargs), rng
+
+
+def _statistics(model):
+    if isinstance(model, ApVastFD):
+        return model.state.cov, model.state.cross
+    return hop_statistics(model.config, model.state.wresp_stat, model.state.wtarget_stat)
+
+
+@pytest.mark.parametrize("config", [*_GRAPHED_TD, *_GRAPHED_FD])
+def test_graphed_hop_equals_eager_on_the_card(dev, config):
+    """Each graphed configuration against the eager hop (graph=False), hop by
+    hop from one state: statistics and target feeds within 1e-5 of their
+    scale, loudspeaker feeds within 5e-2, the same launch counts, rebuild
+    decisions and silenced == 0."""
+    graphed, eager, rng = _graphed_pair(dev, config)
+    assert graphed.graphed and graphed.graph is not None and not eager.graphed
+    for hop in range(8):
+        eager.state = clone_state(graphed.state)
+        a, b = rng.standard_normal((2, graphed.config.hop)).astype(np.float32)
+        K.reset_launch_counts()
+        got = graphed.process_input_buffers(a, b)
+        counts = K.launch_counts()
+        K.reset_launch_counts()
+        want = eager.process_input_buffers(a, b)
+        assert counts == K.launch_counts() and sum(counts.values()) > 0, hop
+        for x, y in zip(_statistics(graphed), _statistics(eager)):
+            assert _rel(x, y) <= 1e-5, hop
+        for f in range(4):
+            if want[f] is None:
+                continue
+            assert torch.isfinite(got[f]).all()
+            assert _rel(got[f], want[f]) <= (1e-5 if f >= 2 else 5e-2), (hop, f)
+    assert graphed.rebuilds == eager.rebuilds
+    assert int(graphed.silenced) == 0 and int(eager.silenced) == 0
+
+
+@pytest.mark.parametrize("rebuilt", [False, True], ids=["no-rebuild", "rebuild"])
+def test_graph_replays_bit_for_bit(dev, rebuilt):
+    """One branch replayed three times from one saved state, other work on
+    the stream between the replays: outputs and state bit for bit."""
+    graphed, _, rng = _graphed_pair(dev, "production")
+    for _ in range(7):  # past the warmup
+        graphed.process_input_buffers(*rng.standard_normal((2, 64)).astype(np.float32))
+    saved = clone_state(graphed.state)
+    a, b = (torch.from_numpy(x).to(dev) for x in rng.standard_normal((2, 64)).astype(np.float32))
+    runs = []
+    for _ in range(3):
+        graphed.state = saved
+        x = torch.randn(512, 512, device=dev)
+        (x @ x).sum()
+        graphed.graph.stage(a, b)
+        out = graphed.graph.replay(rebuilt)
+        runs.append(([out.out_a.clone(), out.out_b.clone(), out.out_a_t.clone()],
+                     clone_state(graphed.state)))
+    torch.cuda.synchronize()
+    for outs, state in runs[1:]:
+        for x, y in zip(outs, runs[0][0]):
+            assert torch.equal(x, y)
+        for f in dataclasses.fields(state):
+            x, y = getattr(state, f.name), getattr(runs[0][1], f.name)
+            assert torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y, f.name
+
+
+def test_launch_counts_under_replay(dev):
+    """Capture (warmup included) adds no launch; every replay adds its
+    graph's capture counts, so a graphed run counts what an eager one does."""
+    K.reset_launch_counts()
+    graphed, _, rng = _graphed_pair(dev, "invert")
+    assert sum(K.launch_counts().values()) == 0
+    for _ in range(5):
+        graphed.process_input_buffers(*rng.standard_normal((2, 64)).astype(np.float32))
+    kernels = _PRODUCTION_KERNELS + ("whiten", "subspace")
+    assert K.launch_counts() == {name: 5 if name in kernels else 0 for name in K.WRAPPERS}
+    assert set(graphed.graph.graphs) == {False}
+    production, _, _ = _graphed_pair(dev, "production")
+    assert set(production.graph.graphs) == {False, True}
+
+
+@pytest.mark.parametrize("overrides,reason", [
+    ({"gevd_solver": GevdSolver.EIGH}, "eigh"),
+    ({"subspace_whiten": "newton"}, "newton"),
+], ids=["exact", "newton"])
+def test_graph_true_raises_on_eager_only_configurations(dev, overrides, reason):
+    kwargs = _s8_kwargs(np.random.default_rng(1), production_overrides() | overrides)
+    with pytest.raises(ValueError, match=reason):
+        ApVast(device=dev, graph=True, **kwargs)
+    model = ApVast(device=dev, **kwargs)
+    assert not model.graphed and reason in model.eager_reason and model.graph is None
+
+
+def _capture(fn, *args):
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(*args)
+    return graph, out
+
+
+def _cooperative_args(dev, name, seed):
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*s):
+        return torch.randn(s, generator=g).to(dev)
+
+    return {
+        "lag_corr": (rnd(4, 17, 17, 999), 50),  # the main path's shape: many depth slices
+        "subspace": _subspace_args(rnd, 2, 800, 64, 2),
+        "chol_tri_inverse": (_spd(rnd, 2, 800),),
+    }[name]
+
+
+@pytest.mark.parametrize("name", ["lag_corr", "subspace", "chol_tri_inverse"])
+def test_cooperative_kernel_captured_alone(dev, name):
+    """K2, K9 and K10b (cooperative launches with grid barriers or ready
+    counters) captured alone: a replay equals the eager launch bit for bit,
+    and after the inputs change in place the replay follows them."""
+    fn = K.WRAPPERS[name]
+    args = _cooperative_args(dev, name, 3)
+    graph, out = _capture(fn, *args)
+    out = out if isinstance(out, tuple) else (out,)
+    for seed in (3, 4):
+        fresh = _cooperative_args(dev, name, seed)
+        for x, y in zip(args, fresh):
+            if isinstance(x, torch.Tensor):
+                x.copy_(y)
+        graph.replay()
+        want = fn(*fresh)
+        want = want if isinstance(want, tuple) else (want,)
+        torch.cuda.synchronize()
+        for x, y in zip(out, want):
+            assert torch.equal(x, y), (name, seed)
+
+
+@pytest.mark.parametrize("pcm", [False, True])
+def test_process_hops_span_equals_hop_loop_on_the_card(dev, pcm):
+    """The serving drain on the graphed production hop: one upload, the
+    replays, the span selection (and the int16 pack) on the card, one
+    fetch; bit for bit the per-hop loop's feeds without pcm, within half
+    a quantization step (and float32 rounding) with it."""
+    drained, _, rng = _graphed_pair(dev, "production")
+    stepped, _, _ = _graphed_pair(dev, "production")
+    sig = rng.standard_normal((2, 64 * 9)).astype(np.float32)
+    fa, fb = drained.process_hops_span(sig[0], sig[1], span_index=-1, pcm=pcm)
+    want = [stepped.process_input_buffers(sig[0, i * 64 : (i + 1) * 64],
+                                          sig[1, i * 64 : (i + 1) * 64]) for i in range(9)]
+    assert drained.rebuilds == stepped.rebuilds
+    for got, f in ((fa, 0), (fb, 1)):
+        ref = torch.cat([w[f][-1] for w in want]).cpu().numpy()
+        if pcm:  # half a step, and float32 rounding of the scale and the dequantization
+            peak = max(np.abs(fa).max(), np.abs(fb).max())
+            assert np.abs(got - ref).max() <= peak * (0.5 / 32766 + 4 * np.finfo(np.float32).eps)
+        else:
+            np.testing.assert_array_equal(got, ref)
