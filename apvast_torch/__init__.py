@@ -16,10 +16,11 @@ from apvast_torch.engine import (
     build_plan,
     init_state,
     process_hop,
+    run_multi_stream,
     run_stream,
     stitch_outputs,
 )
-from apvast_torch.models import ApVast, ApVastFD
+from apvast_torch.models import ApVast, ApVastFD, MultiSceneApVast
 from apvast_torch.runtime import StreamHost
 
 __all__ = [
@@ -28,11 +29,13 @@ __all__ = [
     "ApVastFD",
     "GevdSolver",
     "HopOutputs",
+    "MultiSceneApVast",
     "StreamHost",
     "build_plan",
     "init_state",
     "process_hop",
     "production_overrides",
+    "run_multi_stream",
     "run_stream",
     "stitch_outputs",
 ]

@@ -106,14 +106,22 @@ rowwise_conv_kernel(const float* __restrict__ x, const float* __restrict__ k_t,
   extern __shared__ __align__(16) float smem[];
   __shared__ long long row_off[kTile];  // global row offset, -1 past the rows
 
+  // Scene blockIdx.z / (2 m row_tiles): its 4 paths of x and out, its 2
+  // zones of k_t.
+  const int per_scene = 2 * m * row_tiles;
+  const long long scene = blockIdx.z / per_scene;
+  const int u_len = b + taps - 1;
+  x += scene * 4 * m * s * n;
+  out += scene * 4 * m * s * n;
+  k_t += scene * 2 * m * b * u_len;
   const int warps = blockDim.x / 32;
   const int stage_floats = (1 + warps) * kTileFloats;
   const int h = taps / 2;
-  const int u_len = b + taps - 1;
   const int o0 = blockIdx.x * warps * kTile;
   const int f = blockIdx.y;
-  const int zm = blockIdx.z / row_tiles;
-  const int r0 = (blockIdx.z % row_tiles) * kTile;
+  const int zr = blockIdx.z % per_scene;
+  const int zm = zr / row_tiles;
+  const int r0 = (zr % row_tiles) * kTile;
   const int z = zm / m, mi = zm % m;
   const int rows = 2 * s;
   const float* kz = k_t + ((long long)z * m + mi) * b * u_len;
@@ -186,15 +194,17 @@ rowwise_conv_kernel(const float* __restrict__ x, const float* __restrict__ k_t,
 
 }  // namespace
 
-// x (4, m, s, n), k_t (2, m, b, b + taps - 1) -> out (4, m, s, n); float32,
-// contiguous, taps odd, taps / 2 < n, b divides n.
+// x (4 scenes, m, s, n), k_t (2 scenes, m, b, b + taps - 1) -> out (4 scenes,
+// m, s, n); float32, contiguous, taps odd, taps / 2 < n, b divides n. Each
+// scene's 4 paths against its 2 zones' k_t: one launch for every scene,
+// each scene's arithmetic that of a launch of its own.
 extern "C" int rowwise_conv_launch(const float* x, const float* k_t, float* out,
-                                   int m, int s, int n, int taps, int b,
+                                   int m, int s, int n, int taps, int b, int scenes,
                                    cudaStream_t stream) {
   const int tiles = (b + kTile - 1) / kTile;
   const int warps = tiles < kMaxWarps ? tiles : kMaxWarps;
   const int row_tiles = (2 * s + kTile - 1) / kTile;
-  const dim3 grid((tiles + warps - 1) / warps, n / b, 2 * m * row_tiles);
+  const dim3 grid((tiles + warps - 1) / warps, n / b, scenes * 2 * m * row_tiles);
   const size_t smem = 2 * (1 + warps) * kTileFloats * sizeof(float);
   const bool vec = n % 4 == 0 && b % 4 == 0 && (taps / 2) % 4 == 0 &&
                    ((uintptr_t)x | (uintptr_t)k_t) % 16 == 0;

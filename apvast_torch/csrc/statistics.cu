@@ -185,14 +185,16 @@ __device__ __forceinline__ void gram_chunk(float (&acc)[2][4][4], const uint2* p
 }
 
 __global__ void __launch_bounds__(kThreads, 3)
-statistics_kernel(const float* __restrict__ buf, const float* __restrict__ d,
+statistics_kernel(const float* __restrict__ buf, const float* __restrict__ targets,
                   float* __restrict__ r_mats, float* __restrict__ r_cross,
-                  int m, int s, int n, int j, int cap) {
+                  int m, int s, int n, int j, int cap, int paths) {
   extern __shared__ __align__(16) float smem[];
 
   const int sj = s * j;
   const int k = n - j + 1;
   const int p = blockIdx.y;
+  // The two targets of path p's scene (paths a scene, scenes in order).
+  const float* __restrict__ d = targets + (size_t)(p / paths) * 2 * m * k;
   // Lower-triangle tile pair number blockIdx.x -> (bi, bj), bj <= bi.
   const int tp = blockIdx.x;
   int bi = (int)((sqrtf(8.f * tp + 1.f) - 1.f) * 0.5f);
@@ -354,11 +356,14 @@ statistics_kernel(const float* __restrict__ buf, const float* __restrict__ d,
 
 }  // namespace
 
-// buf (p4, m, s, n), d (2, m, n - j + 1) -> r_mats (p4, s*j, s*j),
-// r_cross (p4, s*j, 2); float32, contiguous, 0 < j <= n.
+// buf (p4, m, s, n), d (2 * scenes, m, n - j + 1) -> r_mats (p4, s*j, s*j),
+// r_cross (p4, s*j, 2); float32, contiguous, 0 < j <= n. The p4 paths are
+// the scenes' p4 / scenes paths each, in order, each against the two
+// targets of its scene: one launch for every scene, each scene's
+// arithmetic that of a launch of its own.
 extern "C" int statistics_launch(const float* buf, const float* d, float* r_mats,
                                  float* r_cross, int p4, int m, int s, int n, int j,
-                                 cudaStream_t stream) {
+                                 int scenes, cudaStream_t stream) {
   // Raise the kernel's dynamic shared-memory limit to its largest size (J = 1),
   // once per device.
   static std::atomic<bool> raised[kMaxDevices];
@@ -375,6 +380,6 @@ extern "C" int statistics_launch(const float* buf, const float* d, float* r_mats
   const int tiles = (s * j + kTile - 1) / kTile;
   const dim3 grid(tiles * (tiles + 1) / 2, p4);
   statistics_kernel<<<grid, kThreads, smem_floats(cap) * sizeof(float), stream>>>(
-      buf, d, r_mats, r_cross, m, s, n, j, cap);
+      buf, d, r_mats, r_cross, m, s, n, j, cap, p4 / scenes);
   return (int)cudaGetLastError();
 }

@@ -19,6 +19,12 @@ replay and read after that copy's event, one read a hop at most and none
 on warmup and cadence hops. Configurations
 whose hop must read the device mid-hop stay eager (:func:`eager_reason`).
 A capture or replay error raises; nothing falls back to the eager hop.
+
+The scene-batched hop (``parallel/mesh.py``, N scenes in lockstep, each
+kernel launched once for all of them) is captured the same way with
+``batched=True``: static inputs (N, 2, hop), the batched state, one graph
+per rebuild branch, and the largest residual over the scenes read behind
+the replay.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from apvast_torch.engine.fd_hop import FdState, process_hop_fd
 from apvast_torch.engine.hop import HopOutputs, process_hop, rebuild_predicate
 from apvast_torch.engine.plan import ApVastPlan
 from apvast_torch.ops import kernels as K
+from apvast_torch.parallel.mesh import sharded_multi_scene_fd_hop, sharded_multi_scene_hop
 from apvast_torch.utils.device import torch_dtype
 
 _EIGH = "torch.linalg.eigh, which checks its result on the host (a device read mid-hop)"
@@ -119,14 +126,22 @@ def hop_into(
     hop_b: torch.Tensor,
     rebuilt: bool = False,
     forgetting: float = 0.9,
+    batched: bool = False,
 ) -> HopOutputs:
     """The captured body: one hop of either engine from ``state``, the new
     state written back into ``state``'s tensors (:func:`copy_state_into`).
 
     ``rebuilt`` is the tracking solver's rebuild decision, taken by the
     caller (ignored by the other solvers); ``forgetting`` is the FD
-    engine's covariance decay. Returns the hop's outputs, fresh tensors."""
-    if isinstance(state, FdState):
+    engine's covariance decay; ``batched``: ``plan`` and ``state`` are
+    batched over scenes and the inputs are (N, hop), the scene-batched hop
+    of ``parallel/mesh.py``. Returns the hop's outputs, fresh tensors."""
+    fd = isinstance(state, FdState)
+    if batched:
+        step = (sharded_multi_scene_fd_hop(config, forgetting=forgetting) if fd
+                else sharded_multi_scene_hop(config))
+        new, out = step(plan, state, hop_a, hop_b, rebuild_override=rebuilt)
+    elif fd:
         new, out = process_hop_fd(config, plan, state, hop_a, hop_b, forgetting=forgetting)
     else:
         new, out = process_hop(config, plan, state, hop_a, hop_b, rebuild_override=rebuilt)
@@ -151,9 +166,11 @@ class GraphedHop:
     launch counters run in Python and so count only while a graph is
     captured: each graph keeps the counts of its capture, which
     :meth:`replay` adds, and the counts of the warmup and the captures
-    are taken back out."""
+    are taken back out. ``batched``: the scene-batched hop (module
+    docstring), ``plan`` and ``state`` batched over scenes."""
 
-    def __init__(self, config: ApVastConfig, plan: ApVastPlan, state, forgetting: float = 0.9):
+    def __init__(self, config: ApVastConfig, plan: ApVastPlan, state, forgetting: float = 0.9,
+                 batched: bool = False):
         device = plan.window.device
         if device.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA device, the plan is on {device}")
@@ -162,8 +179,11 @@ class GraphedHop:
         if reason is not None:
             raise ValueError(f"this configuration's hop cannot be captured: {reason}")
         self.config, self.plan, self.forgetting = config, plan, forgetting
+        self.batched = batched
         self.tracking = not fd and uses_tracking_solver(config)
-        self.hops = torch.zeros((2, config.hop), dtype=torch_dtype(config), device=device)
+        scenes = (state.input_blocks.shape[0],) if batched else ()
+        self.hops = torch.zeros((*scenes, 2, config.hop), dtype=torch_dtype(config),
+                                device=device)
         self.state = clone_state(state)
         self.out: HopOutputs | None = None
         self.graphs: dict[bool, torch.cuda.CUDAGraph] = {}
@@ -177,8 +197,8 @@ class GraphedHop:
         self._capture(device, (True, False) if self.tracking else (False,))
 
     def _body(self, state, rebuilt: bool) -> HopOutputs:
-        return hop_into(self.config, self.plan, state, self.hops[0], self.hops[1], rebuilt,
-                        self.forgetting)
+        return hop_into(self.config, self.plan, state, self.hops[..., 0, :],
+                        self.hops[..., 1, :], rebuilt, self.forgetting, self.batched)
 
     def _capture(self, device, branches) -> None:
         counts = K.launch_counts()
@@ -220,20 +240,23 @@ class GraphedHop:
         copy_state_into(self.state, state)
 
     def stage(self, hop_a, hop_b) -> None:
-        """Copy the next hop's two inputs into the static input buffer:
-        one copy of the stacked pair for host arrays, one each for device
-        tensors."""
+        """Copy the next hop's two inputs ((hop,) each, (N, hop) batched)
+        into the static input buffer: one copy of the stacked pair for host
+        arrays, one each for device tensors."""
+        shape = self.hops.shape[:-2] + self.hops.shape[-1:]
         if isinstance(hop_a, torch.Tensor) and isinstance(hop_b, torch.Tensor):
-            self.hops[0].copy_(hop_a.reshape(-1))
-            self.hops[1].copy_(hop_b.reshape(-1))
+            self.hops[..., 0, :].copy_(hop_a.reshape(shape))
+            self.hops[..., 1, :].copy_(hop_b.reshape(shape))
         else:
-            self.hops.copy_(torch.stack([torch.as_tensor(hop_a).reshape(-1),
-                                         torch.as_tensor(hop_b).reshape(-1)]))
+            self.hops.copy_(torch.stack([torch.as_tensor(hop_a).reshape(shape),
+                                         torch.as_tensor(hop_b).reshape(shape)], dim=-2))
 
     def _read_resid(self) -> float:
-        """The previous hop's residual: copied into pinned memory behind
-        its replay, read once the copy's event has passed."""
-        self._resid_host.copy_(self.state.gevd_resid, non_blocking=True)
+        """The previous hop's residual (batched: the largest over the
+        scenes): copied into pinned memory behind its replay, read once the
+        copy's event has passed."""
+        resid = self.state.gevd_resid
+        self._resid_host.copy_(resid.amax() if resid.dim() else resid, non_blocking=True)
         self._resid_event.record()
         self._resid_event.synchronize()
         self.resid_reads += 1

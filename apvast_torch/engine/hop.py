@@ -436,9 +436,12 @@ def process_hop(
             refs = (config.reference_index_a, config.reference_index_a)
         else:
             refs = (config.reference_index_a, config.reference_index_b)
-        t_blocks = torch.zeros((2, s, block), dtype=dtype, device=device)
-        t_blocks[0, refs[0]] = rolled[0]
-        t_blocks[1, refs[1]] = rolled[1]
+        # Zone z's target block: the rolled input in row refs[z], zeros
+        # elsewhere (padded, not written in place, so that vmap passes).
+        t_blocks = torch.stack([
+            torch.nn.functional.pad(rolled[z, None], (0, 0, ref, s - 1 - ref))
+            for z, ref in enumerate(refs)
+        ])
         new_t_out = win * t_blocks
     else:
         filt_spec = rfft_batched(filters, block)  # (2, v, s, bins)

@@ -1,6 +1,8 @@
-"""What :class:`ApVast` and :class:`ApVastFD` share: the hop dispatched
-eagerly or as a replayed CUDA graph (``engine/graph.py``), the per-hop
-entry point, and the serving drain ``process_hops_span`` (port of
+"""What the models share: the hop dispatched eagerly or as a replayed CUDA
+graph (``engine/graph.py``; :class:`GraphDispatch`, also under
+:class:`~apvast_torch.models.multi_scene.MultiSceneApVast`), and what
+:class:`ApVast` and :class:`ApVastFD` share besides: the per-hop entry
+point and the serving drain ``process_hops_span`` (port of
 ``apvast_tpu/models/apvast.py::ApVast.process_hops_span``)."""
 
 from __future__ import annotations
@@ -16,12 +18,11 @@ from apvast_torch.engine.stream import stitch_outputs
 from apvast_torch.utils.device import torch_dtype
 
 
-class HopModel:
-    """Subclasses set ``config``, ``plan`` and ``device``, call
-    :meth:`_init_dispatch`, and implement :meth:`_eager_hop` and
-    :attr:`_num_outputs`.
+class GraphDispatch:
+    """The hop run eagerly or as a replayed CUDA graph. Subclasses set
+    ``config``, ``plan`` and ``device`` and call :meth:`_init_dispatch`.
 
-    ``graph`` (a constructor argument of both models): None captures the
+    ``graph`` (a constructor argument of every model): None captures the
     hop as a CUDA graph on the card when the configuration allows it
     (:func:`apvast_torch.engine.graph.eager_reason`) and runs it eagerly
     otherwise; False runs it eagerly; True requires the graph and raises
@@ -29,6 +30,7 @@ class HopModel:
     captured and on the CPU. ``graphed`` says which runs."""
 
     _fd = False
+    _batched = False  # the scene-batched hop (MultiSceneApVast)
     forgetting = 0.9
 
     def _init_dispatch(self, graph: bool | None) -> None:
@@ -54,7 +56,8 @@ class HopModel:
         if not self.graphed:
             self._state = value
         elif self._graph is None:
-            self._graph = GraphedHop(self.config, self.plan, value, self.forgetting)
+            self._graph = GraphedHop(self.config, self.plan, value, self.forgetting,
+                                     batched=self._batched)
         else:
             self._graph.load(value)
 
@@ -62,6 +65,23 @@ class HopModel:
     def graph(self) -> GraphedHop | None:
         """The captured hop (None on an eager model)."""
         return self._graph
+
+    def _kept(self, out: HopOutputs) -> HopOutputs:
+        """``out`` with fresh feed tensors (a graph's outputs are its static
+        buffers)."""
+        if self._graph is None:
+            return out
+        return dataclasses.replace(out, **{
+            name: getattr(out, name).clone()
+            for name in ("out_a", "out_b", "out_a_t", "out_b_t")
+            if getattr(out, name) is not None
+        })
+
+
+class HopModel(GraphDispatch):
+    """One scene's hop (``ApVast``, ``ApVastFD``): subclasses implement
+    :meth:`_eager_hop` and :attr:`_num_outputs` besides what
+    :class:`GraphDispatch` asks."""
 
     def _signal(self, x) -> torch.Tensor:
         return torch.as_tensor(x).reshape(-1).to(
@@ -90,17 +110,6 @@ class HopModel:
         self.silenced = self.silenced + out.silenced
         self.rebuilds += int(out.rebuilt)
         return out
-
-    def _kept(self, out: HopOutputs) -> HopOutputs:
-        """``out`` with fresh feed tensors (a graph's outputs are its static
-        buffers)."""
-        if self._graph is None:
-            return out
-        return dataclasses.replace(out, **{
-            name: getattr(out, name).clone()
-            for name in ("out_a", "out_b", "out_a_t", "out_b_t")
-            if getattr(out, name) is not None
-        })
 
     def process_input_buffers(self, input_a, input_b):
         """One hop. Returns (out_a, out_b, out_a_t, out_b_t), each

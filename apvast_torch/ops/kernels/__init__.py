@@ -13,7 +13,10 @@ Every wrapper takes float32 (K7: complex64) tensors in the layout of the
 JAX Pallas function it replaces. On a CPU tensor it returns its plain PyTorch
 version (``*_plain`` in the same module); on a CUDA tensor it launches
 its kernel (``apvast_torch/csrc/*.cu``, built at first use) or raises,
-and adds one to its ``launches`` count.
+and adds one to its ``launches`` count. Inside ``torch.func.vmap`` (the
+scene-batched hop) a wrapper on the hop's path calls its op
+``apvast_torch::<name>``, whose vmap rule folds the scene axis into the
+kernel's leading batch axis (``_batch.py``): one launch for all scenes.
 """
 
 from apvast_torch.ops.kernels.jacobi_eigh import jacobi_eigh, jacobi_eigh_plain

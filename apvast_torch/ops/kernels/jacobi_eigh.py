@@ -26,7 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from apvast_torch.ops.kernels import _build
+from apvast_torch.ops.kernels import _batch, _build
 
 PAIR_SLOTS = 64  # the widest matrix of the pair-block form (K4 and K7)
 SHARED_SLOTS = 160  # A and V of a padded matrix sit in one block's shared memory
@@ -257,6 +257,8 @@ def jacobi_eigh(a: torch.Tensor, sweeps: int) -> tuple[torch.Tensor, torch.Tenso
         ``(w (B, n), v (B, n, n))``: eigenvalues ascending, eigenvectors in
         the columns of v, as ``torch.linalg.eigh`` orders them.
     """
+    if _batch.batched(a):
+        return jacobi_eigh_op(a, sweeps)
     _build.check_input(a, "a", 3)
     bz, n, n2 = a.shape
     if n != n2 or n < 1:
@@ -300,3 +302,7 @@ def _launch(a: torch.Tensor, sweeps: int, template: bool) -> tuple[torch.Tensor,
 
 
 jacobi_eigh.launches = 0
+jacobi_eigh_op = _batch.fold(
+    "jacobi_eigh", jacobi_eigh,
+    fake=lambda a, sweeps: (a.new_empty(a.shape[:2]), a.new_empty(a.shape)),
+)

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from apvast_torch.ops.kernels import _build
+from apvast_torch.ops.kernels import _batch, _build
 from apvast_torch.ops.kernels.jacobi_eigh import (
     PAIR_SLOTS,
     jacobi_eigh_plain,
@@ -72,7 +72,7 @@ def jacobi_eigh_hermitian_plain(h: torch.Tensor, sweeps: int):
     return select_pairs(w2, v2, h.shape[-1])
 
 
-def jacobi_eigh_hermitian(h: torch.Tensor, sweeps: int):
+def jacobi_eigh_hermitian(h: torch.Tensor, sweeps: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Eigendecomposition of a batch of small complex Hermitian matrices.
 
     Args:
@@ -83,6 +83,8 @@ def jacobi_eigh_hermitian(h: torch.Tensor, sweeps: int):
         ``(w (B, n) float32, q (B, n, n) complex64)``: eigenvalues ascending,
         unit eigenvectors in the columns of q, each up to a phase.
     """
+    if _batch.batched(h):
+        return jacobi_eigh_hermitian_op(h, sweeps)
     if not isinstance(h, torch.Tensor) or h.dtype != torch.complex64:
         raise ValueError(f"h must be a complex64 tensor (a float32 kernel), got "
                          f"{getattr(h, 'dtype', type(h))}")
@@ -108,3 +110,7 @@ def jacobi_eigh_hermitian(h: torch.Tensor, sweeps: int):
 
 
 jacobi_eigh_hermitian.launches = 0
+jacobi_eigh_hermitian_op = _batch.fold(
+    "jacobi_eigh_hermitian", jacobi_eigh_hermitian,
+    fake=lambda h, sweeps: (h.new_empty(h.shape[:2], dtype=torch.float32), h.new_empty(h.shape)),
+)

@@ -18,7 +18,7 @@ import ctypes
 
 import torch
 
-from apvast_torch.ops.kernels import _build
+from apvast_torch.ops.kernels import _batch, _build
 
 
 def lag_corr_plain(x: torch.Tensor, j: int) -> torch.Tensor:
@@ -55,9 +55,23 @@ def workspace_floats(shape: tuple[int, int, int, int], j: int, device: torch.dev
     return _workspace[key]
 
 
+ROWS, LAGS = 6, 10  # a thread's register tile in csrc/lag_corr.cu (kRows, kLags)
+
+
+def depth_slices(shape: tuple[int, int, int, int], j: int, device: torch.device) -> int:
+    """The depth slices of the card kernel's plan for x of ``shape`` and
+    ``j`` lags on ``device`` (as many as the card holds blocks for the P
+    paths, so fewer as P grows; 1: one plain launch, no workspace)."""
+    p4, _, s, _ = shape
+    tile_floats = s * -(-s // ROWS) * -(-j // LAGS) * ROWS * LAGS
+    return max(1, workspace_floats(shape, j, device) // (p4 * tile_floats))
+
+
 def lag_corr(x: torch.Tensor, j: int) -> torch.Tensor:
     """Mic-summed source-pair correlations at J lags, (P, S, S, J); same
     signature and layout as the JAX ``lag_corr_pallas``."""
+    if _batch.batched(x):
+        return lag_corr_op(x, j)
     _build.check_input(x, "x", 4)
     p4, m, s, n = x.shape
     if not 0 < j <= n:
@@ -73,3 +87,7 @@ def lag_corr(x: torch.Tensor, j: int) -> torch.Tensor:
 
 
 lag_corr.launches = 0
+lag_corr_op = _batch.fold(
+    "lag_corr", lag_corr,
+    fake=lambda x, j: x.new_empty((x.shape[0], x.shape[2], x.shape[2], j)),
+)

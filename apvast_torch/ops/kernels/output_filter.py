@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from apvast_torch.ops.kernels import _build
+from apvast_torch.ops.kernels import _batch, _build
 
 SMEM_LIMIT = 227 * 1024  # bytes of shared memory a block may use
 
@@ -78,7 +78,10 @@ def circular_filter_overlap(
     of the filter rows ``filters`` (zones, rows, taps) applied to the
     analysis-windowed ``windowed_input`` (zones, block), with the synthesis
     ``window`` (block,) and the carried ``tail``. Same signature and
-    layout as the JAX ``circular_filter_overlap_pallas``."""
+    layout as the JAX ``circular_filter_overlap_pallas``. Folded over
+    scenes, every scene shares the one ``window``."""
+    if _batch.batched(windowed_input, filters, window, tail):
+        return circular_filter_overlap_op(windowed_input, filters, window, tail, hop)
     _build.check_input(windowed_input, "windowed_input", 2)
     dev = windowed_input.device
     _build.check_input(filters, "filters", 3, dev)
@@ -144,3 +147,8 @@ def circular_filter(windowed_input: torch.Tensor, filters: torch.Tensor) -> torc
 
 
 circular_filter.launches = 0
+circular_filter_overlap_op = _batch.fold(
+    "circular_filter_overlap", circular_filter_overlap, shared=("window",),
+    fake=lambda windowed_input, filters, window, tail, hop: (
+        filters.new_empty((*filters.shape[:2], hop)), filters.new_empty(tail.shape)),
+)

@@ -22,7 +22,7 @@ import math
 
 import torch
 
-from apvast_torch.ops.kernels import _build
+from apvast_torch.ops.kernels import _batch, _build
 
 SMEM_LIMIT = 227 * 1024  # bytes of shared memory a block may use
 SMEM_PREFERRED = 96 * 1024  # the whole J x J tile up to this: two blocks an SM
@@ -109,6 +109,8 @@ def lag_skew_assemble(
         (s1, t1), valid at lanes with t2 <= t1 and zero above; with
         ``half_scaled`` the lanes t2 == t1 hold half of it.
     """
+    if _batch.batched(lhs_t, rhs_sm, c0_sm):
+        return lag_skew_assemble_op(lhs_t, rhs_sm, c0_sm, j, half_scaled)
     _build.check_input(lhs_t, "lhs_t", 3)
     _build.check_input(rhs_sm, "rhs_sm", 3, lhs_t.device)
     _build.check_input(c0_sm, "c0_sm", 3, lhs_t.device)
@@ -134,3 +136,8 @@ def lag_skew_assemble(
 
 
 lag_skew_assemble.launches = 0
+lag_skew_assemble_op = _batch.fold(
+    "lag_skew_assemble", lag_skew_assemble,
+    fake=lambda lhs_t, rhs_sm, c0_sm, j, half_scaled=False: lhs_t.new_empty(
+        (lhs_t.shape[0], lhs_t.shape[1] // j, j, rhs_sm.shape[-1])),
+)

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from apvast_torch.ops.kernels import _build
+from apvast_torch.ops.kernels import _batch, _build
 
 
 def streaming_conv_plain(
@@ -40,6 +40,8 @@ def streaming_conv(
     FIR rows ``kernels`` (signals, rows, taps) over ``segments``
     (signals, seg_len) = carried history ++ new hop samples. Same
     signature and layout as the JAX ``streaming_conv_pallas``."""
+    if _batch.batched(segments, kernels):
+        return streaming_conv_op(segments, kernels, hop)
     _build.check_input(segments, "segments", 2)
     _build.check_input(kernels, "kernels", 3, segments.device)
     z, seg_len = segments.shape
@@ -62,3 +64,7 @@ def streaming_conv(
 
 
 streaming_conv.launches = 0
+streaming_conv_op = _batch.fold(
+    "streaming_conv", streaming_conv,
+    fake=lambda segments, kernels, hop: kernels.new_empty((*kernels.shape[:2], hop)),
+)

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from apvast_torch.ops.kernels import _build
+from apvast_torch.ops.kernels import _batch, _build
 from apvast_torch.ops.trisolve import clamped_cholesky, neumann_tri_inverse
 
 TILE_ROWS = 16  # output rows of a product tile in csrc/subspace.cu
@@ -76,6 +76,8 @@ def subspace_iterate(
         ``(q, small)``: the orthonormal (bz, n, k) subspace and its
         symmetric (bz, k, k) projection q^T (Li A Li^T) q.
     """
+    if _batch.batched(a, li, q0):
+        return subspace_iterate_op(a, li, q0, iters, jitter_rel)
     for name, t in (("a", a), ("li", li), ("q0", q0)):
         _build.check_input(t, name, 3, a.device)
     bz, n, k = q0.shape
@@ -104,3 +106,8 @@ def subspace_iterate(
 
 
 subspace_iterate.launches = 0
+subspace_iterate_op = _batch.fold(
+    "subspace_iterate", subspace_iterate,
+    fake=lambda a, li, q0, iters, jitter_rel=1e-6: (
+        q0.new_empty(q0.shape), q0.new_empty((q0.shape[0], q0.shape[2], q0.shape[2]))),
+)

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from apvast_torch.ops.kernels import _build
+from apvast_torch.ops.kernels import _batch, _build
 from apvast_torch.ops.trisolve import clamped_cholesky, neumann_tri_inverse
 
 PANEL = 128
@@ -102,6 +102,8 @@ def chol_panel(d: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Cholesky factors and their inverses of a (bz, 128, 128) SPD float32
     batch (its lower triangle is read). Returns ``(l, l_inv)``, both lower
     triangular; a non-PD panel gives non-finite values."""
+    if _batch.batched(d):
+        return chol_panel_op(d)
     _build.check_input(d, "d", 3)
     if tuple(d.shape[-2:]) != (PANEL, PANEL):
         raise ValueError(f"panel kernel is fixed at {PANEL}")
@@ -116,6 +118,9 @@ def chol_panel(d: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 chol_panel.launches = 0
+chol_panel_op = _batch.fold(
+    "chol_panel", chol_panel, fake=lambda d: (d.new_empty(d.shape), d.new_empty(d.shape))
+)
 
 
 def blocked_cholesky(b: torch.Tensor) -> torch.Tensor:
@@ -123,18 +128,19 @@ def blocked_cholesky(b: torch.Tensor) -> torch.Tensor:
     applied): panel factorizations by :func:`chol_panel`, explicit-inverse
     panel solves with one refinement step, trailing updates as matmuls.
     Same contract as ``torch.linalg.cholesky``; a failed panel gives
-    non-finite values instead of an error."""
+    non-finite values instead of an error. Writes no tensor in place, so
+    that ``torch.func.vmap`` passes (the factor is joined from its panel
+    columns)."""
     bz, n, _ = b.shape
     if b.dtype != torch.float32:
         raise ValueError("blocked_cholesky is a float32 path")
     npad = -(-n // PANEL) * PANEL
-    b = _pad_identity(b, npad)
-    out = torch.zeros((bz, npad, npad), dtype=b.dtype, device=b.device)
-    trail = b
+    trail = _pad_identity(b, npad)
+    columns = []
     for lo in range(0, npad, PANEL):
         hi = lo + PANEL
         lp, lpinv = chol_panel(trail[:, :PANEL, :PANEL].contiguous())
-        out[:, lo:hi, lo:hi] = lp
+        column = lp
         if hi < npad:
             a21 = trail[:, PANEL:, :PANEL]
             lpinv_t = lpinv.transpose(-1, -2)
@@ -142,8 +148,9 @@ def blocked_cholesky(b: torch.Tensor) -> torch.Tensor:
             # One refinement step of the panel solve L21 Lp^T = A21.
             l21 = l21 + (a21 - l21 @ lp.transpose(-1, -2)) @ lpinv_t
             trail = trail[:, PANEL:, PANEL:] - l21 @ l21.transpose(-1, -2)
-            out[:, hi:, lo:hi] = l21
-    return out[:, :n, :n]
+            column = torch.cat([lp, l21], dim=-2)
+        columns.append(torch.nn.functional.pad(column, (0, 0, lo, 0)))
+    return torch.cat(columns, dim=-1)[:, :n, :n]
 
 
 def _pad_identity(b: torch.Tensor, npad: int) -> torch.Tensor:
@@ -151,10 +158,10 @@ def _pad_identity(b: torch.Tensor, npad: int) -> torch.Tensor:
     bz, n, _ = b.shape
     if npad == n:
         return b
-    padded = torch.zeros((bz, npad, npad), dtype=b.dtype, device=b.device)
-    padded[:, :n, :n] = b
-    padded[:, n:, n:] = torch.eye(npad - n, dtype=b.dtype, device=b.device)
-    return padded
+    eye = torch.eye(npad - n, dtype=b.dtype, device=b.device)
+    top = torch.nn.functional.pad(b, (0, npad - n))
+    bottom = torch.nn.functional.pad(eye, (n, 0)).expand(bz, npad - n, npad)
+    return torch.cat([top, bottom], dim=-2)
 
 
 def _merge(x11: torch.Tensor, x22: torch.Tensor, l21: torch.Tensor) -> torch.Tensor:

@@ -31,9 +31,8 @@ def _c0_and_cross_fused(
     C0 is ``r_corr[z, s, a] = sum_t d_z[t] x[s, t + a]``."""
     p4, m, s, n = buf.shape
     dpad = torch.nn.functional.pad(d, (0, j - 1))  # (2, m, n)
-    dz = torch.zeros((p4, m, 1, n), dtype=buf.dtype, device=buf.device)
-    dz[0, :, 0] = dpad[0]
-    dz[3, :, 0] = dpad[1]
+    dark = torch.zeros_like(dpad[0])
+    dz = torch.stack([dpad[0], dark, dark, dpad[1]])[:, :, None]  # (4, m, 1, n)
     ext = torch.cat([buf, dz], dim=2).contiguous()  # (4, m, s+1, n)
     c0e = lag_corr(ext, j)  # (4, s+1, s+1, J); float32 only
     c0 = c0e[:, :s, :s]

@@ -28,6 +28,7 @@ from apvast_torch.engine.state import (
     state_shapes,
     subspace_shapes,
 )
+from apvast_torch.parallel.mesh import stack_plans, stack_states
 from apvast_torch.utils.device import resolve_device, torch_dtype
 
 _ENUM_FIELDS = {
@@ -182,6 +183,37 @@ def state_from_numpy(
     if "gevd_lam" in carry:
         return TrackingState(**data, **carry)
     return SubspaceState(**data, **({"gevd_minv": None} | carry))
+
+
+def _scene(arrays: dict, i: int) -> dict:
+    return {name: None if arr is None else np.asarray(arr)[i] for name, arr in arrays.items()}
+
+
+def plans_from_numpy(config: cfg_mod.ApVastConfig, arrays: dict, device=None) -> ApVastPlan:
+    """A batched plan (``parallel.mesh``) from the leaves of a stacked JAX
+    ``ApVastPlan`` (NumPy arrays with a leading scene axis, as
+    ``MultiSceneApVast.plans`` holds them): :func:`plan_from_numpy` per
+    scene, the per-scene fields stacked; raises ValueError where a field
+    that the scenes share (one configuration) differs between them."""
+    scenes = np.shape(arrays["window"])[0]
+    return stack_plans([plan_from_numpy(config, _scene(arrays, i), device)
+                        for i in range(scenes)])
+
+
+def states_from_numpy(config: cfg_mod.ApVastConfig, arrays: dict, device=None) -> ApVastState:
+    """A batched state (``parallel.mesh``) from the leaves of a stacked JAX
+    ``ApVastState`` (NumPy arrays with a leading scene axis):
+    :func:`state_from_numpy` per scene. The tracking solver's stacked hop
+    counter becomes one host int; scenes whose counters differ are not in
+    lockstep, and raise ValueError (the JAX package's ``check_lockstep``
+    raises on them too)."""
+    hops = arrays.get("gevd_hop")
+    if hops is not None and np.unique(np.asarray(hops)).size > 1:
+        raise ValueError(f"gevd_hop differs between scenes ({np.asarray(hops).tolist()}): the "
+                         "scenes of a batch advance in lockstep; reset all of them together")
+    scenes = np.shape(arrays["input_blocks"])[0]
+    return stack_states([state_from_numpy(config, _scene(arrays, i), device)
+                         for i in range(scenes)])
 
 
 def fd_state_from_numpy(config: cfg_mod.ApVastConfig, arrays: dict, device=None) -> FdState:

@@ -968,6 +968,118 @@ def phase2(scene, dev, card):
     return results
 
 
+def phase2_folded(scene, dev, card, results):
+    """The kernels of the scene-batched hop at the shapes it gives them
+    (each kernel's leading batch axis FOLDED_N times a scene's): K1-K9,
+    K10a and K7 against their plain versions (TOL_KERNEL of scale), timed
+    (CUDA events, L2 flushed) beside the one-scene time of phase 2; K2's
+    depth slices at both path counts. K6 and K8 at MULTI_N scenes in one
+    launch against MULTI_N single-scene launches, bit for bit (each scene's
+    arithmetic is a single launch's), and the one-scene launch timed again
+    beside the folded one."""
+    from apvast_torch.engine.plan import build_plan
+    from apvast_torch.ops import kernels as K
+    from apvast_torch.ops.kernels.lag_corr import depth_slices
+    from apvast_torch.ops.weighting_conv import _banded_toeplitz_t, weighting_kernel
+
+    cfg = scene.config
+    n = FOLDED_N
+    g = torch.Generator(device="cpu").manual_seed(SEED + 14)
+    plan = build_plan(cfg, scene.rir_a, scene.rir_b, dev)
+    m, s, j, hop, block = cfg.num_mics, cfg.num_srcs, cfg.filter_length, cfg.hop, cfg.block_size
+    v, jl, bins = cfg.num_solutions, cfg.jl, cfg.num_bins
+    n6 = cfg.statistics_buffer_length - 1
+    frame = WEIGHTING_FRAME
+    flush = torch.zeros(64 * 2**20 // 4, dtype=torch.float32, device=dev)
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=g).to(dev)
+
+    def spd(b, size):
+        x = torch.randn((b, size, size), device=dev)
+        return (x @ x.transpose(1, 2) / size + torch.eye(size, device=dev)).contiguous()
+
+    torch.manual_seed(SEED + 14)
+    li9 = torch.linalg.inv(torch.linalg.cholesky(spd(2 * n, jl))).tril().contiguous()
+    kern8 = weighting_kernel(0.5 + rnd(2 * n, m, bins).abs(), block, WEIGHTING_TAPS,
+                             plan.idft_cos_plain)
+    cases = {
+        "streaming_conv": (lambda a, b: K.streaming_conv(a, b, hop),
+                           lambda a, b: K.streaming_conv_plain(a, b, hop),
+                           (rnd(2 * n, cfg.fir_fft_size, scale=0.1),
+                            plan.conv_kernels.repeat(n, 1, 1))),
+        "lag_corr": (lambda a: K.lag_corr(a, j), lambda a: K.lag_corr_plain(a, j),
+                     (rnd(4 * n, m, s + 1, n6, scale=1e-3),)),
+        "skew_assembly": (lambda a, b, c: K.lag_skew_assemble(a, b, c, j, True),
+                          lambda a, b, c: K.lag_skew_assemble_plain(a, b, c, j, True),
+                          (rnd(4 * n, j * s, 2 * m), rnd(4 * n, 2 * m, s * j),
+                           rnd(4 * n, s, s * j))),
+        "whiten": (K.chol_panel, K.chol_panel_plain, (spd(2 * n, 128),)),
+        "subspace": (lambda a, b, c: K.subspace_iterate(a, b, c, 2),
+                     lambda a, b, c: K.subspace_iterate_plain(a, b, c, 2),
+                     (spd(2 * n, jl), li9, rnd(2 * n, jl, min(v + 14, jl)))),
+        "jacobi_eigh": (lambda a: K.jacobi_eigh(a, 2), lambda a: K.jacobi_eigh_plain(a, 2),
+                        (_warm(g, dev, 2 * n, min(v + 14, jl)),)),
+        "jacobi_eigh_hermitian": (lambda a: K.jacobi_eigh_hermitian(a, FD_SWEEPS)[0],
+                                  lambda a: K.jacobi_eigh_hermitian_plain(a, FD_SWEEPS)[0],
+                                  (_hermitian(g, dev, 2 * bins * n, s),)),
+        "output_filter": (lambda a, b, t: K.circular_filter_overlap(a, b, plan.window, t, hop),
+                          lambda a, b, t: K.circular_filter_overlap_plain(a, b, plan.window, t,
+                                                                          hop),
+                          ((plan.window * rnd(2 * n, block)).contiguous(),
+                           rnd(2 * n, v * s, j, scale=1e-2),
+                           rnd(2 * n, v * s, block - hop, scale=1e-2))),
+        "statistics": (lambda a, b: K.covariance(a, b, j), lambda a, b: K.covariance_plain(a, b, j),
+                       (rnd(4 * n, m, s, n6, scale=1e-3), rnd(2 * n, m, n6 - j + 1, scale=1e-3))),
+        "rowwise_conv": (lambda a, b: K.rowwise_circular_conv(a, b, WEIGHTING_TAPS, frame),
+                         lambda a, b: K.rowwise_circular_conv_plain(a, b, WEIGHTING_TAPS, frame),
+                         (rnd(4 * n, m, s, block),
+                          _banded_toeplitz_t(kern8, frame, WEIGHTING_TAPS).contiguous())),
+    }
+    one_ms = {r["name"]: r["ms"] for r in results}
+    for name, (kernel, plain, args) in cases.items():
+        rel = max(e[1] for e in _errs(kernel(*args), plain(*args)))
+        torch.cuda.synchronize()
+        _check(f"{name} at {n} scenes' shapes", rel, TOL_KERNEL)
+        ms = _time_ms(lambda: kernel(*args), 20, flush)
+        note = ""
+        if name == "lag_corr":
+            note = (f"; depth slices {depth_slices(tuple(args[0].shape), j, dev)} at P = {4 * n}, "
+                    f"{depth_slices((4, m, s + 1, n6), j, dev)} at P = 4")
+        print(f"[phase 2 folded] {name} {[tuple(a.shape) for a in args]} ({n} scenes): "
+              f"rel_err={rel:.3e} kernel_ms={ms:.5f}, {ms / n:.5f} a scene against "
+              f"{one_ms[name]:.5f} at one scene ({ms / one_ms[name]:.2f}x for {n}x the work)"
+              f"{note} card={card}", flush=True)
+    # K6 and K8: MULTI_N scenes in one launch against MULTI_N single launches.
+    folded = {
+        "statistics": (lambda a, b: K.covariance(a, b, j), 4, 2,
+                       (rnd(4 * MULTI_N, m, s, n6, scale=1e-3),
+                        rnd(2 * MULTI_N, m, n6 - j + 1, scale=1e-3))),
+        "rowwise_conv": (lambda a, b: K.rowwise_circular_conv(a, b, WEIGHTING_TAPS, frame), 4, 2,
+                         (rnd(4 * MULTI_N, m, s, block),
+                          _banded_toeplitz_t(kern8[: 2 * MULTI_N], frame,
+                                             WEIGHTING_TAPS).contiguous())),
+    }
+    for name, (kernel, pa, pb, (a, b)) in folded.items():
+        got = kernel(a, b)
+        got = got if isinstance(got, tuple) else (got,)
+        diff = 0.0
+        for k in range(MULTI_N):
+            want = kernel(a[pa * k : pa * (k + 1)], b[pb * k : pb * (k + 1)])
+            want = want if isinstance(want, tuple) else (want,)
+            for x, y in zip(got, want):
+                rows = x.shape[0] // MULTI_N
+                diff = max(diff, float((x[rows * k : rows * (k + 1)] - y).abs().max()))
+        folded_ms = _time_ms(lambda: kernel(a, b), 20, flush)
+        single_ms = _time_ms(lambda: kernel(a[:pa], b[:pb]), 20, flush)
+        print(f"[phase 2 folded] {name}: {MULTI_N} scenes in one launch against {MULTI_N} "
+              f"single-scene launches max |diff| {diff:.3e} (required 0); kernel_ms "
+              f"{folded_ms:.5f} at {MULTI_N} scenes, {single_ms:.5f} at one scene (re-timed) "
+              f"card={card}", flush=True)
+        if diff != 0:
+            raise AssertionError(f"{name}: the folded launch differs from single launches")
+
+
 def _whiten_conditioning(K, spd, eye):
     """K10a on an ill-conditioned panel (a 1e5 rank-one boost): its whitening
     residual max |X d X^T - I| within twice that of cholesky_ex +
@@ -1895,6 +2007,257 @@ def phase3_time(scene, dev, card):
     return out
 
 
+# ---- phase 3, multi-stream: N scenes in one batched hop (parallel/mesh.py) --
+
+# The held configurations (MULTI_N scenes, graphed, each scene against its own
+# single-scene hop), the folded kernel shapes of phase 2, and the timed scene
+# counts (production at every count, the other paths at 1 and 8).
+MULTI_HELD = ("production", "invert", "dense", "weighting-conv", "fd-jacobi")
+MULTI_N = 4
+FOLDED_N = 8
+MULTI_TIMED = {"production": (1, 2, 4, 8, 16), "invert": (1, 8), "dense": (1, 8),
+               "fd-jacobi": (1, 8)}
+MULTI_PROFILE_N = 8
+WEIGHTING_FRAME = 160  # the truncated weighting's frame B at block 1600
+TOL_MULTI_TARGET = 1e-5  # target feeds: the same arithmetic scene by scene
+FD_PATH_KERNELS = ("streaming_conv", "jacobi_eigh_hermitian")
+
+
+def _scene_pairs(scene, n):
+    """The RIR pairs of ``n`` scenes, as tools/multi_stream.py builds them:
+    scene 0 the north-star scene, scene i > 0 1e-3 * correlated_rirs with
+    seeds 100 + i (zone A) and 200 + i (zone B), the same configuration."""
+    from apvast_torch.utils.rir import correlated_rirs
+
+    c = scene.config
+    return [(scene.rir_a, scene.rir_b)] + [
+        tuple(1e-3 * correlated_rirs(c.rir_length, c.num_srcs, c.num_mics, seed=base + i)
+              for base in (100, 200))
+        for i in range(1, n)
+    ]
+
+
+class _MultiFD:
+    """The scene-batched FD hop, graphed (``engine/graph.py``,
+    ``batched=True``): the JAX package serves several FD scenes through
+    ``parallel.mesh.sharded_multi_scene_fd_hop`` only, with no model class."""
+
+    def __init__(self, cfg, pairs, dev, forgetting):
+        from apvast_torch.engine import build_plan, init_fd_state
+        from apvast_torch.engine.graph import GraphedHop
+        from apvast_torch.parallel.mesh import stack_plans, stack_states
+
+        self.config, self.rebuilds, self.graphed = cfg, 0, True
+        plans = [build_plan(cfg, a, b, dev) for a, b in pairs]
+        states = [init_fd_state(cfg, dev, generator=torch.Generator().manual_seed(i))
+                  for i in range(len(pairs))]
+        self.graph = GraphedHop(cfg, stack_plans(plans), stack_states(states), forgetting,
+                                batched=True)
+        self.plan, self.forgetting = self.graph.plan, forgetting
+        self.silenced = torch.zeros(len(pairs), dtype=torch.int32, device=dev)
+
+    @property
+    def state(self):
+        return self.graph.state
+
+    def process_input_buffers(self, hops_a, hops_b):
+        self.graph.stage(hops_a, hops_b)
+        out = self.graph.replay(False)
+        self.silenced = self.silenced + out.silenced
+        return out
+
+
+def _multi_model(scene, dev, label, pairs, **extra):
+    """The scenes of ``pairs`` under one path (``_path_overrides``) in one
+    batched hop, graphed: ``MultiSceneApVast`` for the time domain,
+    :class:`_MultiFD` for the FD engine; its configuration is the
+    single-scene model's."""
+    from apvast_torch import MultiSceneApVast
+
+    fd = _path_overrides(scene)[label][0]
+    single = _path_model(scene, dev, None, label, False, **extra)
+    if fd:
+        return _MultiFD(single.config, pairs, dev, single.forgetting)
+    model = MultiSceneApVast(single.config, pairs, device=dev)
+    if not model.graphed:
+        raise AssertionError(f"{label}: the batched hop is not graphed ({model.eager_reason})")
+    return model
+
+
+def _multi_inputs(cfg, dev, hops, n):
+    """(2, hops, n, hop) seeded program signals on the card."""
+    rng = np.random.default_rng(SEED + n)
+    return torch.as_tensor(rng.standard_normal((2, hops, n, cfg.hop)).astype(np.float32)).to(dev)
+
+
+def _multi_want(scene, label):
+    """Launch counts of one hop of a path, whatever the scene count."""
+    from apvast_torch.ops import kernels as K
+
+    if _path_overrides(scene)[label][0]:
+        return {name: int(name in FD_PATH_KERNELS) for name in K.WRAPPERS}
+    panels = -(-scene.config.jl // 128)
+    return _want(label, 1, **({"whiten": panels} if label == "invert" else {}))
+
+
+def _multi_statistics(model, state):
+    """The statistics of every scene of a batched state, as the batched hop
+    computes them (the statistics kernels at their folded shapes), (N, ...)
+    each; the FD engine's (cov, cross)."""
+    from apvast_torch.engine import hop_statistics
+
+    if isinstance(model, _MultiFD):
+        return state.cov, state.cross
+    return torch.func.vmap(lambda w, t: hop_statistics(model.config, w, t))(
+        state.wresp_stat, state.wtarget_stat)
+
+
+def _single_statistics(model, state):
+    from apvast_torch.engine import hop_statistics
+
+    if isinstance(model, _MultiFD):
+        return state.cov, state.cross
+    return hop_statistics(model.config, state.wresp_stat, state.wtarget_stat)
+
+
+def _multi_held(scene, dev, card, pairs, label, **extra):
+    """MULTI_N scenes of one path, graphed, CPU_HOPS hops: before each hop
+    every scene's state is taken from the batched state, and after it each
+    scene's outputs and statistics are held against that scene's own
+    single-scene hop (eager, its kernels at one scene's shapes) from that
+    state, under the batched hop's rebuild decision: statistics within
+    TOL_STATS of scale (K2's depth slices follow the path count, so its
+    sums take another order), target feeds within TOL_MULTI_TARGET of the
+    scene's CPU_HOPS hops' scale (FD: cuBLAS picks its matmul-DFT kernels
+    by the row count), the loudspeaker feeds printed and returned. Also: launch counts of the
+    batched hop equal to each single hop's and to the path's (each kernel
+    once, K10a once a panel), the rebuild decision that of any scene's own
+    predicate (one stale scene rebuilds all), silenced 0."""
+    from apvast_torch.config import uses_tracking_solver
+    from apvast_torch.engine import process_hop, process_hop_fd
+    from apvast_torch.engine.graph import clone_state
+    from apvast_torch.engine.hop import rebuild_predicate
+    from apvast_torch.ops import kernels as K
+    from apvast_torch.parallel.mesh import scene_of
+
+    model = _multi_model(scene, dev, label, pairs[:MULTI_N], **extra)
+    cfg, fd = model.config, isinstance(model, _MultiFD)
+    tracking = not fd and uses_tracking_solver(cfg)
+    if extra:
+        label = f"{label} ({extra['jacobi_sweeps']} sweeps)"
+    x = _multi_inputs(cfg, dev, CPU_HOPS, MULTI_N)
+    want_counts = _multi_want(scene, label.split()[0])
+    worst = {"statistics": 0.0}
+    feeds = {name: ([], []) for name in ("out_a_t", "out_b_t", "out_a", "out_b")}
+    rebuilds = []
+    for i in range(CPU_HOPS):
+        before = clone_state(model.state)
+        own = [tracking and rebuild_predicate(cfg, before.gevd_hop,
+                                              lambda k=k: float(before.gevd_resid[k]))
+               for k in range(MULTI_N)]
+        K.reset_launch_counts()
+        out = model.process_input_buffers(x[0, i], x[1, i])
+        counts = K.launch_counts()
+        if counts != want_counts:
+            raise AssertionError(f"multi {label} hop {i + 1}: launches {counts}, want "
+                                 f"{want_counts}")
+        if tracking and out.rebuilt != any(own):
+            raise AssertionError(f"multi {label} hop {i + 1}: rebuilt {out.rebuilt}, the "
+                                 f"scenes' own decisions {own}")
+        rebuilds.append(bool(out.rebuilt))
+        stats = _multi_statistics(model, model.state)
+        for k in range(MULTI_N):
+            plan_k, state_k = scene_of(model.plan, k), clone_state(scene_of(before, k))
+            K.reset_launch_counts()
+            if fd:
+                new_k, out_k = process_hop_fd(cfg, plan_k, state_k, x[0, i, k], x[1, i, k],
+                                              forgetting=model.forgetting)
+            else:
+                new_k, out_k = process_hop(cfg, plan_k, state_k, x[0, i, k], x[1, i, k],
+                                           rebuild_override=out.rebuilt)
+            if K.launch_counts() != counts:
+                raise AssertionError(f"multi {label} hop {i + 1} scene {k}: single-scene "
+                                     f"launches {K.launch_counts()}, batched {counts}")
+            for a, b in zip(stats, _single_statistics(model, new_k)):
+                worst["statistics"] = max(worst["statistics"], _rel(a[k], b)[1])
+            for name, (got, want) in feeds.items():
+                got.append(getattr(out, name)[k].clone())
+                want.append(getattr(out_k, name))
+    # Feeds against the scale of each scene's CPU_HOPS hops (a cold hop's
+    # own emission can be all but zero).
+    for key, names in (("target feeds", ("out_a_t", "out_b_t")),
+                       ("loudspeaker feeds", ("out_a", "out_b"))):
+        worst[key] = max(_rel(torch.stack(feeds[name][0][k::MULTI_N]),
+                              torch.stack(feeds[name][1][k::MULTI_N]))[1]
+                         for name in names for k in range(MULTI_N))
+    silenced = model.silenced.tolist()
+    print(f"[phase 3 multi] {label}: {MULTI_N} scenes graphed, {CPU_HOPS} hops, each scene "
+          f"against its own single-scene hop from the same state: "
+          + ", ".join(f"{k} rel_err {v:.3e}" for k, v in worst.items())
+          + f"; launches a hop {({k: v for k, v in want_counts.items() if v})} (batched = single);"
+          f" rebuilds {rebuilds}; silenced {silenced}; capture s {_capture_s(model)} card={card}",
+          flush=True)
+    _check(f"multi {label} statistics", worst["statistics"], TOL_STATS)
+    _check(f"multi {label} target feeds", worst["target feeds"], TOL_MULTI_TARGET)
+    if any(silenced):
+        raise AssertionError(f"multi {label}: silenced {silenced}")
+    return worst["loudspeaker feeds"]
+
+
+def _multi_time(scene, dev, card, pairs, label, n):
+    """Host-clock ms per batched hop of the first ``n`` scenes of ``pairs``,
+    graphed, over two TIME_HOPS windows after TIME_WARM hops. Returns
+    (model, inputs, ms)."""
+    model = _multi_model(scene, dev, label, pairs[:n])
+    x = _multi_inputs(model.config, dev, HOPS, n)
+    for i in range(TIME_WARM):
+        model.process_input_buffers(x[0, i], x[1, i])
+    windows = []
+    for start in (TIME_WARM, TIME_WARM + TIME_HOPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(start, start + TIME_HOPS):
+            model.process_input_buffers(x[0, i % HOPS], x[1, i % HOPS])
+        torch.cuda.synchronize()
+        windows.append((time.perf_counter() - t0) / TIME_HOPS * 1e3)
+    ms = sum(windows) / 2
+    print(f"[phase 3 multi] {label} N={n}: {ms:.3f} ms per batched hop ({windows[0]:.3f}, "
+          f"{windows[1]:.3f}), {ms / n:.3f} ms per stream, {n * REALTIME_MS / ms:.2f} streams "
+          f"per card (N x {REALTIME_MS:.2f} / ms per batched hop); rebuilds {model.rebuilds}; "
+          f"capture s {_capture_s(model)} (host clock, synchronized) card={card}", flush=True)
+    return model, x, ms
+
+
+def phase3_multi(scene, dev, card):
+    """Multi-stream serving (see the module docstring): the held
+    comparisons of MULTI_HELD at MULTI_N scenes, then the timed scene
+    counts. Returns the profiled model, its inputs and its ms per hop."""
+    pairs = _scene_pairs(scene, max(MULTI_N, *(max(n) for n in MULTI_TIMED.values())))
+    for label in MULTI_HELD:
+        feeds = _multi_held(scene, dev, card, pairs, label)
+        if label != "fd-jacobi":
+            print(f"[phase 3 multi] {label}: loudspeaker feeds rel_err {feeds:.3e} at "
+                  f"{_path_model(scene, dev, None, label, False).config.jacobi_sweeps} sweeps "
+                  "(printed; gated at 8 sweeps)", flush=True)
+            feeds = _multi_held(scene, dev, card, pairs, label, jacobi_sweeps=CONVERGED_SWEEPS)
+        _check(f"multi {label} loudspeaker feeds", feeds, TOL_FEEDS)
+    profiled = None
+    for label, counts in MULTI_TIMED.items():
+        per_n = {}
+        for n in counts:
+            model, x, ms = _multi_time(scene, dev, card, pairs, label, n)
+            per_n[n] = ms
+            if label == "production" and n == MULTI_PROFILE_N:
+                profiled = (model, x, ms)
+            del model
+        print(f"[phase 3 multi] {label}: ms per stream "
+              + ", ".join(f"N={n} {ms / n:.3f}" for n, ms in per_n.items())
+              + "; streams per card "
+              + ", ".join(f"N={n} {n * REALTIME_MS / ms:.2f}" for n, ms in per_n.items())
+              + f" card={card}", flush=True)
+    return profiled
+
+
 def _kernel_of(key):
     """The wrapper whose kernel a profiler key names: K4 and K7 are
     jacobi_pair_kernel<NP, WARPS, HERM, ONE_BARRIER> up to 64 slots and
@@ -2039,6 +2402,7 @@ def main() -> int:
 
     # ---- phase 2: kernels against their plain versions -----------------
     results = phase2(scene, dev, card)
+    phase2_folded(scene, dev, card, results)
 
     # ---- phase 3: the main path ----------------------------------------
     phase3(scene, dev, card, results)
@@ -2046,11 +2410,14 @@ def main() -> int:
     phase3_graph(scene, dev, card)
     phase3_serve(scene, dev, card)
     timed = phase3_time(scene, dev, card)
+    multi = phase3_multi(scene, dev, card)
 
     if args.profile:
         for label, (eager, graphed, x, eager_ms, graphed_ms) in timed.items():
             phase4(f"{label} eager", eager, x, card, eager_ms)
             phase4(f"{label} graphed", graphed, x, card, graphed_ms)
+        model, x, ms = multi
+        phase4(f"production multi N={MULTI_PROFILE_N} graphed", model, x, card, ms)
     print(f"[phase 4] chip_smoke.py took {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": results}))

@@ -17,6 +17,7 @@ from apvast_torch.utils.convert import config_from_jax
 from apvast_torch.utils.rir import synthetic_rirs
 from apvast_torch.utils.scenes import reference_scene, scale_scene
 from apvast_tpu import evaluation as jax_evaluation
+from _torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 _SCENE = dict(
     block_size=128, filter_length=16, modeling_delay=5, reference_index_a=1,

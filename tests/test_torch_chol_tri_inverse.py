@@ -26,6 +26,7 @@ import torch
 from apvast_torch.ops import kernels as K
 from apvast_torch.ops.kernels.whiten import _panel_factor
 from apvast_tpu.ops.pallas.whiten import chol_tri_inverse_pallas
+from _torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 BAD_PIVOT = 70  # row and column of the negative diagonal entry of the non-PD matrix
 

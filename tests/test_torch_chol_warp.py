@@ -20,6 +20,7 @@ import torch
 from apvast_torch.ops.kernels.subspace import subspace_iterate_plain
 from apvast_torch.ops.kernels.whiten import blocked_chol_inverse
 from apvast_torch.ops.trisolve import clamped_cholesky, neumann_tri_inverse
+from _torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 TOL_ORACLE_RATIO = 2.0
 

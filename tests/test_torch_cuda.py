@@ -1323,3 +1323,163 @@ def test_process_hops_span_equals_hop_loop_on_the_card(dev, pcm):
             assert np.abs(got - ref).max() <= peak * (0.5 / 32766 + 4 * np.finfo(np.float32).eps)
         else:
             np.testing.assert_array_equal(got, ref)
+
+
+# ---- multi-stream: the scene-batched hop (parallel/mesh.py) -----------------
+
+
+def _multi_model(dev, config, n, graph=None, **extra):
+    """``n`` S = 8 scenes of one graphed configuration in a MultiSceneApVast;
+    scene i's RIRs from seeds 81 + 2i and 82 + 2i."""
+    from apvast_torch import ApVastConfig, MultiSceneApVast
+
+    pairs = [(synthetic_rirs(96, 8, 3, seed=81 + 2 * i), synthetic_rirs(96, 8, 3, seed=82 + 2 * i))
+             for i in range(n)]
+    cfg = ApVastConfig.for_rirs(
+        *pairs[0], block_size=128, filter_length=12, modeling_delay=4, reference_index_a=0,
+        reference_index_b=5, num_eigenvectors=8, mu=1.0, statistics_buffer_length=128,
+        sampling_rate=8000, perceptual=True,
+        **(production_overrides() | _GRAPHED_TD[config] | extra))
+    return MultiSceneApVast(cfg, pairs, device=dev, graph=graph)
+
+
+def _assert_same(got, want, where):
+    for f in dataclasses.fields(want):
+        x, y = getattr(got, f.name), getattr(want, f.name)
+        assert torch.equal(x, y) if isinstance(y, torch.Tensor) else x == y, (where, f.name)
+
+
+@pytest.mark.parametrize("config", ["production", "invert", "dense", "weighting-conv"])
+def test_multi_scene_graphed_equals_eager_on_the_card(dev, config):
+    """MultiSceneApVast at N = 2, graphed against eager (graph=False), hop by
+    hop from one state: outputs and state bit for bit, the same launch
+    counts and rebuild decisions."""
+    graphed = _multi_model(dev, config, 2)
+    eager = _multi_model(dev, config, 2, graph=False)
+    assert graphed.graphed and not eager.graphed
+    rng = np.random.default_rng(14)
+    for hop in range(8):
+        eager.states = clone_state(graphed.states)
+        a, b = rng.standard_normal((2, 2, 64)).astype(np.float32)
+        K.reset_launch_counts()
+        got = graphed.process_input_buffers(a, b)
+        counts = K.launch_counts()
+        K.reset_launch_counts()
+        want = eager.process_input_buffers(a, b)
+        assert counts == K.launch_counts() and sum(counts.values()) > 0, hop
+        _assert_same(got, want, hop)
+        _assert_same(graphed.states, eager.states, hop)
+    assert int(graphed.silenced.sum()) == 0
+
+
+@pytest.mark.parametrize("config", ["production", "invert", "dense", "weighting-conv"])
+def test_multi_scene_matches_each_scenes_own_hop_on_the_card(dev, config):
+    """Each scene of the graphed batched hop (N = 2) against that scene's
+    own single-scene hop on the card from the same state, under the batched
+    rebuild decision (which is any scene's own): statistics within 1e-4
+    (K2's depth slices follow the path count, so its sums take another
+    order), target feeds 1e-5, loudspeaker feeds 5e-2 at 8 Jacobi sweeps
+    (2-3 unconverged sweeps amplify that rounding)."""
+    from apvast_torch.engine.hop import rebuild_predicate
+    from apvast_torch.parallel.mesh import scene_of
+
+    model = _multi_model(dev, config, 2, jacobi_sweeps=8)
+    cfg = model.config
+    rng = np.random.default_rng(15)
+    for hop in range(8):
+        before = clone_state(model.states)
+        a, b = (torch.from_numpy(x).to(dev)
+                for x in rng.standard_normal((2, 2, 64)).astype(np.float32))
+        out = model.process_input_buffers(a, b)
+        stats = torch.func.vmap(lambda w, t: hop_statistics(cfg, w, t))(
+            model.states.wresp_stat, model.states.wtarget_stat)
+        own = []
+        for k in range(2):
+            state_k = clone_state(scene_of(before, k))
+            if hasattr(state_k, "gevd_resid"):
+                own.append(rebuild_predicate(cfg, state_k.gevd_hop, state_k.gevd_resid.item))
+            new_k, want = process_hop(cfg, scene_of(model.plans, k), state_k, a[k], b[k],
+                                      rebuild_override=out.rebuilt)
+            for x, y in zip(stats, hop_statistics(cfg, new_k.wresp_stat, new_k.wtarget_stat)):
+                assert _rel(x[k], y) <= 1e-4, (hop, k)
+            for name, tol in (("out_a_t", 1e-5), ("out_b_t", 1e-5), ("out_a", 5e-2),
+                              ("out_b", 5e-2)):
+                assert _rel(getattr(out, name)[k], getattr(want, name)) <= tol, (hop, k, name)
+        assert not own or out.rebuilt == any(own), hop
+    assert int(model.silenced.sum()) == 0
+
+
+@pytest.mark.parametrize("config", ["production", "invert"])
+def test_multi_scene_launch_counts_equal_one_scene(dev, config):
+    """Each kernel launches once a hop for all scenes (K10a once a panel):
+    the counts at N = 2 are those at N = 1."""
+    counts = []
+    for n in (1, 2):
+        model = _multi_model(dev, config, n)
+        K.reset_launch_counts()
+        rng = np.random.default_rng(16)
+        for _ in range(3):
+            model.process_input_buffers(*rng.standard_normal((2, n, 64)).astype(np.float32))
+        counts.append(K.launch_counts())
+    assert counts[0] == counts[1] and counts[0]["streaming_conv"] == 3
+
+
+def test_fd_multi_scene_graphed_equals_eager_on_the_card(dev):
+    """The batched FD hop (fd-jacobi, N = 2) captured (GraphedHop with
+    batched=True) against the eager batched hop, hop by hop from one state:
+    bit for bit, K1 and K7 once a hop."""
+    from apvast_torch import ApVastConfig
+    from apvast_torch.engine import build_plan, init_fd_state
+    from apvast_torch.engine.graph import GraphedHop
+    from apvast_torch.parallel import sharded_multi_scene_fd_hop
+    from apvast_torch.parallel.mesh import stack_plans, stack_states
+
+    kw = _fd_kwargs(np.random.default_rng(17), _GRAPHED_FD["fd-jacobi"])
+    pairs = [(kw["rir_a"], kw["rir_b"]), (synthetic_rirs(120, 4, 3, seed=3),
+                                          synthetic_rirs(120, 4, 3, seed=4))]
+    cfg = ApVastConfig.for_rirs(
+        *pairs[0], block_size=128, filter_length=16, modeling_delay=5, reference_index_a=1,
+        reference_index_b=2, num_eigenvectors=4, mu=1.0, sampling_rate=8000, perceptual=True,
+        dtype="float32", use_matmul_dft=True, use_pallas_conv=True, fd_eigh="jacobi")
+    plans = stack_plans([build_plan(cfg, ra, rb, dev) for ra, rb in pairs])
+    states = stack_states([init_fd_state(cfg, dev, generator=torch.Generator().manual_seed(i))
+                           for i in range(2)])
+    graph = GraphedHop(cfg, plans, states, 0.97, batched=True)
+    hop = sharded_multi_scene_fd_hop(cfg, forgetting=0.97)
+    rng = np.random.default_rng(18)
+    for i in range(6):
+        start = clone_state(graph.state)
+        a, b = (torch.from_numpy(x).to(dev)
+                for x in rng.standard_normal((2, 2, cfg.hop)).astype(np.float32))
+        graph.stage(a, b)
+        K.reset_launch_counts()
+        got = graph.replay(False)
+        counts = K.launch_counts()
+        K.reset_launch_counts()
+        new, want = hop(plans, start, a, b)
+        assert counts == K.launch_counts() == {
+            name: int(name in ("streaming_conv", "jacobi_eigh_hermitian")) for name in K.WRAPPERS}
+        for name in ("out_a", "out_b", "out_a_t", "out_b_t", "silenced"):
+            assert torch.equal(getattr(got, name), getattr(want, name)), (i, name)
+        _assert_same(graph.state, new, i)
+
+
+def test_statistics_and_rowwise_conv_fold_scenes_bit_for_bit(dev):
+    """K6 and K8 at N = 3 scenes in one launch against three single-scene
+    launches: each scene's arithmetic is a single launch's, bit for bit."""
+    g = torch.Generator().manual_seed(19)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g).to(dev)
+
+    buf, tgt = rnd(12, 3, 8, 120), rnd(6, 3, 109)
+    r, c = K.covariance(buf, tgt, 12)
+    x, k_t = rnd(12, 3, 8, 96), rnd(6, 3, 16, 22)
+    y = K.rowwise_circular_conv(x, k_t, 7, 16)
+    for k in range(3):
+        rk, ck = K.covariance(buf[4 * k : 4 * k + 4], tgt[2 * k : 2 * k + 2], 12)
+        assert torch.equal(r[4 * k : 4 * k + 4], rk) and torch.equal(c[4 * k : 4 * k + 4], ck)
+        yk = K.rowwise_circular_conv(x[4 * k : 4 * k + 4], k_t[2 * k : 2 * k + 2], 7, 16)
+        assert torch.equal(y[4 * k : 4 * k + 4], yk)
+    assert _rel(r, K.covariance_plain(buf, tgt, 12)[0]) <= 1e-4
+    assert _rel(y, K.rowwise_circular_conv_plain(x, k_t, 7, 16)) <= 1e-4

@@ -28,6 +28,7 @@ from apvast_tpu.engine import build_plan as jax_build_plan
 from apvast_tpu.engine import init_state as jax_init_state
 from apvast_tpu.engine import process_hop as jax_process_hop
 from apvast_tpu.ops.pallas.statistics import covariance_pallas
+from _torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 FIELDS = ("out_a", "out_b", "out_a_t", "out_b_t")
 

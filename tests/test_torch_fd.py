@@ -43,6 +43,7 @@ from apvast_tpu.engine.fd_hop import init_fd_state as jax_init_fd_state
 from apvast_tpu.engine.fd_hop import process_hop_fd as jax_process_hop_fd
 from apvast_tpu.models.apvast_fd import ApVastFD as JaxApVastFD
 from apvast_tpu.utils.rir import synthetic_rirs
+from _torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 FIELDS = ("out_a", "out_b", "out_a_t", "out_b_t")
 

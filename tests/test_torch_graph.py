@@ -50,6 +50,7 @@ from apvast_torch.engine.graph import clone_state, copy_state_into
 from apvast_torch.engine.hop import rebuild_predicate
 from apvast_torch.ops import kernels as K
 from apvast_torch.utils.rir import synthetic_rirs
+from _torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 aten = torch.ops.aten
 

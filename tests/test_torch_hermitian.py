@@ -38,6 +38,7 @@ from apvast_tpu.ops.pallas.jacobi_eigh import jacobi_eigh as jax_jacobi_eigh
 from apvast_tpu.ops.pallas.jacobi_eigh import jacobi_eigh_hermitian as jax_jacobi_hermitian
 from apvast_tpu.ops.small_chol import cholesky_small as jax_cholesky_small
 from apvast_tpu.ops.small_chol import posdef_solve_small as jax_posdef_solve_small
+from _torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 def _herm(rng, b, n):

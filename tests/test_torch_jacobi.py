@@ -34,6 +34,7 @@ from apvast_torch.ops.kernels.jacobi_eigh import (
 )
 from apvast_tpu.ops.pallas.jacobi_eigh import jacobi_eigh as jax_jacobi_eigh
 from apvast_tpu.ops.pallas.jacobi_eigh import tournament_schedule as jax_schedule
+from _torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 def _rel(got, want) -> float:

@@ -29,6 +29,7 @@ import torch
 
 from apvast_torch.ops import kernels as K
 from apvast_torch.ops.kernels.whiten import _pad_identity, _panel_factor
+from _torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 PANEL, BANDS, BAND, COLS, HALF, CHUNK = 128, 16, 8, 16, 64, 32
 

@@ -17,6 +17,7 @@ import torch
 
 from apvast_torch.ops import kernels as K
 from apvast_tpu.ops.pallas.output_filter import circular_filter_pallas
+from _torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 def _rel(got, want) -> float:

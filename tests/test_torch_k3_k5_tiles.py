@@ -36,6 +36,7 @@ from apvast_torch.ops.kernels import _build
 from apvast_torch.ops.kernels.skew_assembly import skew_plan
 from apvast_tpu.ops.pallas.output_filter import circular_filter_overlap_pallas, circular_filter_pallas
 from apvast_tpu.ops.pallas.skew_assembly import lag_skew_assemble
+from _torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 TOL = 1e-5
 F32 = np.float32

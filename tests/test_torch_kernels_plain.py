@@ -27,6 +27,7 @@ from apvast_tpu.ops.pallas.lag_corr import lag_corr_pallas
 from apvast_tpu.ops.pallas.output_filter import circular_filter_overlap_pallas
 from apvast_tpu.ops.pallas.skew_assembly import lag_skew_assemble
 from apvast_tpu.ops.pallas.streaming_conv import streaming_conv_pallas
+from _torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 TOL = 1e-5
 

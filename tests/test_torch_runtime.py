@@ -34,6 +34,7 @@ from apvast_torch.utils.convert import state_from_numpy
 from apvast_torch.utils.rir import synthetic_rirs
 from apvast_tpu.models.apvast import ApVast as JaxApVast
 from apvast_tpu.runtime.stream_host import StreamHost as JaxStreamHost
+from _torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 # tests/test_runtime.py's scene: S = 3, M = 2, float32, the exact solver.
 _SCENE = dict(block_size=128, filter_length=12, modeling_delay=4, reference_index_a=0,

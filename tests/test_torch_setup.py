@@ -29,6 +29,7 @@ from apvast_tpu import config as jcfg
 from apvast_tpu.engine import build_plan as jax_build_plan
 from apvast_tpu.engine import init_state as jax_init_state
 from apvast_tpu.perceptual import tables as jtables
+from _torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 _DERIVED = (
     "hop", "carried_deleted_statistics", "effective_reg_b_relative", "num_bins",

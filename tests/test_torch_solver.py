@@ -22,6 +22,7 @@ from apvast_tpu.ops.jdiag import jdiag_batched as jax_jdiag
 from apvast_tpu.ops.jdiag import jdiag_topk_tracked as jax_tracked
 from apvast_tpu.ops.trisolve import neumann_tri_inverse as jax_neumann
 from apvast_tpu.ops.trisolve import triangular_inverse as jax_triangular_inverse
+from _torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 def _rel(got, want) -> float:

@@ -20,6 +20,7 @@ from apvast_tpu.ops.pallas.statistics import (
     _covariance_pallas_panels,
     covariance_pallas,
 )
+from _torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 def _inputs(seed, p, m, s, n, j):

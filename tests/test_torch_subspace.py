@@ -41,6 +41,7 @@ from apvast_tpu.ops.jdiag import jdiag_topk_batched as jax_jdiag_topk_batched
 from apvast_tpu.ops.jdiag import jdiag_topk_pencil_batched as jax_pencil_batched
 from apvast_tpu.ops.lag_statistics import covariance_via_lags_skew
 from apvast_tpu.ops.pallas.subspace import subspace_iterate_pallas
+from _torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 FIELDS = ("out_a", "out_b", "out_a_t", "out_b_t")
 

@@ -20,6 +20,7 @@ import torch
 
 from apvast_torch.ops import kernels as K
 from apvast_torch.ops.framing import window_rows
+from _torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 # Depth between the kernels' adds into the fp32 total: 32 in both (K1's
 # kPromote of 4 k-steps of 8, K6's kPromote of 32 samples).

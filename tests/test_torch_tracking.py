@@ -39,6 +39,7 @@ from apvast_tpu.engine import init_state as jax_init_state
 from apvast_tpu.engine import process_hop as jax_process_hop
 from apvast_tpu.ops.lag_statistics import covariance_via_lags_skew
 from apvast_tpu.utils.rir import synthetic_rirs
+from _torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 FIELDS = ("out_a", "out_b", "out_a_t", "out_b_t")
 

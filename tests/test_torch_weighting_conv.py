@@ -37,6 +37,7 @@ from apvast_tpu.engine import process_hop as jax_process_hop
 from apvast_tpu.ops import weighting_conv as jw
 from apvast_tpu.ops.lag_statistics import covariance_via_lags_skew
 from apvast_tpu.ops.pallas.rowwise_conv import rowwise_circular_conv_pallas
+from _torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 FIELDS = ("out_a", "out_b", "out_a_t", "out_b_t")
 

@@ -19,6 +19,7 @@ import torch
 from apvast_torch.ops import kernels as K
 from apvast_tpu.ops.pallas.whiten import blocked_cholesky as jax_blocked_cholesky
 from apvast_tpu.ops.pallas.whiten import chol_panel_pallas
+from _torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 def _rel(got, want) -> float:
