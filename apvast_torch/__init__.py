@@ -20,7 +20,7 @@ from apvast_torch.engine import (
     run_stream,
     stitch_outputs,
 )
-from apvast_torch.models import ApVast, ApVastFD, MultiSceneApVast
+from apvast_torch.models import ApVast, ApVastFD, MultiSceneApVast, vast_offline
 from apvast_torch.runtime import StreamHost
 
 __all__ = [
@@ -38,4 +38,5 @@ __all__ = [
     "run_multi_stream",
     "run_stream",
     "stitch_outputs",
+    "vast_offline",
 ]

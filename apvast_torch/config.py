@@ -1,11 +1,9 @@
 """Static configuration of the AP-VAST engine (PyTorch port).
 
-The fields are those of ``apvast_tpu/config.py`` that a ported path
-reads, with their JAX names, defaults and validation, so a configuration
-of the JAX package converts field for field
-(``apvast_torch.utils.convert.config_from_jax``). The JAX fields that no
-ported path reads yet (the MATLAB loading factors) are not fields here;
-they come with the slice that first reads them. In this package a
+The fields are those of ``apvast_tpu/config.py``, with their JAX names,
+defaults and validation, so a configuration of the JAX package converts
+field for field (``apvast_torch.utils.convert.config_from_jax``). In this
+package a
 ``use_pallas_*`` flag means "use the hand-written Hopper kernel"
 (``apvast_torch/csrc/*.cu``, wrapped in ``apvast_torch/ops/kernels/``),
 and ``use_matmul_dft`` means the WOLA transforms run as ``torch`` matmuls
@@ -19,13 +17,13 @@ streaming convolution, the exact WOLA perceptual weighting or its
 truncated time-domain form (``weighting_conv_taps``, the row-wise
 convolution kernel K8), dense framed statistics (plain, or the
 framed-covariance kernel K6 under ``use_pallas_statistics``) or
-skew-assembled lag statistics (full or half form), and the FFT or kernel
-output synthesis; and the frequency-domain engine (``fd_*`` fields,
-``engine/fd_hop.py``) in every mode of the JAX engine.
-:func:`check_port_slice` rejects every other value (the non-skew lag
-assemblies, the norm-scaled loadings and the bfloat16 knobs of
-:data:`NOT_RUN`) with ``NotImplementedError`` naming the slice that
-brings it; no such configuration is run another way.
+skew-assembled lag statistics (full or half form), every loading of the
+dark (and, MATLAB, bright) matrix, the tracking solver's bfloat16 knobs,
+and the FFT or kernel output synthesis; and the frequency-domain engine
+(``fd_*`` fields, ``engine/fd_hop.py``) in every mode of the JAX engine.
+:func:`check_port_slice` rejects the non-skew lag assemblies with
+``NotImplementedError`` naming the slice that brings them; no such
+configuration is run another way.
 """
 
 from __future__ import annotations
@@ -46,8 +44,10 @@ class ToeplitzVariant(enum.Enum):
 
 class RegularizationVariant(enum.Enum):
     """Where diagonal loading is applied before the joint
-    diagonalization: PYTHON loads B with a fixed ``reg_b``; PYTHON_NORM and
-    MATLAB use spectral-norm-scaled loading."""
+    diagonalization: PYTHON loads B with a fixed ``reg_b``; PYTHON_NORM
+    loads B with 1e-8 of its spectral norm; MATLAB loads A with
+    ``bright_loading`` and B with ``dark_loading`` of their spectral
+    norms."""
 
     PYTHON = "python"
     PYTHON_NORM = "python_norm"
@@ -133,6 +133,10 @@ class ApVastConfig:
     # None = AUTO: 1e-6 scale-relative dark loading for float32, 0 for
     # float64 (see effective_reg_b_relative).
     reg_b_relative: float | None = None
+    # MATLAB regularization: the bright and dark matrices' loadings, as
+    # fractions of their spectral norms.
+    bright_loading: float = 1e-8
+    dark_loading: float = 5e-3
     normalize_statistics: bool = False
     weighting_norm: WeightingNorm = WeightingNorm.UNIT_ONESIDED
     target_filter: TargetFilterVariant = TargetFilterVariant.SHARED_A
@@ -160,6 +164,9 @@ class ApVastConfig:
     tracking_outer_steps: int = 2
     tracking_rebuild_period: int = 4
     tracking_warmup_hops: int = 4
+    # float32 only: the carried factor Li in bfloat16, and ("default") the
+    # residual path's products on bfloat16-rounded operands, the TPU's
+    # single pass (ops/jdiag.jdiag_topk_tracked).
     tracking_li_bf16: bool = False
     tracking_residual_precision: str = "high"
     tracking_residual_rebuild: float = 0.0
@@ -465,35 +472,11 @@ def production_overrides() -> dict:
     )
 
 
-# Values of port fields that no ported path runs: field -> (value, the
-# slice of ROADMAP.md that brings it).
-NOT_RUN = {
-    "tracking_li_bf16": (True, "a bfloat16 preconditioner carry, a later slice of the port"),
-    "tracking_residual_precision": (
-        "default", "single-pass bf16 residual products of the TPU, a later slice of the port"
-    ),
-}
-
-
-def check_not_run(fields) -> None:
-    """Raise ``NotImplementedError`` if the mapping ``fields`` sets a value
-    of :data:`NOT_RUN`."""
-    for name, (value, where) in NOT_RUN.items():
-        if fields.get(name) == value:
-            raise NotImplementedError(f"{name}={value!r} comes with {where}")
-
-
 def check_port_slice(config: ApVastConfig) -> None:
     """Raise ``NotImplementedError`` for a value the port does not run,
     naming the slice of ``ROADMAP.md`` that brings it."""
     if config.dtype not in ("float32", "float64"):
         raise ValueError(f"dtype must be 'float32' or 'float64', got {config.dtype!r}")
-    check_not_run(vars(config))
-    if config.regularization is not RegularizationVariant.PYTHON:
-        raise NotImplementedError(
-            "norm-scaled loading (PYTHON_NORM / MATLAB regularization) "
-            "comes with the MATLAB-variant slice of the port"
-        )
     if config.use_lag_statistics and config.lag_assembly != "skew":
         raise NotImplementedError(
             f"lag_assembly={config.lag_assembly!r} is one of the kept "

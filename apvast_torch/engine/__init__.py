@@ -6,7 +6,12 @@ from apvast_torch.engine.graph import GraphedHop, eager_reason, hop_into
 from apvast_torch.engine.hop import HopOutputs, hop_statistics, process_hop
 from apvast_torch.engine.plan import ApVastPlan, build_plan
 from apvast_torch.engine.state import ApVastState, SubspaceState, TrackingState, init_state
-from apvast_torch.engine.stream import run_multi_stream, run_stream, stitch_outputs
+from apvast_torch.engine.stream import (
+    run_multi_stream,
+    run_stream,
+    run_stream_with_metrics,
+    stitch_outputs,
+)
 
 __all__ = [
     "ApVastPlan",
@@ -26,5 +31,6 @@ __all__ = [
     "process_hop_fd",
     "run_multi_stream",
     "run_stream",
+    "run_stream_with_metrics",
     "stitch_outputs",
 ]

@@ -70,6 +70,14 @@ def eager_reason(config: ApVastConfig, fd: bool = False) -> str | None:
     return None
 
 
+def graph_reason(config: ApVastConfig, device: torch.device, fd: bool = False) -> str | None:
+    """Why the hop of ``config`` on ``device`` cannot run as a graph (a
+    device other than a card, or :func:`eager_reason`), or None."""
+    if device.type != "cuda":
+        return f"a CUDA graph needs a CUDA device, this model runs on {device}"
+    return eager_reason(config, fd)
+
+
 def _tensors(state):
     return {f.name: getattr(state, f.name) for f in dataclasses.fields(state)
             if isinstance(getattr(state, f.name), torch.Tensor)}
@@ -116,6 +124,22 @@ def clone_state(state):
         name: t.clone(memory_format=torch.contiguous_format)
         for name, t in _tensors(state).items()
     })
+
+
+def capture(fn, device):
+    """``fn()`` captured as a CUDA graph, after one eager call on a side
+    stream that fills the per-shape caches (cuFFT and cuBLAS plans) before
+    capture. Returns the graph and ``fn``'s result, whose tensors each
+    replay rewrites in place."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        result = fn()
+    return graph, result
 
 
 def hop_into(

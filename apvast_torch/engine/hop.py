@@ -28,6 +28,7 @@ import torch
 
 from apvast_torch.config import (
     ApVastConfig,
+    RegularizationVariant,
     TargetFilterVariant,
     ToeplitzVariant,
     check_port_slice,
@@ -81,6 +82,52 @@ class HopOutputs:
     out_b_t: torch.Tensor
     silenced: torch.Tensor
     rebuilt: bool = False
+
+
+def _spectral_norm(mat: torch.Tensor) -> torch.Tensor:
+    """2-norm of symmetric PSD matrices ``(..., n, n)`` (the MATLAB
+    loadings' scale) by 12 steps of power iteration on R^2, normalized
+    between the two matvecs so that an unnormalized R(Rv) cannot overflow
+    float32 for ||R|| > ~1e9. The Rayleigh quotient lands within ~1% of
+    the exact norm on a clustered top spectrum, and a few percent under it
+    where a covariance's top eigenvalues form a plateau: enough for a
+    loading constant. Fixed steps and no host read, so a captured hop can
+    run it."""
+    v = torch.ones(mat.shape[:-1], dtype=mat.dtype, device=mat.device)
+    v = v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+
+    def matvec(x):
+        return (mat @ x[..., None])[..., 0]
+
+    for _ in range(12):
+        w = matvec(v)
+        w = w / (torch.linalg.vector_norm(w, dim=-1, keepdim=True) + 1e-30)
+        w = matvec(w)
+        v = w / (torch.linalg.vector_norm(w, dim=-1, keepdim=True) + 1e-30)
+    return (v * matvec(v)).sum(-1).abs()
+
+
+def loaded_pencils(config: ApVastConfig, a_stack, b_stack, eye):
+    """Stage 5's diagonal loading of the zones' pencils: the scale-relative
+    dark loading, then the configured regularization. Returns (A, B, reg),
+    ``reg`` the fixed loading the solver adds to B (``reg_b`` for PYTHON,
+    0 for the norm-scaled loadings, which are added here)."""
+    if config.effective_reg_b_relative > 0:
+        # In half form tr(M) = tr(B) / 2 and M takes half of B's loading,
+        # so the same expression loads B correctly.
+        n = b_stack.shape[-1]
+        mean_diag = torch.diagonal(b_stack, dim1=-2, dim2=-1).sum(-1) / n
+        b_stack = b_stack + (config.effective_reg_b_relative * mean_diag)[:, None, None] * eye
+    if config.regularization is RegularizationVariant.PYTHON:
+        return a_stack, b_stack, config.reg_b
+    if config.regularization is RegularizationVariant.PYTHON_NORM:
+        b_stack = b_stack + 1e-8 * _spectral_norm(b_stack)[:, None, None] * eye
+        return a_stack, b_stack, 0.0
+    # MATLAB: both matrices, each by its own fraction of its norm.
+    a_norms, b_norms = _spectral_norm(a_stack), _spectral_norm(b_stack)
+    a_stack = a_stack + config.bright_loading * a_norms[:, None, None] * eye
+    b_stack = b_stack + config.dark_loading * b_norms[:, None, None] * eye
+    return a_stack, b_stack, 0.0
 
 
 def convolve_inputs(config, plan, conv_history, resp, target_resp, hops):
@@ -281,6 +328,11 @@ def process_hop(
     :func:`rebuild_predicate` (a caller driving several streams decides
     the rebuild once for all of them)."""
     check_port_slice(config)
+    if half_form(config) and config.regularization is not RegularizationVariant.PYTHON:
+        raise ValueError(
+            "statistics_half_form supports PYTHON regularization only "
+            "(norm-based loading needs the completed matrix)"
+        )
     dtype = torch_dtype(config)
     device = plan.window.device
     hop, block = config.hop, config.block_size
@@ -328,15 +380,10 @@ def process_hop(
     # ---- 5. GEVD + variable-span synthesis -----------------------------
     # Zone A pencil: (R_AA, R_AB); zone B pencil: (R_BB, R_BA).
     half = half_form(config)
-    a_stack = r_mats[0::3].contiguous()
-    b_stack = r_mats[1:3].contiguous()
     eye = torch.eye(s * j, dtype=dtype, device=device)
-    if config.effective_reg_b_relative > 0:
-        # In half form tr(M) = tr(B) / 2 and M takes half of B's loading,
-        # so the same expression loads B correctly.
-        mean_diag = torch.diagonal(b_stack, dim1=-2, dim2=-1).sum(-1) / (s * j)
-        b_stack = b_stack + (config.effective_reg_b_relative * mean_diag)[:, None, None] * eye
-    reg = config.reg_b  # PYTHON regularization (check_port_slice)
+    a_stack, b_stack, reg = loaded_pencils(
+        config, r_mats[0::3].contiguous(), r_mats[1:3].contiguous(), eye
+    )
     # Keep a disabled zone's pencil factorizable (half form: M + M^T = I).
     filler = 0.5 * eye if half else eye
     if not config.run_a:
@@ -374,6 +421,7 @@ def process_hop(
             jacobi_sweeps=config.jacobi_sweeps,
             rr_basis=config.tracking_rr_basis,
             half_form=half,
+            residual_precision=config.tracking_residual_precision,
         )  # u (2, jl, v), lam (2, v)
         carry["gevd_hop"] = state.gevd_hop + 1
     elif whiten == "newton":

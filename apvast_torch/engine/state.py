@@ -56,8 +56,9 @@ class SubspaceState(ApVastState):
     # The warm-start basis (Ritz vectors), (2, jl, k).
     gevd_q: torch.Tensor
     # (2, jl, jl): the carried approximate inverse of the loaded dark matrix
-    # under 'newton', its inverse Cholesky factor under 'tracking'; None
-    # under 'invert' and 'solve'.
+    # under 'newton', its inverse Cholesky factor under 'tracking' (bfloat16
+    # with tracking_li_bf16, see carry_dtypes); None under 'invert' and
+    # 'solve'.
     gevd_minv: torch.Tensor | None
 
 
@@ -86,6 +87,16 @@ def subspace_shapes(config: ApVastConfig) -> dict[str, tuple[int, ...]]:
     if uses_tracking_solver(config):
         shapes |= {"gevd_lam": (2, k), "gevd_hop": (), "gevd_resid": ()}
     return shapes
+
+
+def carry_dtypes(config: ApVastConfig) -> dict[str, torch.dtype]:
+    """The dtype of every subspace-solver state tensor of ``config`` that
+    is not the config's: the residual (float32) and, with
+    ``tracking_li_bf16``, the tracking solver's carried factor (bfloat16)."""
+    dtypes = {"gevd_resid": torch.float32}
+    if uses_tracking_solver(config) and config.tracking_li_bf16:
+        dtypes["gevd_minv"] = torch.bfloat16
+    return dtypes
 
 
 def state_shapes(config: ApVastConfig) -> dict[str, tuple[int, ...]]:
@@ -160,9 +171,10 @@ def init_state(
     full-rank random block in JAX (``jax.random.key(7)``), is likewise
     injected (``subspace_init``), drawn from ``generator`` after the noise,
     or drawn from a ``torch.Generator`` seeded with 7. The carried inverse
-    of 'newton' and 'tracking' starts as the identity, so the first hop
-    rebuilds it; the tracking solver's Ritz values start at zero and its
-    hop counter at 0, inside the warmup window.
+    of 'newton' and 'tracking' starts as the identity (bfloat16 under
+    ``tracking_li_bf16``), so the first hop rebuilds it; the tracking
+    solver's Ritz values start at zero and its hop counter at 0, inside
+    the warmup window.
     """
     check_port_slice(config)
     device = resolve_device(device)
@@ -190,7 +202,8 @@ def init_state(
                         device=gen.device).to(device)
     minv = None
     if "gevd_minv" in subspace_shapes(config):
-        minv = torch.eye(jl, dtype=dtype, device=device).repeat(2, 1, 1)
+        minv_dtype = carry_dtypes(config).get("gevd_minv", dtype)
+        minv = torch.eye(jl, dtype=minv_dtype, device=device).repeat(2, 1, 1)
     if not uses_tracking_solver(config):
         return SubspaceState(**data, gevd_q=q.contiguous(), gevd_minv=minv)
     return TrackingState(

@@ -12,7 +12,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from apvast_torch.engine.graph import GraphedHop, eager_reason
+from apvast_torch.engine.graph import GraphedHop, graph_reason
 from apvast_torch.engine.hop import HopOutputs
 from apvast_torch.engine.stream import stitch_outputs
 from apvast_torch.utils.device import torch_dtype
@@ -34,9 +34,7 @@ class GraphDispatch:
     forgetting = 0.9
 
     def _init_dispatch(self, graph: bool | None) -> None:
-        reason = eager_reason(self.config, self._fd)
-        if self.device.type != "cuda":
-            reason = f"a CUDA graph needs a CUDA device, this model runs on {self.device}"
+        reason = graph_reason(self.config, self.device, self._fd)
         if graph and reason is not None:
             raise ValueError(f"graph=True: {reason}")
         self.graphed = reason is None if graph is None else bool(graph)

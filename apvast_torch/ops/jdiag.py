@@ -13,7 +13,8 @@ Contract of both:
 Every matmul here is a plain fp32 (or fp64) product: the JAX solver asks
 for ``Precision.HIGH``/``HIGHEST`` on the TPU, which on the card means
 TF32 off (``torch.backends.cuda.matmul.allow_tf32 = False``, PyTorch's
-default).
+default). The one exception is the tracking solver's residual path under
+``residual_precision="default"`` (:func:`single_pass_matmul`).
 """
 
 from __future__ import annotations
@@ -335,6 +336,21 @@ def jdiag_topk_pencil_batched(
     return u, d_desc, ritz, m, silenced, rebuilt
 
 
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bfloat16 (to nearest, ties to even) and widened back
+    to its dtype."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def single_pass_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as the TPU's single-pass (``Precision.DEFAULT``) matmul
+    computes it: both operands rounded to bfloat16, whose products are
+    exact in float32, summed in float32, the result float32 (not rounded
+    back). A float32 matmul on the rounded operands is that arithmetic on
+    the CPU and on the card alike (TF32 off)."""
+    return bf16_round(a.float()) @ bf16_round(b.float())
+
+
 def jdiag_topk_tracked(
     A: torch.Tensor,
     B: torch.Tensor,
@@ -349,6 +365,7 @@ def jdiag_topk_tracked(
     jacobi_sweeps: int = 4,
     rr_basis: str = "cholqr2",
     half_form: bool = False,
+    residual_precision: str = "high",
 ):
     """Top-k GEVD by inner-outer subspace tracking, with no (n, n)
     factorization except when ``rebuild`` is set.
@@ -366,7 +383,15 @@ def jdiag_topk_tracked(
 
     ``rebuild`` is a host bool: the factorization runs only on the hops
     that refresh Li, and a non-finite fresh factor falls back to the
-    carried one.
+    carried one. The carry may be bfloat16 (``tracking_li_bf16``): the
+    fresh factor is rounded to it, and its products promote it back to
+    the pencil's dtype, as ``jnp.matmul`` of bfloat16 and float32 does.
+
+    ``residual_precision="default"``: the residual path's products (A X
+    and B X, and P's two products with Li) take bfloat16-rounded operands
+    (:func:`single_pass_matmul`); they only steer the basis expansion,
+    whose Rayleigh-Ritz matrices are recomputed at full precision, but
+    with ``rr_basis="direct"`` A X and B X are reused in them, as in JAX.
 
     Returns ``(u, d, q_next, lam_next, li_next, silenced, resid_rel)``:
     u (z, n, num_vectors) with U^T (B + reg I) U = I, d descending, the
@@ -391,37 +416,42 @@ def jdiag_topk_tracked(
     q_init = torch.where(healthy0[:, None, None], q_init, eye_nk)
     lam_init = torch.where(healthy0[:, None], lam_init, torch.zeros_like(lam_init))
 
-    if half_form:
-        def apply_a(x):
-            return A @ x + A.transpose(-1, -2) @ x
+    def mm(a, b, single_pass=False):
+        return single_pass_matmul(a, b) if single_pass else a @ b
 
-        def apply_b(x):
-            return B @ x + B.transpose(-1, -2) @ x + reg * x
+    if half_form:
+        def apply_a(x, sp=False):
+            return mm(A, x, sp) + mm(A.transpose(-1, -2), x, sp)
+
+        def apply_b(x, sp=False):
+            return mm(B, x, sp) + mm(B.transpose(-1, -2), x, sp) + reg * x
 
         def b_full():
             return B + B.transpose(-1, -2) + reg * eye
     else:
         b_l = B + reg * eye
 
-        def apply_a(x):
-            return A @ x
+        def apply_a(x, sp=False):
+            return mm(A, x, sp)
 
-        def apply_b(x):
-            return b_l @ x
+        def apply_b(x, sp=False):
+            return mm(b_l, x, sp)
 
         def b_full():
             return b_l
 
     li = li_carry
     if rebuild:
-        fresh = triangular_inverse(cholesky(b_full()))
+        fresh = triangular_inverse(cholesky(b_full())).to(li_carry.dtype)
         li = torch.where(torch.isfinite(fresh), fresh, li_carry)
+    li_w = li.to(dtype)  # exact: bfloat16 widens to float32 without rounding
+    sp = residual_precision == "default"
 
     q, lam = q_init, lam_init
     resid_rel = None
     for _ in range(outer_steps):
-        aq = apply_a(q)
-        bq = apply_b(q)
+        aq = apply_a(q, sp)
+        bq = apply_b(q, sp)
         res = aq - bq * lam[:, None, :]
         if resid_rel is None:
             # Staleness of the incoming Ritz pairs, from products already
@@ -432,7 +462,7 @@ def jdiag_topk_tracked(
             resid_rel = torch.where(
                 torch.isfinite(resid_rel), resid_rel, torch.full_like(resid_rel, torch.inf)
             )
-        p = li.transpose(-1, -2) @ (li @ res)
+        p = mm(li_w.transpose(-1, -2), mm(li_w, res, sp), sp)
         if rr_basis == "direct":
             # Rayleigh-Ritz on the raw basis [q, p] (the whitening of bbar
             # below makes orthonormality unnecessary), reusing A q and B q;

@@ -9,7 +9,7 @@ through. So each wrapper on the hop's path is also registered as a
 ``torch.library.custom_op`` in the ``apvast_torch`` namespace (:func:`fold`),
 whose body is the wrapper itself, with a fake function that gives its
 output shapes and a ``register_vmap`` rule. A wrapper given a tensor that
-vmap has batched (:func:`batched`) calls its op; vmap then runs the rule,
+vmap has batched (:func:`via_op`) calls its op; vmap then runs the rule,
 which moves the scene axis of every operand to the front, reshapes
 (N, B, ...) to (N * B, ...), calls the wrapper once on the folded
 operands, and reshapes each output back to (N, B, ...). An operand that
@@ -26,13 +26,19 @@ import inspect
 
 import torch
 from torch._C._functorch import is_batchedtensor
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 NAMESPACE = "apvast_torch"
 
 
-def batched(*args) -> bool:
-    """Whether any of ``args`` is a tensor that vmap has batched (the
-    wrapper is being called inside ``torch.func.vmap``)."""
+def via_op(*args) -> bool:
+    """Whether a wrapper calls its op: when any of ``args`` is a tensor that
+    vmap has batched (the wrapper is being called inside
+    ``torch.func.vmap``), or under a ``TorchDispatchMode`` whose
+    ``sees_kernels`` is true (``observability.checked_hop``), which then
+    sees each kernel as one op."""
+    if getattr(_get_current_dispatch_mode(), "sees_kernels", False):
+        return True
     return any(isinstance(a, torch.Tensor) and is_batchedtensor(a) for a in args)
 
 

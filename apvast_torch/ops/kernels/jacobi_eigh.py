@@ -257,7 +257,7 @@ def jacobi_eigh(a: torch.Tensor, sweeps: int) -> tuple[torch.Tensor, torch.Tenso
         ``(w (B, n), v (B, n, n))``: eigenvalues ascending, eigenvectors in
         the columns of v, as ``torch.linalg.eigh`` orders them.
     """
-    if _batch.batched(a):
+    if _batch.via_op(a):
         return jacobi_eigh_op(a, sweeps)
     _build.check_input(a, "a", 3)
     bz, n, n2 = a.shape

@@ -83,7 +83,7 @@ def jacobi_eigh_hermitian(h: torch.Tensor, sweeps: int) -> tuple[torch.Tensor, t
         ``(w (B, n) float32, q (B, n, n) complex64)``: eigenvalues ascending,
         unit eigenvectors in the columns of q, each up to a phase.
     """
-    if _batch.batched(h):
+    if _batch.via_op(h):
         return jacobi_eigh_hermitian_op(h, sweeps)
     if not isinstance(h, torch.Tensor) or h.dtype != torch.complex64:
         raise ValueError(f"h must be a complex64 tensor (a float32 kernel), got "

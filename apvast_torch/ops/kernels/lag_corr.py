@@ -70,7 +70,7 @@ def depth_slices(shape: tuple[int, int, int, int], j: int, device: torch.device)
 def lag_corr(x: torch.Tensor, j: int) -> torch.Tensor:
     """Mic-summed source-pair correlations at J lags, (P, S, S, J); same
     signature and layout as the JAX ``lag_corr_pallas``."""
-    if _batch.batched(x):
+    if _batch.via_op(x):
         return lag_corr_op(x, j)
     _build.check_input(x, "x", 4)
     p4, m, s, n = x.shape

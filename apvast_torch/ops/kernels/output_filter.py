@@ -80,7 +80,7 @@ def circular_filter_overlap(
     ``window`` (block,) and the carried ``tail``. Same signature and
     layout as the JAX ``circular_filter_overlap_pallas``. Folded over
     scenes, every scene shares the one ``window``."""
-    if _batch.batched(windowed_input, filters, window, tail):
+    if _batch.via_op(windowed_input, filters, window, tail):
         return circular_filter_overlap_op(windowed_input, filters, window, tail, hop)
     _build.check_input(windowed_input, "windowed_input", 2)
     dev = windowed_input.device

@@ -50,7 +50,7 @@ def rowwise_circular_conv(
 
     Scenes folded into one launch: ``k_t`` (2 * C, ...) holds C scenes'
     zone kernels and ``x`` (4 * C, ...) their paths, scene by scene."""
-    if _batch.batched(x, k_t):
+    if _batch.via_op(x, k_t):
         return rowwise_circular_conv_op(x, k_t, taps, block_b)
     _build.check_input(x, "x", 4)
     _build.check_input(k_t, "k_t", 4, x.device)

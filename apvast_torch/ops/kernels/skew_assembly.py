@@ -109,7 +109,7 @@ def lag_skew_assemble(
         (s1, t1), valid at lanes with t2 <= t1 and zero above; with
         ``half_scaled`` the lanes t2 == t1 hold half of it.
     """
-    if _batch.batched(lhs_t, rhs_sm, c0_sm):
+    if _batch.via_op(lhs_t, rhs_sm, c0_sm):
         return lag_skew_assemble_op(lhs_t, rhs_sm, c0_sm, j, half_scaled)
     _build.check_input(lhs_t, "lhs_t", 3)
     _build.check_input(rhs_sm, "rhs_sm", 3, lhs_t.device)

@@ -54,7 +54,7 @@ def covariance(
     Scenes folded into one launch: ``targets`` (2 * C, M, K) holds the two
     targets of each of C scenes, and the P paths are C scenes' P / C paths
     in order, path p against the targets of scene p // (P / C)."""
-    if _batch.batched(buffers, targets):
+    if _batch.via_op(buffers, targets):
         return covariance_op(buffers, targets, frame_length)
     _build.check_input(buffers, "buffers", 4)
     _build.check_input(targets, "targets", 3, buffers.device)

@@ -40,7 +40,7 @@ def streaming_conv(
     FIR rows ``kernels`` (signals, rows, taps) over ``segments``
     (signals, seg_len) = carried history ++ new hop samples. Same
     signature and layout as the JAX ``streaming_conv_pallas``."""
-    if _batch.batched(segments, kernels):
+    if _batch.via_op(segments, kernels):
         return streaming_conv_op(segments, kernels, hop)
     _build.check_input(segments, "segments", 2)
     _build.check_input(kernels, "kernels", 3, segments.device)

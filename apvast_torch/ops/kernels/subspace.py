@@ -76,7 +76,7 @@ def subspace_iterate(
         ``(q, small)``: the orthonormal (bz, n, k) subspace and its
         symmetric (bz, k, k) projection q^T (Li A Li^T) q.
     """
-    if _batch.batched(a, li, q0):
+    if _batch.via_op(a, li, q0):
         return subspace_iterate_op(a, li, q0, iters, jitter_rel)
     for name, t in (("a", a), ("li", li), ("q0", q0)):
         _build.check_input(t, name, 3, a.device)

@@ -102,7 +102,7 @@ def chol_panel(d: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Cholesky factors and their inverses of a (bz, 128, 128) SPD float32
     batch (its lower triangle is read). Returns ``(l, l_inv)``, both lower
     triangular; a non-PD panel gives non-finite values."""
-    if _batch.batched(d):
+    if _batch.via_op(d):
         return chol_panel_op(d)
     _build.check_input(d, "d", 3)
     if tuple(d.shape[-2:]) != (PANEL, PANEL):

@@ -55,3 +55,13 @@ def perceptual_gain(
     elif norm is WeightingNorm.PRESSURE:
         gain = gain * 20e-6
     return gain
+
+
+def detectability(test_spectra: torch.Tensor, masker_gain_sq: torch.Tensor) -> torch.Tensor:
+    """Detectability D = sum_{f>0} w^2(f) |T(f)|^2 of a test signal under a
+    masker's squared weighting curve. ``test_spectra`` (..., bins): rfft of
+    the test block already scaled by sqrt(2)/N; ``masker_gain_sq`` (...,
+    bins): the un-normalized squared weighting (:func:`squared_weighting`).
+    The DC bin is left out, as in the reference."""
+    power = test_spectra.abs() ** 2
+    return (masker_gain_sq[..., 1:] * power[..., 1:]).sum(-1)

@@ -25,6 +25,7 @@ from apvast_torch.engine.state import (
     ApVastState,
     SubspaceState,
     TrackingState,
+    carry_dtypes,
     state_shapes,
     subspace_shapes,
 )
@@ -40,13 +41,6 @@ _ENUM_FIELDS = {
     "perceptual_frontend": cfg_mod.PerceptualFrontend,
     "gevd_solver": cfg_mod.GevdSolver,
 }
-_MATLAB = "MATLAB regularization, a later slice of the port"
-# JAX config fields that no ported path reads yet: the values the port
-# accepts for each (its JAX default), and the slice that brings it.
-UNPORTED_FIELDS = {
-    "bright_loading": ((1e-8,), _MATLAB),
-    "dark_loading": ((5e-3,), _MATLAB),
-}
 # State fields of the JAX subspace solvers; None under GevdSolver.EIGH.
 _SUBSPACE_STATE = ("gevd_q", "gevd_minv", "gevd_lam", "gevd_hop", "gevd_resid")
 
@@ -54,25 +48,13 @@ _SUBSPACE_STATE = ("gevd_q", "gevd_minv", "gevd_lam", "gevd_hop", "gevd_resid")
 def config_from_jax(fields: dict) -> cfg_mod.ApVastConfig:
     """A port config from the field dict of a JAX ``ApVastConfig``
     (``dataclasses.asdict(jax_config)``). Enum members are matched by
-    value; an unknown field raises ``ValueError``; a value of
-    ``config.NOT_RUN``, or a field of :data:`UNPORTED_FIELDS` at another
-    value than those it lists, raises ``NotImplementedError`` naming the
-    slice that brings it."""
+    value; an unknown field raises ``ValueError``."""
     known = {f.name for f in dataclasses.fields(cfg_mod.ApVastConfig)}
-    unknown = set(fields) - known - set(UNPORTED_FIELDS)
+    unknown = set(fields) - known
     if unknown:
         raise ValueError(f"fields the port's config does not have: {sorted(unknown)}")
-    cfg_mod.check_not_run(fields)
     kwargs = {}
     for name, value in fields.items():
-        if name in UNPORTED_FIELDS:
-            accepted, where = UNPORTED_FIELDS[name]
-            if value not in accepted:
-                raise NotImplementedError(
-                    f"{name}={value!r} is read by {where}; the port "
-                    f"takes it only at {accepted}"
-                )
-            continue
         if name in _ENUM_FIELDS:
             value = _ENUM_FIELDS[name](getattr(value, "value", value))
         elif name == "output_spans" and value is not None:
@@ -87,6 +69,10 @@ def _tensor(name, arr, shape, device, dtype):
     arr = np.array(arr, order="C")
     if tuple(arr.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {arr.shape} != expected {tuple(shape)}")
+    if arr.dtype.itemsize == 2 and arr.dtype.kind not in "iuf":
+        # bfloat16: ml_dtypes' type (JAX's np.asarray) or the raw 2-byte
+        # records that np.savez writes for it and np.load reads back.
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16).to(device, dtype)
     return torch.as_tensor(arr, device=device).to(dtype)
 
 
@@ -151,7 +137,8 @@ def state_from_numpy(
     """A port state from the leaves of a JAX ``ApVastState`` as NumPy arrays,
     e.g. to continue a stream part-way through. The subspace solver's
     carry (the ``gevd_*`` leaves its whitening has) is required, and a
-    ``gevd_*`` leaf of another solver is refused."""
+    ``gevd_*`` leaf of another solver is refused. A bfloat16 carry (ml_dtypes'
+    bfloat16, or 2-byte records) is read as ``torch.bfloat16``."""
     device = resolve_device(device)
     dtype = torch_dtype(config)
     solver = subspace_shapes(config)
@@ -172,7 +159,7 @@ def state_from_numpy(
                 raise ValueError(f"gevd_hop: shape {hop.shape} != ()")
             carry[name] = int(hop)
         else:
-            dt = torch.float32 if name == "gevd_resid" else dtype
+            dt = carry_dtypes(config).get(name, dtype)
             carry[name] = _tensor(name, arrays.get(name), shape, device, dt)
     data = {
         name: _tensor(name, arrays.get(name), shape, device, dtype)

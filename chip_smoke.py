@@ -178,6 +178,42 @@ Phase 3  the main path, ``ApVast`` on ``scale_scene(16)`` for 64 hops (two
                   turns, of production, invert, dense, weighting-conv,
                   fd-jacobi and fd-full; each graph's capture time, the
                   residual reads per hop; production's against 16.67 ms.
+         eval     ``run_stream_with_metrics`` on production,
+                  graphed, 64 hops: every ``hop_metrics`` field within
+                  1e-4 of scale of the same metrics computed on the CPU
+                  in float64 from the same feeds, every rank-1 zone-A
+                  contrast of hops 7-64 positive, host-clock ms/hop of
+                  hops 9-64 against ``run_stream`` (their shared loop,
+                  stamped per hop, the metrics a second graph replayed
+                  after the hop's; medians of four turns each, ABBA).
+                  Resume: a graphed model saved after hop 32
+                  (``utils/checkpoint.py``), hops 33-48 run on and again
+                  in a fresh graphed model loaded from the file, feeds
+                  bit for bit, on production, fd-jacobi (complex leaves)
+                  and production with ``tracking_li_bf16`` (a bfloat16
+                  carry). The MATLAB configuration (production values in
+                  full form, MATLAB Toeplitz, normalized statistics,
+                  MATLAB loading, unit-symmetric weighting norm, per-zone
+                  targets; K1, K2, full-form K3, K4, K5) held against the
+                  CPU as the production path is, silenced 0, its
+                  contrast; ``_spectral_norm`` of its hop's (2, 800, 800)
+                  matrices against the same 12 steps in float64 on the
+                  CPU (1e-4) and against ``torch.linalg.matrix_norm(ord=2)``
+                  in float64 (5%, the JAX package's bar on covariance
+                  matrices). The bfloat16 knobs, graphed, 64 hops each
+                  beside production: ``tracking_li_bf16`` silenced 0 and
+                  its contrast within 0.25 dB of production's at rank 1
+                  and V; ``tracking_residual_precision="default"`` (the
+                  TPU's single pass, which silences hops here as in the
+                  JAX engine given bfloat16 operands) its contrast
+                  printed, its feeds finite, and each hop's silenced
+                  count equal to the port's CPU hop's from the card's
+                  state; ms/hop of the three. Offline VAST: ``vast_offline_sweep`` on
+                  the north star's RIRs (J = 50, JL = 800, 1000 steps, V
+                  = 50, 8 values of mu) in float64 on the card within
+                  1e-6 of the CPU, timed; float32 beside it, and the BACC
+                  and pressure-matching endpoints' contrast in both
+                  (printed).
 Phase 4  (``--profile``) device time by kernel and by stage over 32
          steady-state hops of the six timed paths, eager and graphed (a
          graphed hop's kernels by name only), and the device's idle
@@ -191,6 +227,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -1536,40 +1573,40 @@ def _want(path, hops, **extra):
     return {name: hops if name in PATH_KERNELS[path] else 0 for name in K.WRAPPERS} | extra
 
 
+def configured_then_converged(scene, dev, card, sig, noise, label, config, want, hops=None):
+    """The path as configured (``hops``, default HOPS), its statistics and
+    target feeds held against the CPU, then CPU_HOPS hops of it with K4 at
+    CONVERGED_SWEEPS, the loudspeaker feeds too. Returns ``drive``'s result
+    for the first."""
+    hops = HOPS if hops is None else hops
+    path = drive(scene, dev, card, label, config, want, sig, noise, hops=hops, gate_feeds=False)
+    converged = {name: n * CPU_HOPS // hops for name, n in want.items()}
+    drive(scene, dev, card, f"{label} ({CONVERGED_SWEEPS} sweeps)",
+          config | {"jacobi_sweeps": CONVERGED_SWEEPS}, converged, sig, noise, hops=CPU_HOPS)
+    return path
+
+
 def phase3(scene, dev, card, results):
     from apvast_torch import GevdSolver, production_overrides
 
     noise, sig = _inputs(scene)
 
-    def configured_then_converged(label, config, want, hops=HOPS):
-        """The path as configured, its statistics and target feeds held
-        against the CPU, then CPU_HOPS hops of it with K4 at
-        CONVERGED_SWEEPS, the loudspeaker feeds too."""
-        path = drive(scene, dev, card, label, config, want, sig, noise, hops=hops,
-                     gate_feeds=False)
-        converged = {name: n * CPU_HOPS // hops for name, n in want.items()}
-        drive(scene, dev, card, f"{label} ({CONVERGED_SWEEPS} sweeps)",
-              config | {"jacobi_sweeps": CONVERGED_SWEEPS}, converged, sig, noise,
-              hops=CPU_HOPS)
-        return path
-
-    prod = configured_then_converged("production", production_overrides(),
-                                     _want("production", HOPS))
+    held = functools.partial(configured_then_converged, scene, dev, card, sig, noise)
+    prod = held("production", production_overrides(), _want("production", HOPS))
     exact = drive(
         scene, dev, card, "exact", production_overrides() | {"gevd_solver": GevdSolver.EIGH},
         _want("exact", HOPS), sig, noise,
     )
-    dense = configured_then_converged("dense", production_overrides() | DENSE,
-                                      _want("dense", HOPS))
-    wconv = configured_then_converged("weighting-conv", production_overrides() | WEIGHTING_CONV,
-                                      _want("weighting-conv", HOPS))
+    dense = held("dense", production_overrides() | DENSE, _want("dense", HOPS))
+    wconv = held("weighting-conv", production_overrides() | WEIGHTING_CONV,
+                 _want("weighting-conv", HOPS))
     panels = -(-scene.config.jl // 128)
-    invert = configured_then_converged(
+    invert = held(
         "invert", production_overrides() | {"subspace_whiten": "invert"} | INVERT,
         _want("invert", HOPS, whiten=panels * HOPS))
     for whiten in ("solve", "newton"):
-        configured_then_converged(whiten, production_overrides() | {"subspace_whiten": whiten},
-                                  _want("production", CPU_HOPS), hops=CPU_HOPS)
+        held(whiten, production_overrides() | {"subspace_whiten": whiten},
+             _want("production", CPU_HOPS), hops=CPU_HOPS)
     # Each kernel's launches on the main-path run of the path that runs it.
     launched_by = {"statistics": dense, "rowwise_conv": wconv} | {
         name: invert for name in ROUND3_KERNELS}
@@ -2258,6 +2295,368 @@ def phase3_multi(scene, dev, card):
     return profiled
 
 
+# ---- phase 3, evaluation: metrics, checkpoints, MATLAB, bf16, offline ------
+
+TOL_METRICS = 1e-4  # the card's per-hop metrics against the CPU's float64
+# _spectral_norm (the JAX package's 12 power steps on R^2) against the exact
+# 2-norm: the JAX package's own bar on covariance matrices, whose top
+# eigenvalues form a plateau the steps converge into
+# (tests/test_subspace_solver.py::test_spectral_norm_matches_exact); 1% holds
+# only on its clustered synthetic matrix.
+TOL_SPECTRAL_NORM = 5e-2
+TOL_OFFLINE = 1e-6  # the offline sweep in float64, card against CPU
+SAVE_AT, RESUME_TO = 32, 48  # checkpoint after hop 32, resume hops 33-48
+OFFLINE_STEPS = 1000
+OFFLINE_MU = (0.01, 0.1, 0.3, 1.0, 3.0, 10.0, 30.0, 100.0)
+
+
+def matlab_overrides():
+    """The MATLAB configuration of tests/test_matlab_variants.py on the
+    production values, in full form (the norm-scaled loading needs the
+    completed matrices); perceptual weighting is the scene's (on)."""
+    from apvast_torch import production_overrides
+    from apvast_torch.config import (
+        RegularizationVariant,
+        TargetFilterVariant,
+        ToeplitzVariant,
+        WeightingNorm,
+    )
+
+    return production_overrides() | {
+        "statistics_half_form": False,
+        "toeplitz_variant": ToeplitzVariant.MATLAB,
+        "normalize_statistics": True,
+        "regularization": RegularizationVariant.MATLAB,
+        "weighting_norm": WeightingNorm.UNIT_SYMMETRIC,
+        "target_filter": TargetFilterVariant.PER_ZONE,
+    }
+
+
+def _nan_rel(got, want) -> float:
+    """_rel over the finite entries, after requiring the same NaN pattern."""
+    got, want = got.double().cpu(), want.double().cpu()
+    if not torch.equal(torch.isnan(got), torch.isnan(want)):
+        raise AssertionError("NaN patterns differ")
+    keep = ~torch.isnan(want)
+    return _rel(got[keep], want[keep])[1] if keep.any() else 0.0
+
+
+def _eval_metrics(scene, dev, card, noise, sig):
+    """run_stream_with_metrics on production, graphed, for HOPS hops: its
+    metrics against hop_metrics of the same feeds on the CPU in float64,
+    the rank-1 zone-A contrast of hops 7-64, and ms/hop against
+    run_stream."""
+    from apvast_torch import production_overrides
+    from apvast_torch.engine import build_plan, init_state
+    from apvast_torch.engine.hop import HopOutputs
+    from apvast_torch.engine.stream import _drive, run_stream_with_metrics
+    from apvast_torch.observability import HopMetrics, hop_metrics
+
+    cfg = dataclasses.replace(scene.config, **production_overrides())
+    plan = build_plan(cfg, scene.rir_a, scene.rir_b, dev)
+    state = init_state(cfg, dev, response_noise=noise)
+    x = torch.as_tensor(sig).to(dev)
+    final, outs, metrics = run_stream_with_metrics(cfg, plan, state, x[0], x[1], scene.rir_a,
+                                                   scene.rir_b)
+    if outs.out_a.shape[0] != HOPS or int(outs.silenced.sum()) != 0:
+        raise AssertionError("metrics: the stream did not run HOPS healthy hops")
+    t0 = time.perf_counter()
+    worst = {}
+    for i in range(HOPS):
+        hop = HopOutputs(**{name: getattr(outs, name)[i].cpu().double()
+                            for name in ("out_a", "out_b", "out_a_t", "out_b_t")},
+                         silenced=outs.silenced[i].cpu())
+        want = hop_metrics(hop, scene.rir_a, scene.rir_b)
+        for f in dataclasses.fields(HopMetrics):
+            got = getattr(metrics, f.name)[i]
+            if got.device.type != dev.type:
+                raise AssertionError(f"metrics {f.name} left the device")
+            worst[f.name] = max(worst.get(f.name, 0.0), _nan_rel(got, getattr(want, f.name)))
+    print(f"[phase 3 eval] metrics: run_stream_with_metrics, production graphed, {HOPS} hops, "
+          f"against hop_metrics on the CPU in float64 ({time.perf_counter() - t0:.1f} s): worst "
+          f"rel_err { {k: f'{v:.2e}' for k, v in worst.items()} } (limit {TOL_METRICS:.0e})",
+          flush=True)
+    for name, rel in worst.items():
+        _check(f"metrics {name}", rel, TOL_METRICS)
+    rank1 = metrics.contrast_a_db[TAIL_FROM:, 0].cpu()
+    print(f"[phase 3 eval] metrics: zone-A rank-1 contrast of hops {TAIL_FROM + 1}-{HOPS}: "
+          f"mean {float(rank1.mean()):.4f} dB, min {float(rank1.min()):.4f}, max "
+          f"{float(rank1.max()):.4f}; NMSE rank 1 mean {float(metrics.nmse_a[TAIL_FROM:, 0].mean()):.4f}",
+          flush=True)
+    if not bool((rank1 > 0).all()):
+        raise AssertionError("metrics: a zone-A rank-1 contrast of hops 7-64 is not positive")
+
+    # Steady-state host clock of the drivers' own loop (engine.stream._drive,
+    # which both run): a stamp after each hop (with the metrics graph of
+    # run_stream_with_metrics when ``with_metrics``), hops 9-64, synchronized.
+    rir_a, rir_b = (torch.as_tensor(r).to(dev) for r in (scene.rir_a, scene.rir_b))
+
+    def ms_hop(with_metrics):
+        stamps = []
+        each_hop = (lambda out: hop_metrics(out, rir_a, rir_b)) if with_metrics else None
+        _drive(cfg, plan, state, x[0], x[1], each_hop, lambda: stamps.append(time.perf_counter()))
+        torch.cuda.synchronize()
+        return (time.perf_counter() - stamps[CPU_HOPS - 1]) / (HOPS - CPU_HOPS) * 1e3
+
+    # Four turns each, in ABBA order; medians, since a turn of a shared
+    # host's clock can read several times the others.
+    ms = {False: [], True: []}
+    for with_metrics in (False, True, True, False) * 2:
+        ms[with_metrics].append(ms_hop(with_metrics))
+    plain, with_m = float(np.median(ms[False])), float(np.median(ms[True]))
+    print(f"[phase 3 eval] metrics: graphed production, host clock, hops {CPU_HOPS + 1}-{HOPS}, "
+          f"in turns: run_stream {[round(v, 4) for v in ms[False]]} ms/hop, "
+          f"run_stream_with_metrics {[round(v, 4) for v in ms[True]]} ms/hop; median {plain:.4f} "
+          f"against {with_m:.4f}, metrics {with_m - plain:+.4f} ms/hop card={card}", flush=True)
+    return final
+
+
+def _resume(scene, dev, card, noise, sig, label, overrides, fd=False):
+    """A graphed model run to hop SAVE_AT, saved, run on to RESUME_TO; a
+    fresh graphed model loaded from the file runs the same hops: the feeds
+    equal bit for bit."""
+    import tempfile
+
+    from apvast_torch.engine import FdState
+    from apvast_torch.engine.state import ApVastState
+    from apvast_torch.utils.checkpoint import load_state, save_state
+
+    def model():
+        m = (_fd_model if fd else _model)(scene, dev, noise, overrides)
+        if not m.graphed:
+            raise AssertionError(f"resume {label}: not graphed ({m.eager_reason})")
+        return m
+
+    x = torch.as_tensor(sig).to(dev)
+    hop = scene.config.hop
+
+    def run(m, first, last):
+        outs = []
+        for i in range(first, last):
+            outs.append(m.process_input_buffers(x[0, i * hop : (i + 1) * hop],
+                                                x[1, i * hop : (i + 1) * hop]))
+        return outs
+
+    first = model()
+    run(first, 0, SAVE_AT)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/state.npz"
+        save_state(path, first.state)
+        want = run(first, SAVE_AT, RESUME_TO)
+        second = model()
+        second.state = load_state(path, second.config, FdState if fd else ApVastState, dev)
+    got = run(second, SAVE_AT, RESUME_TO)
+    diff = max(float((g - w).abs().max()) for gh, wh in zip(got, want) for g, w in zip(gh, wh))
+    minv = getattr(first.state, "gevd_minv", None)
+    print(f"[phase 3 eval] resume {label}: saved after hop {SAVE_AT}, hops {SAVE_AT + 1}-"
+          f"{RESUME_TO} in a fresh graphed model from the file: max |diff| {diff:.3e} over every "
+          f"feed (required 0){'' if minv is None else f'; carry {minv.dtype}'}; silenced "
+          f"{int(first.silenced)} / {int(second.silenced)}", flush=True)
+    if diff != 0 or int(first.silenced) or int(second.silenced):
+        raise AssertionError(f"resume {label}: not bit for bit")
+
+
+def _eval_matlab(scene, dev, card, noise, sig):
+    """The MATLAB configuration on the card (K1, K2, full-form K3, K4, K5):
+    held against the CPU as the production path is, silenced 0, its
+    contrast; _spectral_norm of its hop's matrices against the exact
+    2-norm."""
+    from apvast_torch.engine import hop_statistics
+    from apvast_torch.engine.hop import _spectral_norm
+
+    want = _want("production", HOPS)
+    path = configured_then_converged(scene, dev, card, sig, noise, "matlab", matlab_overrides(),
+                                     want)
+    model, contrast = path[0], path[5]
+    cfg = model.config
+    r_mats, _ = hop_statistics(cfg, model.state.wresp_stat, model.state.wtarget_stat)
+    worst = {"float64 CPU": 0.0, "exact": 0.0}
+    for name, mats in (("A", r_mats[0::3]), ("B", r_mats[1:3])):
+        got = _spectral_norm(mats.contiguous()).double().cpu()
+        same = _spectral_norm(mats.double().cpu())  # the same 12 steps in float64
+        exact = torch.linalg.matrix_norm(mats.double(), ord=2).cpu()
+        rel = {"float64 CPU": ((got - same).abs() / same).max().item(),
+               "exact": ((got - exact).abs() / exact).max().item()}
+        worst = {k: max(worst[k], rel[k]) for k in worst}
+        print(f"[phase 3 eval] matlab: _spectral_norm of {name} {tuple(mats.shape)} on the card "
+              f"(float32, 12 steps) {got.tolist()}; the same steps in float64 on the CPU "
+              f"{same.tolist()}: rel_err {rel['float64 CPU']:.3e} (limit {TOL_KERNEL:.0e}); "
+              f"torch.linalg.matrix_norm(ord=2) in float64 {exact.tolist()}: rel_err "
+              f"{rel['exact']:.3e} (limit {TOL_SPECTRAL_NORM:.0e})", flush=True)
+    print(f"[phase 3 eval] matlab: silenced 0, zone-A contrast over hops {TAIL_FROM + 1}-{HOPS}: "
+          f"rank 1 {contrast[0]:.4f} dB, rank {cfg.num_eigenvectors} {contrast[1]:.4f} dB "
+          f"card={card}", flush=True)
+    _check("matlab _spectral_norm against float64", worst["float64 CPU"], TOL_KERNEL)
+    _check("matlab _spectral_norm against the exact norm", worst["exact"], TOL_SPECTRAL_NORM)
+
+
+def _knob_run(scene, dev, noise, sig, overrides, keep_states=False):
+    """A graphed model of ``overrides`` for HOPS hops: the model, per-hop
+    silenced, steady-state ms/hop (host clock), zone-A contrast at ranks 1
+    and V, whether every loudspeaker feed was finite, and (``keep_states``)
+    the state before each hop."""
+    from apvast_torch.engine.graph import clone_state
+
+    model = _model(scene, dev, noise, overrides)
+    if not model.graphed:
+        raise AssertionError(f"not graphed ({model.eager_reason})")
+    cfg = model.config
+    x = torch.as_tensor(sig).to(dev)
+    hop, v = cfg.hop, cfg.num_solutions
+    silenced, tail, finite, states = [], [], [], []
+    for i in range(HOPS):
+        if i == CPU_HOPS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        if keep_states:
+            states.append(clone_state(model.state))
+        out = model.process_input_buffers(x[0, i * hop : (i + 1) * hop],
+                                          x[1, i * hop : (i + 1) * hop])
+        silenced.append(model.silenced.clone())
+        finite.append(torch.isfinite(out[0]).all())
+        if i >= TAIL_FROM:
+            tail.append(out[0][:: v - 1])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / (HOPS - CPU_HOPS) * 1e3
+    per_hop = torch.diff(torch.stack(silenced).cpu(), prepend=torch.zeros(1, dtype=torch.int32))
+    return model, per_hop, ms, _contrast(scene, tail), bool(torch.stack(finite).all()), states
+
+
+def _eval_bf16(scene, dev, card, noise, sig):
+    """Production against its two bfloat16 knobs, graphed, HOPS hops each:
+    silenced 0 and the tracking_li_bf16 contrast within TOL_CONTRAST_DB of
+    production's (rank 1 and rank V); residual precision 'default': its
+    contrast printed, its feeds finite, and each hop's silenced count equal
+    to the CPU hop's from the card's state; ms/hop of all three."""
+    from apvast_torch import production_overrides
+
+    runs = {
+        "production": production_overrides(),
+        "tracking_li_bf16": production_overrides() | {"tracking_li_bf16": True},
+        "residual-default": production_overrides() | {"tracking_residual_precision": "default"},
+    }
+    res = {label: _knob_run(scene, dev, noise, sig, o, keep_states=label == "residual-default")
+           for label, o in runs.items()}
+    v = scene.config.num_eigenvectors
+    prod = res["production"][3]
+    for label, (model, per_hop, ms, contrast, _, _) in res.items():
+        carry = model.state.gevd_minv.dtype
+        nz = [(i + 1, int(n)) for i, n in enumerate(per_hop) if n]
+        print(f"[phase 3 eval] {label}: {HOPS} hops graphed, carry {carry}, silenced "
+              f"{int(per_hop.sum())} (hop, count) {nz}, {model.rebuilds} rebuilds, steady state "
+              f"{ms:.4f} ms/hop; zone-A contrast over hops {TAIL_FROM + 1}-{HOPS}: rank 1 "
+              f"{contrast[0]:.4f} dB ({contrast[0] - prod[0]:+.4f} against production), rank {v} "
+              f"{contrast[1]:.4f} dB ({contrast[1] - prod[1]:+.4f}) card={card}", flush=True)
+    if int(res["production"][1].sum()) or int(res["tracking_li_bf16"][1].sum()):
+        raise AssertionError("production or tracking_li_bf16 silenced a hop")
+    if res["tracking_li_bf16"][0].state.gevd_minv.dtype != torch.bfloat16:
+        raise AssertionError("tracking_li_bf16: the carry is not bfloat16")
+    for rank, b, p in zip((1, v), res["tracking_li_bf16"][3], prod):
+        if not abs(b - p) <= TOL_CONTRAST_DB:
+            raise AssertionError(f"tracking_li_bf16 contrast at rank {rank}: {b - p:+.4f} dB")
+    # residual-default: the TPU's single pass silences hops (its Rayleigh-Ritz
+    # matrix on bfloat16 products stops factoring), as the JAX engine does
+    # when its DEFAULT products are given bfloat16 operands
+    # (tools/residual_default_witness.py; tests/test_torch_matlab_variants.py
+    # holds the port's CPU hop to that JAX hop). The gate: every hop's
+    # silenced count on the card equals the port's CPU hop's from the card's
+    # state, and every feed is finite (the engine's guards).
+    model, per_hop, _, _, finite, states = res["residual-default"]
+    if not finite:
+        raise AssertionError("residual-default: a non-finite feed")
+    from apvast_torch.engine import build_plan, process_hop
+
+    x = torch.as_tensor(sig)
+    hop = model.config.hop
+    plan = build_plan(model.config, scene.rir_a, scene.rir_b, "cpu")
+    t0 = time.perf_counter()
+    cpu = []
+    for i in range(HOPS):
+        _, out = process_hop(model.config, plan, _to(states[i], "cpu"),
+                             x[0, i * hop : (i + 1) * hop], x[1, i * hop : (i + 1) * hop])
+        cpu.append(int(out.silenced))
+    differ = [(i + 1, int(c), h) for i, (c, h) in enumerate(zip(per_hop, cpu)) if int(c) != h]
+    print(f"[phase 3 eval] residual-default: the CPU hop from the card's state on each of {HOPS} "
+          f"hops ({time.perf_counter() - t0:.1f} s) silenced {sum(1 for n in cpu if n)} hops; "
+          f"hops where the card and the CPU differ (hop, card, CPU): {differ}", flush=True)
+    if differ:
+        raise AssertionError(f"residual-default: silenced differs from the CPU on {differ}")
+
+
+def _offline_contrast(scene, filters):
+    """Zone-A contrast (dB) of offline FIR filters (J, S): the full
+    responses of both zones to the filters, in float64 on the CPU."""
+    from apvast_torch.evaluation import acoustic_contrast_db, predict_pressure
+
+    w = filters.double().cpu()
+    w = torch.nn.functional.pad(w, (0, 0, 0, scene.rir_a.shape[0] - 1))
+    return float(acoustic_contrast_db(predict_pressure(w, scene.rir_a),
+                                      predict_pressure(w, scene.rir_b)))
+
+
+def _eval_offline(scene, dev, card):
+    """vast_offline_sweep on the north star's RIRs (J, num_steps, V, an
+    8-value mu grid): float64 on the card against the CPU, the time; the
+    BACC and pressure-matching endpoints' contrast in float32 and float64."""
+    from apvast_torch.models.vast_offline import acc, pressure_matching, vast_offline_sweep
+
+    c = scene.config
+    args = (c.filter_length, c.modeling_delay, c.reference_index_a)
+    rir_a64, rir_b64 = (np.asarray(r, np.float64) for r in (scene.rir_a, scene.rir_b))
+
+    def sweep(rb, rd, device):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = vast_offline_sweep(rb, rd, *args, num_eigenvectors=c.num_eigenvectors,
+                                 mu_grid=OFFLINE_MU, num_steps=OFFLINE_STEPS, device=device)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    card64, _ = sweep(rir_a64, rir_b64, dev)  # warm-up: cuSOLVER and cuBLAS handles
+    card64, ms64 = sweep(rir_a64, rir_b64, dev)
+    cpu64, cpu_ms = sweep(rir_a64, rir_b64, "cpu")
+    rel = _rel(card64.cpu(), cpu64)[1]
+    print(f"[phase 3 eval] offline: vast_offline_sweep {tuple(card64.shape)} (J={c.filter_length}, "
+          f"JL={c.jl}, num_steps={OFFLINE_STEPS}, V={c.num_eigenvectors}, mu {list(OFFLINE_MU)}), "
+          f"float64: card {ms64:.1f} ms, CPU {cpu_ms:.1f} ms; card against CPU rel_err {rel:.3e} "
+          f"(limit {TOL_OFFLINE:.0e}) card={card}", flush=True)
+    _check("offline sweep float64", rel, TOL_OFFLINE)
+    rir_a32, rir_b32 = (r.astype(np.float32) for r in (rir_a64, rir_b64))
+    sweep(rir_a32, rir_b32, dev)  # warm-up: the float32 solver paths
+    card32, ms32 = sweep(rir_a32, rir_b32, dev)
+    print(f"[phase 3 eval] offline: float32 sweep on the card {ms32:.1f} ms, finite "
+          f"{bool(torch.isfinite(card32).all())}, rel_err against float64 "
+          f"{_rel(card32.cpu(), cpu64)[1]:.3e}", flush=True)
+    for name, fn in (("BACC", acc), ("pressure matching", pressure_matching)):
+        c64 = _offline_contrast(scene, fn(rir_a64, rir_b64, *args, num_steps=OFFLINE_STEPS,
+                                          device=dev))
+        w32 = fn(rir_a32, rir_b32, *args, num_steps=OFFLINE_STEPS, device=dev)
+        c32 = (f"{_offline_contrast(scene, w32):.4f} dB" if bool(torch.isfinite(w32).all())
+               else "not finite: the unloaded dark matrix does not factor in float32")
+        print(f"[phase 3 eval] offline: {name} zone-A contrast, float64 {c64:.4f} dB, float32 "
+              f"{c32} (printed, not gated)", flush=True)
+
+
+def phase3_eval(scene, dev, card):
+    """Evaluation and observability, checkpoints, the MATLAB configuration,
+    the bfloat16 knobs and offline VAST (see the module docstring)."""
+    from apvast_torch import production_overrides
+
+    noise, sig = _inputs(scene)
+    _eval_metrics(scene, dev, card, noise, sig)
+    s = scene.config.num_srcs
+    for label, overrides, fd in (
+        ("production", production_overrides(), False),
+        ("fd-jacobi", {"number_of_eigenvectors": s, "fd_jacobi_sweeps": FD_SWEEPS,
+                       "fd_eigh": "jacobi"}, True),
+        ("tracking_li_bf16", production_overrides() | {"tracking_li_bf16": True}, False),
+    ):
+        _resume(scene, dev, card, noise, sig, label, overrides, fd)
+    _eval_matlab(scene, dev, card, noise, sig)
+    _eval_bf16(scene, dev, card, noise, sig)
+    _eval_offline(scene, dev, card)
+
+
 def _kernel_of(key):
     """The wrapper whose kernel a profiler key names: K4 and K7 are
     jacobi_pair_kernel<NP, WARPS, HERM, ONE_BARRIER> up to 64 slots and
@@ -2411,6 +2810,7 @@ def main() -> int:
     phase3_serve(scene, dev, card)
     timed = phase3_time(scene, dev, card)
     multi = phase3_multi(scene, dev, card)
+    phase3_eval(scene, dev, card)
 
     if args.profile:
         for label, (eager, graphed, x, eager_ms, graphed_ms) in timed.items():

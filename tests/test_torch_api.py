@@ -100,10 +100,10 @@ _ROUND3 = dict(gevd_solver=GevdSolver.SUBSPACE, dtype="float32", subspace_oversa
         (dict(weighting_conv_taps=31), False),
         (dict(use_pallas_statistics=True, dtype="float32"), False),
         (dict(use_lag_statistics=True, lag_assembly="wide"), True),
-        (dict(regularization=RegularizationVariant.MATLAB), True),
-        (dict(regularization=RegularizationVariant.PYTHON_NORM), True),
-        (production_overrides() | {"tracking_li_bf16": True}, True),
-        (production_overrides() | {"tracking_residual_precision": "default"}, True),
+        (dict(regularization=RegularizationVariant.MATLAB), False),
+        (dict(regularization=RegularizationVariant.PYTHON_NORM), False),
+        (production_overrides() | {"tracking_li_bf16": True}, False),
+        (production_overrides() | {"tracking_residual_precision": "default"}, False),
         (_ROUND3 | dict(use_pallas_subspace=True), False),
         (_ROUND3 | dict(use_pallas_whiten=True), False),
     ],
@@ -114,8 +114,10 @@ _ROUND3 = dict(gevd_solver=GevdSolver.SUBSPACE, dtype="float32", subspace_oversa
 def test_out_of_slice_configs_raise(overrides, refused):
     """A configuration the port does not run raises NotImplementedError. The
     round-3 subspace solvers ('invert' by default, 'newton') and their
-    kernels, the truncated weighting and the dense statistics kernel,
-    refused before the port ran them, convert and run a hop."""
+    kernels, the truncated weighting, the dense statistics kernel, the
+    norm-scaled loadings (MATLAB, PYTHON_NORM) and the tracking solver's
+    bfloat16 knobs, refused before the port ran them, convert and run a
+    hop."""
     if refused:
         with pytest.raises(NotImplementedError):
             _model(**overrides)

@@ -12,7 +12,9 @@ and the hop captured as a CUDA graph (engine/graph.py): each graphed
 configuration against the eager hop, replays bit for bit, launch counts
 under replay, graph=True refused where the hop reads the device mid-hop,
 K2, K9 and K10b captured alone, and the serving drain against the hop
-loop.
+loop; checkpoint resume under the graph (the bfloat16 carry included),
+the MATLAB configuration against the CPU, the bfloat16 carry graphed
+against eager, and the offline VAST sweep in float64 against the CPU.
 
 Needs a card: every test is marked ``cuda`` and skips without one. This
 file imports neither JAX nor the shared fixtures, so on a machine without
@@ -1483,3 +1485,187 @@ def test_statistics_and_rowwise_conv_fold_scenes_bit_for_bit(dev):
         assert torch.equal(y[4 * k : 4 * k + 4], yk)
     assert _rel(r, K.covariance_plain(buf, tgt, 12)[0]) <= 1e-4
     assert _rel(y, K.rowwise_circular_conv_plain(x, k_t, 7, 16)) <= 1e-4
+
+
+# ---- evaluation slice: checkpoints, the MATLAB configuration, the bf16
+# carry and offline VAST on the card ------------------------------------
+
+_MATLAB_CARD = dict(statistics_half_form=False, normalize_statistics=True)
+
+
+def _matlab_overrides():
+    from apvast_torch.config import (
+        RegularizationVariant,
+        TargetFilterVariant,
+        ToeplitzVariant,
+        WeightingNorm,
+    )
+
+    return production_overrides() | _MATLAB_CARD | dict(
+        toeplitz_variant=ToeplitzVariant.MATLAB,
+        regularization=RegularizationVariant.MATLAB,
+        weighting_norm=WeightingNorm.UNIT_SYMMETRIC,
+        target_filter=TargetFilterVariant.PER_ZONE,
+    )
+
+
+@pytest.mark.parametrize("config", ["production", "tracking_li_bf16", "fd-jacobi"])
+def test_checkpoint_resume_under_the_graph(dev, config, tmp_path):
+    """A graphed model saved after hop 6, run on to hop 12; a fresh graphed
+    model loaded from the file runs hops 7-12 with the same feeds, bit for
+    bit (the bf16 carry read back as bfloat16)."""
+    from apvast_torch.engine import FdState
+    from apvast_torch.engine.state import ApVastState
+    from apvast_torch.utils.checkpoint import load_state, save_state
+
+    fd = config == "fd-jacobi"
+
+    def model():
+        rng = np.random.default_rng(21)
+        if fd:
+            return ApVastFD(device=dev, **_fd_kwargs(rng, {"fd_eigh": "jacobi"}))
+        extra = {"tracking_li_bf16": True} if config == "tracking_li_bf16" else {}
+        return ApVast(device=dev, **_s8_kwargs(rng, production_overrides() | extra))
+
+    hops = np.random.default_rng(22).standard_normal((12, 2, 64)).astype(np.float32)
+    first = model()
+    assert first.graphed
+    for a, b in hops[:6]:
+        first.process_input_buffers(a, b)
+    path = str(tmp_path / "state.npz")
+    save_state(path, first.state)
+    want = [first.process_input_buffers(a, b) for a, b in hops[6:]]
+    second = model()
+    second.state = load_state(path, second.config, FdState if fd else ApVastState, dev)
+    if config == "tracking_li_bf16":
+        assert second.state.gevd_minv.dtype == torch.bfloat16
+    got = [second.process_input_buffers(a, b) for a, b in hops[6:]]
+    for g_hop, w_hop in zip(got, want):
+        for g, w in zip(g_hop, w_hop):
+            assert torch.equal(g, w)
+    assert int(first.silenced) == 0 and int(second.silenced) == 0
+
+
+def test_matlab_configuration_on_the_card_matches_cpu(dev):
+    """The MATLAB configuration on the production values (K1, K2, full-form
+    K3, K4 at 8 sweeps, K5), hop by hop from the card's state: statistics
+    1e-4, target feeds 1e-5, loudspeaker feeds 5e-2 of scale, nothing
+    silenced; its launches are production's."""
+    rng = np.random.default_rng(23)
+    kwargs = _s8_kwargs(rng, _matlab_overrides() | {"jacobi_sweeps": 8})
+    card, cpu = ApVast(device=dev, **kwargs), ApVast(device="cpu", graph=False, **kwargs)
+    assert card.graphed
+    feeds, targets = [], []
+    counts = {name: 0 for name in K.WRAPPERS}
+    for a, b in rng.standard_normal((8, 2, 64)).astype(np.float32):
+        cpu.state = _state_to(clone_state(card.state), "cpu")
+        K.reset_launch_counts()
+        got = card.process_input_buffers(a, b)
+        counts = {name: n + K.launch_counts()[name] for name, n in counts.items()}
+        want = cpu.process_input_buffers(a, b)
+        feeds.append((got[0], want[0]))
+        targets.append((got[2], want[2]))
+        for x, y in zip(
+            hop_statistics(card.config, card.state.wresp_stat, card.state.wtarget_stat),
+            hop_statistics(cpu.config, cpu.state.wresp_stat, cpu.state.wtarget_stat),
+        ):
+            assert _rel(x, y) <= 1e-4
+    path = ("streaming_conv", "lag_corr", "skew_assembly", "jacobi_eigh", "output_filter")
+    assert counts == {name: 8 if name in path else 0 for name in K.WRAPPERS}
+    for pairs, tol in ((feeds, 5e-2), (targets, 1e-5)):
+        g = torch.stack([p[0] for p in pairs])
+        assert torch.isfinite(g).all()
+        assert _rel(g, torch.stack([p[1] for p in pairs])) <= tol
+    assert int(card.silenced) == 0 and int(cpu.silenced) == 0
+
+
+def test_bf16_carry_under_the_graph(dev):
+    """tracking_li_bf16 graphed against eager from one state, 8 hops with
+    rebuilds: the static carry stays bfloat16, the feeds agree as the
+    graphed hop's do (1e-5 / 5e-2), the carry within one bfloat16 step."""
+    rng = np.random.default_rng(24)
+    kwargs = _s8_kwargs(rng, production_overrides() | {"tracking_li_bf16": True})
+    graphed, eager = ApVast(device=dev, **kwargs), ApVast(device=dev, graph=False, **kwargs)
+    assert graphed.graphed and graphed.state.gevd_minv.dtype == torch.bfloat16
+    for hop in range(8):
+        eager.state = clone_state(graphed.state)
+        a, b = rng.standard_normal((2, 64)).astype(np.float32)
+        got, want = graphed.process_input_buffers(a, b), eager.process_input_buffers(a, b)
+        assert graphed.state.gevd_minv.dtype == eager.state.gevd_minv.dtype == torch.bfloat16
+        assert _rel(graphed.state.gevd_minv, eager.state.gevd_minv) <= 2.0**-7
+        for f in range(4):
+            assert _rel(got[f], want[f]) <= (1e-5 if f >= 2 else 5e-2), (hop, f)
+    assert graphed.rebuilds == eager.rebuilds >= 6
+    assert int(graphed.silenced) == 0
+
+
+def test_offline_sweep_float64_on_the_card_matches_cpu(dev):
+    """vast_offline_sweep in float64 on the card against the CPU: 1e-6 of
+    scale (cuSOLVER against LAPACK; the filters do not depend on the
+    eigenvectors' signs)."""
+    from apvast_torch.models.vast_offline import vast_offline_sweep
+
+    rir_a, rir_b = synthetic_rirs(240, 8, 9, seed=31), synthetic_rirs(240, 8, 9, seed=32)
+    args = (rir_a.astype(np.float64), rir_b.astype(np.float64), 24, 8, 2)
+    kwargs = dict(num_eigenvectors=16, mu_grid=(0.1, 1.0, 10.0), num_steps=400)
+    got = vast_offline_sweep(*args, **kwargs, device=dev)
+    want = vast_offline_sweep(*args, **kwargs, device="cpu")
+    assert got.device.type == "cuda" and got.dtype == torch.float64
+    assert got.shape == (3, 16, 24, 8) and _rel(got, want) <= 1e-6
+
+
+def test_metrics_graph_on_the_card(dev):
+    """run_stream_with_metrics graphed (the hop's graph, then the metrics'
+    graph on its static outputs): its outputs equal run_stream's bit for
+    bit, and its metrics equal hop_metrics of those outputs computed
+    eagerly on the card (1e-6 of each value)."""
+    from apvast_torch.engine.hop import HopOutputs
+    from apvast_torch.engine.stream import run_stream, run_stream_with_metrics
+    from apvast_torch.observability import HopMetrics, hop_metrics
+
+    rng = np.random.default_rng(25)
+    kwargs = _s8_kwargs(rng, production_overrides())
+    model = ApVast(device=dev, **kwargs)
+    assert model.graphed
+    x = torch.from_numpy(rng.standard_normal((2, 12 * 64)).astype(np.float32)).to(dev)
+    state = clone_state(model.state)
+    _, outs = run_stream(model.config, model.plan, state, x[0], x[1])
+    _, got, metrics = run_stream_with_metrics(model.config, model.plan, state, x[0], x[1],
+                                              kwargs["rir_a"], kwargs["rir_b"])
+    names = ("out_a", "out_b", "out_a_t", "out_b_t", "silenced")
+    for name in names:
+        assert torch.equal(getattr(got, name), getattr(outs, name)), name
+    rir_a, rir_b = (torch.as_tensor(kwargs[k]).to(dev, torch.float32) for k in ("rir_a", "rir_b"))
+    for i in range(12):
+        want = hop_metrics(HopOutputs(**{n: getattr(outs, n)[i] for n in names}), rir_a, rir_b)
+        for f in dataclasses.fields(HopMetrics):
+            g = getattr(metrics, f.name)[i]
+            assert g.device.type == "cuda"
+            torch.testing.assert_close(g, getattr(want, f.name), rtol=1e-6, atol=0,
+                                       equal_nan=True)
+
+
+def test_residual_precision_default_on_the_card_matches_cpu(dev):
+    """tracking_residual_precision="default", graphed, hop by hop from the
+    card's state against the CPU (whose hop the CPU tests hold to the JAX
+    engine's with its DEFAULT products given bfloat16 operands), K4 at 8
+    sweeps as the other paths' feeds are held: the same silenced count on
+    every hop, target feeds 1e-5 and loudspeaker feeds 5e-2 of scale."""
+    rng = np.random.default_rng(26)
+    kwargs = _s8_kwargs(rng, production_overrides() | {"tracking_residual_precision": "default",
+                                                       "jacobi_sweeps": 8})
+    card, cpu = ApVast(device=dev, **kwargs), ApVast(device="cpu", graph=False, **kwargs)
+    assert card.graphed
+    feeds, targets, silenced = [], [], []
+    for a, b in rng.standard_normal((12, 2, 64)).astype(np.float32):
+        cpu.state = _state_to(clone_state(card.state), "cpu")
+        before = (int(card.silenced), int(cpu.silenced))
+        got, want = card.process_input_buffers(a, b), cpu.process_input_buffers(a, b)
+        silenced.append((int(card.silenced) - before[0], int(cpu.silenced) - before[1]))
+        feeds.append((got[0], want[0]))
+        targets.append((got[2], want[2]))
+    assert all(c == h for c, h in silenced), silenced
+    for pairs, tol in ((feeds, 5e-2), (targets, 1e-5)):
+        g = torch.stack([p[0] for p in pairs])
+        assert torch.isfinite(g).all()
+        assert _rel(g, torch.stack([p[1] for p in pairs])) <= tol

@@ -20,7 +20,6 @@ import apvast_torch.config as tcfg
 from apvast_torch.engine import build_plan, init_state, process_hop
 from apvast_torch.perceptual import tables as ttables
 from apvast_torch.utils.convert import (
-    UNPORTED_FIELDS,
     config_from_jax,
     plan_from_numpy,
     state_from_numpy,
@@ -72,7 +71,7 @@ def test_config_converts_field_for_field(small_scene, name):
     jc, _, _ = _configs(small_scene)[name]
     tc = config_from_jax(dataclasses.asdict(jc))
     ported = {f.name for f in dataclasses.fields(tc)}
-    assert {f.name for f in dataclasses.fields(jc)} == ported | set(UNPORTED_FIELDS)
+    assert {f.name for f in dataclasses.fields(jc)} == ported
     for name in ported:
         jv, tv = getattr(jc, name), getattr(tc, name)
         assert getattr(tv, "value", tv) == getattr(jv, "value", jv), name
@@ -172,19 +171,29 @@ def test_fd_knobs_convert_and_run(small_scene, knob):
     ids=lambda d: "-".join(f"{k}={v}" for k, v in d.items()) if isinstance(d, dict) else None,
 )
 def test_unported_config_values_raise(small_scene, unported, jax_valid):
-    """A JAX field that no ported path reads converts only at the values
-    the port runs with, and a value of a ported field that the port does
-    not run (``config.NOT_RUN``) is refused: any such value, valid in JAX
-    or not, names the slice that brings it."""
-    jc, _, _ = small_scene
+    """The values the port once refused (the MATLAB loadings, the tracking
+    solver's bfloat16 knobs) are port fields: a value valid in JAX
+    converts, carries over and runs a hop, and one invalid in JAX (a
+    bfloat16 knob on the float64 scene) raises the JAX package's
+    ValueError, word for word."""
+    jc, rir_a, rir_b = small_scene
     fields = dataclasses.asdict(dataclasses.replace(jc)) | unported
-    if jax_valid:
-        jcfg.ApVastConfig(**fields)
-    else:
-        with pytest.raises(ValueError):
+    if not jax_valid:
+        with pytest.raises(ValueError) as jax_err:
             jcfg.ApVastConfig(**fields)
-    with pytest.raises(NotImplementedError, match="slice"):
-        config_from_jax(fields)
+        with pytest.raises(ValueError, match="float32-production") as torch_err:
+            config_from_jax(fields)
+        assert str(torch_err.value) == str(jax_err.value)
+        return
+    jcfg.ApVastConfig(**fields)
+    tc = config_from_jax(fields)
+    for name, value in unported.items():
+        assert getattr(getattr(tc, name), "value", getattr(tc, name)) == getattr(
+            value, "value", value), name
+    hop = torch.ones(tc.hop, dtype=torch.float64)
+    _, out = process_hop(tc, build_plan(tc, rir_a, rir_b, "cpu"), init_state(tc, "cpu"),
+                         hop, hop)
+    assert torch.isfinite(out.out_a).all() and int(out.silenced) == 0
 
 
 _SOLVER_KNOBS_INVALID = [
