@@ -17,13 +17,13 @@ streaming convolution, the exact WOLA perceptual weighting or its
 truncated time-domain form (``weighting_conv_taps``, the row-wise
 convolution kernel K8), dense framed statistics (plain, or the
 framed-covariance kernel K6 under ``use_pallas_statistics``) or
-skew-assembled lag statistics (full or half form), every loading of the
+lag statistics in every assembly (skew, full or half form; pair, tap,
+wide) and by every ``c0_method``, every loading of the
 dark (and, MATLAB, bright) matrix, the tracking solver's bfloat16 knobs,
 and the FFT or kernel output synthesis; and the frequency-domain engine
 (``fd_*`` fields, ``engine/fd_hop.py``) in every mode of the JAX engine.
-:func:`check_port_slice` rejects the non-skew lag assemblies with
-``NotImplementedError`` naming the slice that brings them; no such
-configuration is run another way.
+:func:`check_port_slice` rejects only a dtype other than float32 and
+float64.
 """
 
 from __future__ import annotations
@@ -473,12 +473,7 @@ def production_overrides() -> dict:
 
 
 def check_port_slice(config: ApVastConfig) -> None:
-    """Raise ``NotImplementedError`` for a value the port does not run,
-    naming the slice of ``ROADMAP.md`` that brings it."""
+    """Raise ValueError for a dtype the port does not run (every other
+    field of the JAX package's configuration runs)."""
     if config.dtype not in ("float32", "float64"):
         raise ValueError(f"dtype must be 'float32' or 'float64', got {config.dtype!r}")
-    if config.use_lag_statistics and config.lag_assembly != "skew":
-        raise NotImplementedError(
-            f"lag_assembly={config.lag_assembly!r} is one of the kept "
-            "experimental assemblies, a later slice of the port; use 'skew'"
-        )

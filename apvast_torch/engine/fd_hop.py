@@ -22,7 +22,9 @@ time-domain engine's WOLA. Shared with the time-domain hop: the streaming
 RIR convolution (kernel K1 under ``use_pallas_conv``), the perceptual
 weighting and the WOLA transforms.
 
-The microphone sharding of the JAX engine (``mic_axis``) is not ported.
+Microphone sharding (``mic_axis``, ``parallel/mesh.py``): each rank
+holds a block of the microphones, and each bin's new statistics terms are
+summed over the ranks (``ops/collective.py``) before the recursion.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from apvast_torch.engine.hop import (
 )
 from apvast_torch.engine.plan import ApVastPlan, hop_gates
 from apvast_torch.engine.state import response_tails
+from apvast_torch.ops.collective import mic_sum
 from apvast_torch.ops.jdiag import eigh, jdiag_hermitian_batched
 from apvast_torch.ops.small_chol import cholesky_small, posdef_solve_small
 from apvast_torch.ops.wola import (
@@ -314,14 +317,16 @@ def process_hop_fd(
     hop_b: torch.Tensor,
     forgetting: float = 0.9,
     reg: float | None = None,
-    mic_axis: str | None = None,
+    mic_axis=None,
 ) -> tuple[FdState, HopOutputs]:
     """One hop of the frequency-domain engine.
 
     ``forgetting``: decay of the per-bin covariance recursion. ``reg``:
     diagonal loading per bin; by default ``config.reg_b`` plus 1e-4 of each
-    bin's mean dark-covariance trace. ``mic_axis`` (microphone sharding) is
-    not ported. Returns the new state and the hop's outputs, whose rank
+    bin's mean dark-covariance trace. ``mic_axis``: a process group over
+    which the microphones are sharded (``parallel.mesh``); each bin's new
+    statistics terms are all-reduced over it before the recursion, and the
+    recursion's state is the same on every rank of the group. Returns the new state and the hop's outputs, whose rank
     axis is ``config.fd_num_solutions``."""
     check_port_slice(config)
     dtype = torch_dtype(config)
@@ -348,11 +353,6 @@ def process_hop_fd(
             "use_pallas_conv is incompatible with mic sharding (the kernel "
             "row stack folds the global mic axis)"
         )
-    if mic_axis is not None:
-        raise NotImplementedError(
-            "mic_axis (microphone sharding) is ROADMAP.md Queue 1 item 7, "
-            "for both engines"
-        )
 
     hops = torch.stack([hop_a, hop_b]).to(device=device, dtype=dtype)
     conv_history, resp, target_resp = convolve_inputs(
@@ -371,6 +371,9 @@ def process_hop_fd(
         h_vec = r_spec
     new_cov = torch.einsum("pmsf,pmtf->pfst", h_vec.conj(), h_vec)
     new_cross = torch.einsum("zmsf,zmf->zfs", h_vec[0::3].contiguous().conj(), wt_spec)
+    # Microphone sharding: this rank's terms summed over the mic group.
+    new_cov = mic_sum(new_cov, mic_axis)
+    new_cross = mic_sum(new_cross, mic_axis)
     cov = forgetting * state.cov + new_cov
     cross = forgetting * state.cross + new_cross
 

@@ -24,7 +24,10 @@ The scene-batched hop (``parallel/mesh.py``, N scenes in lockstep, each
 kernel launched once for all of them) is captured the same way with
 ``batched=True``: static inputs (N, 2, hop), the batched state, one graph
 per rebuild branch, and the largest residual over the scenes read behind
-the replay.
+the replay. Batched, 'newton' decides each scene's rebuild on the device
+(a select of both branches), so it is captured as one graph whose
+per-scene decision is a static output. A sharded hop (a mesh) runs
+eagerly: its collectives go through the host.
 """
 
 from __future__ import annotations
@@ -45,9 +48,15 @@ from apvast_torch.utils.device import torch_dtype
 _EIGH = "torch.linalg.eigh, which checks its result on the host (a device read mid-hop)"
 
 
-def eager_reason(config: ApVastConfig, fd: bool = False) -> str | None:
-    """Why the hop of ``config`` (the FD engine's when ``fd``) cannot be
-    captured, or None when it can: a hop that reads the device mid-hop."""
+def eager_reason(config: ApVastConfig, fd: bool = False, batched: bool = False,
+                 mesh=None) -> str | None:
+    """Why the hop of ``config`` (the FD engine's when ``fd``; the
+    scene-batched hop when ``batched``; sharded over ``mesh``) cannot be
+    captured, or None when it can: a hop that reads the device mid-hop, or
+    one that communicates."""
+    if mesh is not None:
+        return ("a sharded hop runs eagerly: its collectives (gloo, through the host) "
+                "cannot be captured in a CUDA graph")
     if fd:
         if config.fd_span == "all" and config.fd_eigh == "lapack":
             return f"fd_eigh='lapack' solves each bin with {_EIGH}"
@@ -59,9 +68,10 @@ def eager_reason(config: ApVastConfig, fd: bool = False) -> str | None:
         return None
     if not uses_subspace_solver(config):
         return f"the exact solver runs {_EIGH}"
-    if config.subspace_whiten == "newton":
+    if config.subspace_whiten == "newton" and not batched:
         return ("'newton' decides between a Newton-Schulz step and a rebuild from the "
-                "carried inverse's residual, read from the device mid-hop")
+                "carried inverse's residual, read from the device mid-hop (the "
+                "scene-batched hop selects on the device instead)")
     if config.small_eigh != "jacobi":
         return f"small_eigh='{config.small_eigh}' solves the Rayleigh-Ritz matrices with {_EIGH}"
     if config.subspace_orth != "cholqr2" and config.subspace_whiten != "tracking":
@@ -70,12 +80,13 @@ def eager_reason(config: ApVastConfig, fd: bool = False) -> str | None:
     return None
 
 
-def graph_reason(config: ApVastConfig, device: torch.device, fd: bool = False) -> str | None:
+def graph_reason(config: ApVastConfig, device: torch.device, fd: bool = False,
+                 batched: bool = False, mesh=None) -> str | None:
     """Why the hop of ``config`` on ``device`` cannot run as a graph (a
     device other than a card, or :func:`eager_reason`), or None."""
     if device.type != "cuda":
         return f"a CUDA graph needs a CUDA device, this model runs on {device}"
-    return eager_reason(config, fd)
+    return eager_reason(config, fd, batched, mesh)
 
 
 def _tensors(state):
@@ -199,7 +210,7 @@ class GraphedHop:
         if device.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA device, the plan is on {device}")
         fd = isinstance(state, FdState)
-        reason = eager_reason(config, fd)
+        reason = eager_reason(config, fd, batched)
         if reason is not None:
             raise ValueError(f"this configuration's hop cannot be captured: {reason}")
         self.config, self.plan, self.forgetting = config, plan, forgetting
@@ -233,9 +244,11 @@ class GraphedHop:
             for rebuilt in branches:
                 out = self._body(clone_state(self.state), rebuilt)
         torch.cuda.current_stream(device).wait_stream(side)
+        # Outputs that are tensors get static buffers: the feeds, the
+        # silenced count, and 'newton''s per-scene decision when batched.
         self.out = HopOutputs(**{
-            f.name: _static_like(getattr(out, f.name)) for f in dataclasses.fields(out)
-            if f.name != "rebuilt"
+            f.name: (_static_like(value) if isinstance(value, torch.Tensor) else value)
+            for f in dataclasses.fields(out) for value in (getattr(out, f.name),)
         })
         pool = None
         for rebuilt in branches:
@@ -244,9 +257,9 @@ class GraphedHop:
             t0 = time.perf_counter()
             with torch.cuda.graph(graph, pool=pool):
                 out = self._body(self.state, rebuilt)
-                for name in ("out_a", "out_b", "out_a_t", "out_b_t", "silenced"):
-                    if getattr(out, name) is not None:
-                        getattr(self.out, name).copy_(getattr(out, name))
+                for f in dataclasses.fields(out):
+                    if isinstance(getattr(out, f.name), torch.Tensor):
+                        getattr(self.out, f.name).copy_(getattr(out, f.name))
             torch.cuda.synchronize(device)
             self.capture_seconds[rebuilt] = time.perf_counter() - t0
             self.launches[rebuilt] = K.launch_counts()
@@ -295,9 +308,12 @@ class GraphedHop:
 
     def replay(self, rebuilt: bool) -> HopOutputs:
         """Replay the branch ``rebuilt`` on the staged inputs. Returns the
-        static outputs, which the next replay overwrites."""
+        static outputs, which the next replay overwrites (``rebuilt`` the
+        branch's, or the hop's own decision where it is a tensor)."""
         self.graphs[bool(rebuilt)].replay()
         K.add_launch_counts(self.launches[bool(rebuilt)])
         if self.tracking:
             self.state.gevd_hop += 1
+        if isinstance(self.out.rebuilt, torch.Tensor):
+            return self.out
         return dataclasses.replace(self.out, rebuilt=bool(rebuilt))

@@ -37,6 +37,7 @@ from apvast_torch.config import (
 )
 from apvast_torch.engine.plan import ApVastPlan, hop_gates
 from apvast_torch.engine.state import ApVastState, SubspaceState, TrackingState
+from apvast_torch.ops.collective import mic_sum
 from apvast_torch.ops.framing import framed_statistics
 from apvast_torch.ops.jdiag import (
     jdiag,
@@ -45,7 +46,12 @@ from apvast_torch.ops.jdiag import (
     jdiag_topk_tracked,
 )
 from apvast_torch.ops.kernels import circular_filter_overlap, covariance, streaming_conv
-from apvast_torch.ops.lag_statistics import covariance_via_lags_skew
+from apvast_torch.ops.lag_statistics import (
+    covariance_via_lags,
+    covariance_via_lags_skew,
+    covariance_via_lags_tap,
+    covariance_via_lags_wide,
+)
 from apvast_torch.ops.synthesis import variable_span_filters
 from apvast_torch.ops.weighting_conv import circular_weighting_conv, weighting_kernel
 from apvast_torch.ops.wola import (
@@ -74,14 +80,16 @@ class HopOutputs:
     the non-finite solver outputs of the hop (int32 scalar, 0 = healthy);
     ``rebuilt`` says whether the tracking solver refreshed its
     preconditioner, or the 'newton' solver rebuilt its carried inverse,
-    this hop (a host bool, False for the other solvers)."""
+    this hop (a host bool, False for the other solvers; a bool tensor for
+    'newton' deciding on the device, one a scene in the scene-batched
+    hop)."""
 
     out_a: torch.Tensor | None
     out_b: torch.Tensor | None
     out_a_t: torch.Tensor
     out_b_t: torch.Tensor
     silenced: torch.Tensor
-    rebuilt: bool = False
+    rebuilt: bool | torch.Tensor = False
 
 
 def _spectral_norm(mat: torch.Tensor) -> torch.Tensor:
@@ -278,10 +286,26 @@ def _refuse_kernel_flags(config: ApVastConfig, dtype: torch.dtype) -> None:
             raise ValueError(message)
 
 
-def hop_statistics(config: ApVastConfig, wresp_stat, wtarget_stat):
+def tap_major(config: ApVastConfig) -> bool:
+    """Whether stage 4 lays the statistics out tap-major (the "tap"
+    assembly): rows (tap, source), so the filters come out (J, S)."""
+    return config.use_lag_statistics and config.lag_assembly == "tap"
+
+
+_LAG_ASSEMBLIES = {
+    "pair": covariance_via_lags,
+    "tap": covariance_via_lags_tap,
+    "wide": covariance_via_lags_wide,
+}
+
+
+def hop_statistics(config: ApVastConfig, wresp_stat, wtarget_stat, mic_axis=None):
     """Stage 4: the spatial statistics (R (4, SJ, SJ), or its half form M
-    when :func:`half_form`; r (2, SJ)) of the statistics buffers as a
-    state carries them after a hop."""
+    when :func:`half_form`; r (2, SJ); tap-major for :func:`tap_major`) of
+    the statistics buffers as a state carries them after a hop.
+    ``mic_axis``: the process group over which the buffers' microphones
+    are sharded; the partial sums are all-reduced over it before the
+    normalization, which divides by the global microphone count."""
     j = config.filter_length
     if (
         config.toeplitz_variant is ToeplitzVariant.PYTHON
@@ -296,7 +320,9 @@ def hop_statistics(config: ApVastConfig, wresp_stat, wtarget_stat):
     # cannot lower (S % 8 != 0 off the CPU, a Mosaic limit). The port's K3
     # serves any S, as the JAX package does on the CPU it is held against,
     # so the lag statistics never fall back here.
-    if config.use_lag_statistics:
+    if config.use_lag_statistics and config.lag_assembly != "skew":
+        r_mats, r_vecs = _LAG_ASSEMBLIES[config.lag_assembly](buf_eff, d, j)
+    elif config.use_lag_statistics:
         form = "half" if half_form(config) else "full"
         r_mats, r_vecs = covariance_via_lags_skew(buf_eff, d, j, form=form)
     elif config.use_pallas_statistics:
@@ -307,8 +333,10 @@ def hop_statistics(config: ApVastConfig, wresp_stat, wtarget_stat):
         r_vecs = torch.stack([r_cross[0, :, 0], r_cross[3, :, 1]])
     else:
         r_mats, r_vecs = framed_statistics(buf_eff, d, j)
+    r_mats = mic_sum(r_mats, mic_axis)
+    r_vecs = mic_sum(r_vecs, mic_axis)
     if config.normalize_statistics:
-        scale = 1.0 / (k * config.num_mics)
+        scale = 1.0 / (k * config.num_mics)  # the global microphone count
         r_mats = r_mats * scale
         r_vecs = r_vecs * scale
     return r_mats, r_vecs
@@ -321,13 +349,27 @@ def process_hop(
     hop_a: torch.Tensor,
     hop_b: torch.Tensor,
     rebuild_override: bool | None = None,
+    mic_axis=None,
+    select_rebuild: bool = False,
 ) -> tuple[ApVastState, HopOutputs]:
     """One hop of ``hop`` samples of each program signal.
 
     ``rebuild_override``: tracking solver only, a host bool that replaces
     :func:`rebuild_predicate` (a caller driving several streams decides
-    the rebuild once for all of them)."""
+    the rebuild once for all of them). ``mic_axis``: a process group over
+    which the microphones are sharded (``parallel.mesh``): this rank's
+    state and plan hold its microphone block, and the partial statistics
+    are all-reduced over the group, the hop's one collective; None runs
+    every microphone here. ``select_rebuild``: 'newton' only, decide the
+    rebuild on the device by a select of both branches (the scene-batched
+    hop's form, under ``torch.func.vmap``); ``rebuilt`` is then a bool
+    tensor."""
     check_port_slice(config)
+    if mic_axis is not None and config.use_pallas_conv:
+        raise ValueError(
+            "use_pallas_conv is incompatible with mic sharding (the kernel "
+            "row stack folds the global mic axis)"
+        )
     if half_form(config) and config.regularization is not RegularizationVariant.PYTHON:
         raise ValueError(
             "statistics_half_form supports PYTHON regularization only "
@@ -375,7 +417,7 @@ def process_hop(
         wresp_stat = slide(state.wresp_stat, wr_emit)
 
     # ---- 4. statistics -------------------------------------------------
-    r_mats, r_vecs = hop_statistics(config, wresp_stat, wtarget_stat)
+    r_mats, r_vecs = hop_statistics(config, wresp_stat, wtarget_stat, mic_axis)
 
     # ---- 5. GEVD + variable-span synthesis -----------------------------
     # Zone A pencil: (R_AA, R_AB); zone B pencil: (R_BB, R_BA).
@@ -426,13 +468,13 @@ def process_hop(
         carry["gevd_hop"] = state.gevd_hop + 1
     elif whiten == "newton":
         # JAX's lax.cond on the carried inverse's residual is a host
-        # decision here: one device read per hop, and only the branch
-        # taken runs.
+        # decision here (one device read per hop, only the branch taken
+        # runs), or with select_rebuild a select of both branches.
         u, lam, carry["gevd_q"], carry["gevd_minv"], silenced, rebuilt = (
             jdiag_topk_pencil_batched(
                 a_stack, b_stack, reg, v, config.subspace_iters,
                 state.gevd_q, state.gevd_minv, config.subspace_orth,
-                config.small_eigh, config.jacobi_sweeps,
+                config.small_eigh, config.jacobi_sweeps, select=select_rebuild,
             )
         )
     else:
@@ -457,7 +499,11 @@ def process_hop(
     if gates.spans is not None:
         w_family = w_family[:, gates.spans]
     v = config.num_solutions
-    filters = w_family.reshape(2, v, s, j)  # source-major w[s*J + tap]
+    if tap_major(config):
+        # Tap-major statistics give tap-major eigenvectors: w[tap*S + s].
+        filters = w_family.reshape(2, v, j, s).transpose(-1, -2)
+    else:
+        filters = w_family.reshape(2, v, s, j)  # source-major w[s*J + tap]
 
     # ---- 6. slide input blocks -----------------------------------------
     input_blocks = slide(state.input_blocks, hops)

@@ -121,7 +121,7 @@ def run_multi_stream(
     (scenes, num_hops * hop), a trailing partial hop dropped. Returns the
     final state and HopOutputs with leading (num_hops, scenes) axes
     (``rebuilt`` a (num_hops,) bool tensor, one decision a hop for all
-    scenes).
+    scenes; 'newton' decides per scene: (num_hops, scenes)).
 
     The tracking solver's rebuild is decided once a hop for all scenes,
     as in the JAX package: the cadence from the shared hop counter, the
@@ -149,7 +149,9 @@ def _stacked(per_hop: list[HopOutputs]) -> HopOutputs:
         vals = [getattr(o, name) for o in per_hop]
         if vals[0] is None:
             return None
-        return torch.tensor(vals) if name == "rebuilt" else torch.stack(vals)
+        if not isinstance(vals[0], torch.Tensor):  # a host decision a hop
+            return torch.tensor(vals)
+        return torch.stack(vals)
 
     fields = ("out_a", "out_b", "out_a_t", "out_b_t", "silenced", "rebuilt")
     return HopOutputs(**{f: stacked(f) for f in fields})

@@ -34,7 +34,8 @@ class GraphDispatch:
     forgetting = 0.9
 
     def _init_dispatch(self, graph: bool | None) -> None:
-        reason = graph_reason(self.config, self.device, self._fd)
+        reason = graph_reason(self.config, self.device, self._fd, self._batched,
+                              getattr(self, "mesh", None))
         if graph and reason is not None:
             raise ValueError(f"graph=True: {reason}")
         self.graphed = reason is None if graph is None else bool(graph)
@@ -66,13 +67,13 @@ class GraphDispatch:
 
     def _kept(self, out: HopOutputs) -> HopOutputs:
         """``out`` with fresh feed tensors (a graph's outputs are its static
-        buffers)."""
+        buffers), and a fresh per-scene ``rebuilt``."""
         if self._graph is None:
             return out
         return dataclasses.replace(out, **{
             name: getattr(out, name).clone()
-            for name in ("out_a", "out_b", "out_a_t", "out_b_t")
-            if getattr(out, name) is not None
+            for name in ("out_a", "out_b", "out_a_t", "out_b_t", "rebuilt")
+            if isinstance(getattr(out, name), torch.Tensor)
         })
 
 

@@ -1,12 +1,14 @@
 """Serve many independent scenes in one hop (port of
-``apvast_tpu/models/multi_scene.py::MultiSceneApVast``, without a mesh).
+``apvast_tpu/models/multi_scene.py::MultiSceneApVast``).
 
 A batch of two-zone scenes (other rooms, other programs) that share one
 configuration advances in lockstep: the hop ``torch.func.vmap``-ed over a
 leading scene axis (``parallel/mesh.py``), each kernel launched once a
 hop for all scenes. On the card the batched hop runs as a CUDA graph per
 rebuild branch where the configuration allows (``models/base.py``), as the
-JAX package jit-compiles its vmapped hop once.
+JAX package jit-compiles its vmapped hop once. Given a mesh, each rank of
+the ``torch.distributed`` process group serves its block of the scenes and
+microphones, eagerly.
 """
 
 from __future__ import annotations
@@ -19,7 +21,11 @@ from apvast_torch.engine.plan import build_plan
 from apvast_torch.engine.state import init_state
 from apvast_torch.models.base import GraphDispatch
 from apvast_torch.parallel.mesh import (
-    check_batched,
+    Mesh,
+    check_mesh,
+    scene_block,
+    shard_plan,
+    shard_scene_batch,
     sharded_multi_scene_hop,
     stack_plans,
     stack_states,
@@ -39,26 +45,34 @@ class MultiSceneApVast(GraphDispatch):
             initial response noise and subspace basis
             (``engine.state.init_state``); default scene i's seeded with i.
         graph: as for ``ApVast`` (:class:`~apvast_torch.models.base.GraphDispatch`).
-        mesh: must be None; a mesh raises ValueError (sharding over cards
-            is not ported).
+        mesh: a :class:`~apvast_torch.parallel.mesh.Mesh` with ``scene``
+            and/or ``mic`` dimensions, or None. With a mesh this rank holds
+            its block of the scenes and microphones
+            (``parallel.mesh.shard_plan``, ``shard_scene_batch``), takes
+            every scene's inputs and returns its own scenes' outputs
+            (``parallel.mesh.gather_blocks`` puts the ranks' blocks
+            together); the hop runs eagerly.
 
     Lockstep: the tracking solver's rebuild cadence and its hop counter
     are one host value for all scenes, and the rebuild decision is one for
-    all of them (the largest residual over the scenes), so every scene
-    advances together. 'newton', whose rebuild decision is per scene and
-    read mid-hop, raises ValueError. A capture, replay or vmap failure
-    raises: the hop never runs scene by scene or on the CPU in its place.
+    all of them (the largest residual over the scenes, a rank's own with
+    a mesh), so every scene advances together. 'newton' decides per scene
+    on the device. A capture, replay or vmap failure raises: the hop never
+    runs scene by scene or on the CPU in its place.
     """
 
     _batched = True
 
     def __init__(self, config: ApVastConfig, rir_pairs, device=None, generators=None,
-                 graph: bool | None = None, mesh=None):
-        check_batched(config, mesh)
+                 graph: bool | None = None, mesh: Mesh | None = None):
+        check_mesh(config, mesh)
         self.config = config
+        self.mesh = mesh
         self.device = resolve_device(device)
-        self.plan = stack_plans([build_plan(config, ra, rb, self.device) for ra, rb in rir_pairs])
-        self._hop = sharded_multi_scene_hop(config)
+        self._num_scenes = len(rir_pairs)
+        plan = stack_plans([build_plan(config, ra, rb, self.device) for ra, rb in rir_pairs])
+        self.plan = plan if mesh is None else shard_plan(plan, mesh)
+        self._hop = sharded_multi_scene_hop(config, mesh)
         self._init_dispatch(graph)
         self.reset(generators)
 
@@ -66,21 +80,26 @@ class MultiSceneApVast(GraphDispatch):
         """Fresh states for every scene, drawn from ``generators`` (one a
         scene; default scene i's seeded with i); ``silenced`` and
         ``rebuilds`` restart at 0."""
-        n = self.plan.conv_kernels.shape[0]
+        n = self._num_scenes
         if generators is None:
             generators = [torch.Generator().manual_seed(i) for i in range(n)]
         if len(generators) != n:
             raise ValueError(f"{len(generators)} generators for {n} scenes")
-        self.state = stack_states([init_state(self.config, self.device, generator=g)
-                                   for g in generators])
+        state = stack_states([init_state(self.config, self.device, generator=g)
+                              for g in generators])
+        self.state = state if self.mesh is None else shard_scene_batch(state, self.mesh)
         # Non-finite solver outputs summed over every hop since the reset,
-        # (scenes,) int32 on the device.
-        self.silenced = torch.zeros(n, dtype=torch.int32, device=self.device)
+        # (this rank's scenes,) int32 on the device.
+        self.silenced = torch.zeros(self.state.input_blocks.shape[0], dtype=torch.int32,
+                                    device=self.device)
+        # Hops that rebuilt (tracking: one decision for the scenes); 'newton'
+        # counts per scene, an int32 tensor on the device.
         self.rebuilds = 0
 
     @property
     def plans(self):
-        """The batched plan (``parallel.mesh``: scene fields stacked)."""
+        """The batched plan (``parallel.mesh``: scene fields stacked; this
+        rank's block with a mesh)."""
         return self.plan
 
     @property
@@ -94,7 +113,8 @@ class MultiSceneApVast(GraphDispatch):
 
     @property
     def num_scenes(self) -> int:
-        return self.state.input_blocks.shape[0]
+        """All scenes of the batch (a mesh's ranks hold blocks of them)."""
+        return self._num_scenes
 
     def check_lockstep(self) -> None:
         """Kept for the JAX package's API: there it checks that the scenes'
@@ -105,11 +125,13 @@ class MultiSceneApVast(GraphDispatch):
     def process_input_buffers(self, hops_a, hops_b) -> HopOutputs:
         """Advance every scene one hop. ``hops_a`` / ``hops_b``:
         (num_scenes, hop). Returns HopOutputs with a leading scene axis
-        (fresh tensors; ``rebuilt`` one host bool for all scenes)."""
+        (fresh tensors; ``rebuilt`` one host bool for the scenes, or per
+        scene for 'newton'); with a mesh, this rank's scenes'."""
         hops_a, hops_b = torch.as_tensor(hops_a), torch.as_tensor(hops_b)
         expected = (self.num_scenes, self.config.hop)
         if tuple(hops_a.shape) != expected or tuple(hops_b.shape) != expected:
             raise ValueError(f"hop batches must be {expected}")
+        hops_a, hops_b = scene_block(hops_a, self.mesh), scene_block(hops_b, self.mesh)
         if self._graph is None:
             dtype = torch_dtype(self.config)
             self._state, out = self._hop(self.plan, self._state,
@@ -118,5 +140,8 @@ class MultiSceneApVast(GraphDispatch):
             self._graph.stage(hops_a, hops_b)
             out = self._kept(self._graph.replay(self._graph.decide_rebuild()))
         self.silenced = self.silenced + out.silenced
-        self.rebuilds += int(out.rebuilt)
+        if isinstance(out.rebuilt, torch.Tensor):
+            self.rebuilds = self.rebuilds + out.rebuilt.to(torch.int32)
+        else:
+            self.rebuilds += int(out.rebuilt)
         return out

@@ -4,18 +4,44 @@ Python-variant frame semantics (ToeplitzVariant.PYTHON): the reference's
 ``scipy.linalg.toeplitz(flipud(buf[:J]), buf[J:])`` equals the contiguous
 frame matrix of the buffer with the sample at index J deleted. The hop
 applies that deletion (or carries the buffer deleted) before it frames,
-so framing here is always contiguous.
+so the engine frames contiguously (the MATLAB variant, the default here).
 """
 
 from __future__ import annotations
 
 import torch
 
+from apvast_torch.config import ToeplitzVariant
 
-def frame_buffer(buffer: torch.Tensor, frame_length: int) -> torch.Tensor:
-    """Contiguous frames ``(..., N - J + 1, J)``: frame k is
-    ``buffer[k : k + J]``."""
-    return buffer.unfold(-1, frame_length, 1)
+
+def frame_buffer(
+    buffer: torch.Tensor,
+    frame_length: int,
+    variant: ToeplitzVariant = ToeplitzVariant.MATLAB,
+) -> torch.Tensor:
+    """Sliding frames ``(..., K, J)``: frame k is ``buffer[k : k + J]`` of
+    the buffer, contiguous (MATLAB, K = N - J + 1) or with the sample at
+    index J deleted first (PYTHON, K = N - J)."""
+    j = frame_length
+    if variant is ToeplitzVariant.PYTHON:
+        buffer = torch.cat([buffer[..., :j], buffer[..., j + 1 :]], dim=-1)
+    return buffer.unfold(-1, j, 1)
+
+
+def statistics_matrices(frames: torch.Tensor, target: torch.Tensor | None, frame_length: int):
+    """One path's spatial correlation matrix R and cross vector r.
+
+    ``frames`` (M, S, K, J) of the weighted loudspeaker responses,
+    ``target`` (M, N) weighted target buffer of the zone or None. Returns
+    ``(R (S*J, S*J), r (S*J,) or None)`` in the reference's block layout:
+    row block s holds source s's taps, row i of a block lag i (the
+    flipped Toeplitz columns); the microphone sum is in the contraction,
+    and r pairs the frames with the target's last K samples."""
+    m, s, k, j = frames.shape
+    y = frames.flip(-1).permute(0, 1, 3, 2).reshape(m, s * j, k)
+    r_mat = torch.einsum("mak,mbk->ab", y, y)
+    r_vec = None if target is None else torch.einsum("mak,mk->a", y, target[..., -k:])
+    return r_mat, r_vec
 
 
 def window_rows(buf: torch.Tensor, j: int) -> torch.Tensor:

@@ -1,11 +1,12 @@
 """Joint diagonalization of a symmetric-PSD pencil (A, B) (port of
 ``apvast_tpu/ops/jdiag.py``): the exact solver ``jdiag`` (batched over any
-leading axes, so also ``jdiag_batched``), the round-3 subspace solvers
-``jdiag_topk_batched`` ('invert'/'solve' whitening, with kernels K9 and
-K10a) and ``jdiag_topk_pencil_batched`` ('newton'), and the production
-tracking solver ``jdiag_topk_tracked``, with their CholeskyQR2 ``_cholqr2``;
-and the frequency-domain engine's complex Hermitian ``jdiag_hermitian`` and
-``jdiag_hermitian_batched`` (``torch.linalg.eigh``, or kernel K7).
+leading axes) and ``jdiag_batched`` (a (z, n, n) stack), the round-3
+subspace solvers ``jdiag_topk_batched`` ('invert'/'solve' whitening, with
+kernels K9 and K10a) and ``jdiag_topk_pencil_batched`` ('newton'), and the
+production tracking solver ``jdiag_topk_tracked``, with their CholeskyQR2
+``_cholqr2``; and the frequency-domain engine's complex Hermitian
+``jdiag_hermitian`` and ``jdiag_hermitian_batched`` (``torch.linalg.eigh``,
+or kernel K7).
 
 Contract of both:
     U^T A U = diag(d)   with d descending,   U^T B U = I.
@@ -99,6 +100,16 @@ def jdiag(A: torch.Tensor, B: torch.Tensor, reg: float = 1e-7):
         chol.transpose(-1, -2), v.flip(-1), upper=True
     )
     return u, d.flip(-1)
+
+
+def jdiag_batched(A: torch.Tensor, B: torch.Tensor, reg: float = 1e-7):
+    """:func:`jdiag` of a (z, n, n) batch of pencils (both zones, frames,
+    subbands or grid points in one call), ``reg`` shared by all. Returns
+    ``(U (z, n, n), d (z, n))``."""
+    if A.dim() != 3 or B.shape != A.shape:
+        raise ValueError(f"jdiag_batched takes two (z, n, n) stacks, got {tuple(A.shape)} "
+                         f"and {tuple(B.shape)}")
+    return jdiag(A, B, reg)
 
 
 def _cholqr2(q: torch.Tensor) -> torch.Tensor:
@@ -269,33 +280,49 @@ def jdiag_topk_pencil_batched(
     jacobi_sweeps: int = 4,
     newton_steps: int = 1,
     resid_max: float = 0.7,
+    select: bool = False,
 ):
     """Top-k GEVD with a carried approximate inverse M ~ (B + reg I)^-1
     ('newton' whitening) in place of a per-hop Cholesky.
 
     M is refreshed by ``newton_steps`` Newton-Schulz steps
     M <- M (2I - B M) while the worst Frobenius residual ||I - B M|| of the
-    batch stays below ``resid_max``, and rebuilt from a fresh Cholesky
-    otherwise (cold start, onsets, a non-finite M). JAX takes that decision
-    on the device with ``lax.cond``; here it is a host bool (one device
-    read per hop), so only the branch taken runs. The subspace iterates on
-    M A, and the small problem is the projected pencil (q^T A q, q^T B q).
+    batch (the pencils of one scene) stays below ``resid_max``, and rebuilt
+    from a fresh Cholesky otherwise (cold start, onsets, a non-finite M).
+    JAX takes that decision on the device with ``lax.cond``. Here it is a
+    host bool (one device read per hop), so only the branch taken runs;
+    with ``select`` both branches run and ``torch.where`` takes M by the
+    decision, which stays on the device: the form that runs under
+    ``torch.func.vmap`` over scenes, one decision a scene, as JAX's vmapped
+    ``lax.cond`` lowers to a select. The subspace iterates on M A, and the
+    small problem is the projected pencil (q^T A q, q^T B q).
 
-    Returns ``(u, d, q_next, m_next, silenced, rebuilt)``.
+    Returns ``(u, d, q_next, m_next, silenced, rebuilt)``; ``rebuilt`` is
+    a host bool, or with ``select`` a bool tensor.
     """
     z, n, _ = A.shape
     eye = torch.eye(n, dtype=A.dtype, device=A.device)
     b_l = B + reg * eye
     resid = eye - b_l @ m_init
     worst = torch.sqrt(resid.square().sum((-2, -1))).max()
-    rebuilt = not bool(torch.isfinite(worst) & (worst < resid_max))
-    if rebuilt:
-        li = triangular_inverse(cholesky(b_l))
-        m = li.transpose(-1, -2) @ li
-    else:
+    healthy = torch.isfinite(worst) & (worst < resid_max)
+
+    def refreshed():
         m = m_init + m_init @ resid
         for _ in range(newton_steps - 1):
             m = m + m @ (eye - b_l @ m)
+        return m
+
+    def rebuilt_inverse():
+        li = triangular_inverse(cholesky(b_l))
+        return li.transpose(-1, -2) @ li
+
+    if select:
+        m = torch.where(healthy, refreshed(), rebuilt_inverse())
+        rebuilt = ~healthy
+    else:
+        rebuilt = not bool(healthy)
+        m = rebuilt_inverse() if rebuilt else refreshed()
     m = _sym(m)
 
     orthonormalize = _orthonormalizer(orth)

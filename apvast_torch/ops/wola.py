@@ -39,6 +39,16 @@ def wola_synthesize(
     return window * irfft_batched(spectra, block_size)
 
 
+def wola_overlap_add(overlap: torch.Tensor, new_block: torch.Tensor, hop: int):
+    """The reference's full-buffer overlap-add: shift ``overlap`` by
+    ``hop`` (zeros in) and add the synthesized block. Returns ``(buffer,
+    emitted)``, ``emitted`` the buffer's first ``hop`` samples (the hop's
+    finished output); :func:`wola_overlap_add_tail` emits the same bits."""
+    shifted = torch.nn.functional.pad(overlap[..., hop:], (0, hop))
+    buffer = shifted + new_block
+    return buffer, buffer[..., :hop]
+
+
 def wola_overlap_add_tail(tail: torch.Tensor, new_block: torch.Tensor, hop: int):
     """Overlap-add with the carry reduced to the (block - hop)-sample tail
     of the reference's full-block accumulator. Returns

@@ -31,6 +31,12 @@ def load_reference_rirs(path: str | None = None):
     )
 
 
+def from_vast_layout(rirs: np.ndarray) -> np.ndarray:
+    """The offline ``vast.m`` RIR layout (mics, rir_length, srcs) as this
+    package's (rir_length, srcs, mics)."""
+    return np.ascontiguousarray(np.transpose(rirs, (1, 2, 0)))
+
+
 def synthetic_rirs(
     rir_length: int,
     num_srcs: int,

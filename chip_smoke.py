@@ -214,6 +214,36 @@ Phase 3  the main path, ``ApVast`` on ``scale_scene(16)`` for 64 hops (two
                   1e-6 of the CPU, timed; float32 beside it, and the BACC
                   and pressure-matching endpoints' contrast in both
                   (printed).
+         multi    (``[phase 3 multi]``) also four scenes of production
+                  with 'newton', whose batched hop decides each scene's
+                  rebuild on the device, graphed, 16 hops of a periodic
+                  input with a +40 dB onset in scene 1 at hop 12: every hop
+                  bit for bit the eager batched hop from the same state,
+                  each scene against its own single-scene eager hop (its
+                  host decision equal, statistics and target feeds as
+                  above, the feeds gated at 8 sweeps), scene 1 rebuilt alone
+                  after the onset on at least one hop.
+         shard    two spawned ranks in a gloo group (a file store) on the
+                  one card: (a) ``scale_scene(32, num_mics=32)``, the
+                  'invert' solver, JL = 1600, over a mic mesh, 8 hops each
+                  against the unsharded hop from the same state
+                  (``wresp_stat`` rtol 1e-4 / atol 1e-6 of its max, feeds
+                  finite and rtol 1e-2 / atol 3e-2 of scale: the JAX
+                  package's bars); (b) four production scenes of
+                  ``scale_scene(16)`` over a scene mesh, each rank against
+                  the batched hop of its own two scenes (statistics 1e-4,
+                  target feeds 1e-5, loudspeaker feeds 5e-2 at 8 sweeps;
+                  K1-K5 once a hop); (c) the FD engine (fd-jacobi, the FFT
+                  convolution) on ``scale_scene(16, num_mics=16)`` over a
+                  mic mesh, cov and cross within 1e-4 of the unsharded
+                  hop's (K7 once a hop). Each rank's eager ms/hop printed.
+         lag      the pair, wide and tap assemblies (full form, C0 by K2)
+                  on the production path, 64 hops each through ``drive``
+                  (launches, silenced 0, the CPU comparison, the contrast),
+                  their statistics after the run against the skew
+                  assembly's from that state (1e-4); each ``c0_method``
+                  (auto = K2, conv, matmul, fft) at (4, 17, 16, 999), J =
+                  50, against float64 (1e-4), timed.
 Phase 4  (``--profile``) device time by kernel and by stage over 32
          steady-state hops of the six timed paths, eager and graphed (a
          graphed hop's kernels by name only), and the device's idle
@@ -1295,9 +1325,13 @@ def _jacobi_on_invert_hops(scene, dev, card):
     orthonormality (TOL_KERNEL), and its off-diagonal remainder within
     JACOBI_REMAINDER times the plain version's on every matrix (one sweep
     fewer leaves 3-8 times as much)."""
+    import importlib
+
     from apvast_torch import production_overrides
-    from apvast_torch.ops import jdiag
     from apvast_torch.ops import kernels as K
+
+    # The module (the package exports the function jdiag under its name).
+    jdiag = importlib.import_module("apvast_torch.ops.jdiag")
 
     noise, sig = _inputs(scene)
     # Eager: the matrices are taken where the solver's Python calls K4.
@@ -1541,6 +1575,10 @@ PATH_KERNELS = {
     "invert": PRODUCTION_KERNELS + ("whiten", "subspace"),
     "dense": ("streaming_conv", "statistics", "jacobi_eigh", "output_filter"),
     "weighting-conv": PRODUCTION_KERNELS + ("rowwise_conv",),
+    # The kept lag assemblies: C0 by K2, laid out in torch (no K3).
+    "pair": ("streaming_conv", "lag_corr", "jacobi_eigh", "output_filter"),
+    "wide": ("streaming_conv", "lag_corr", "jacobi_eigh", "output_filter"),
+    "tap": ("streaming_conv", "lag_corr", "jacobi_eigh", "output_filter"),
 }
 ROUND3_KERNELS = ("whiten", "subspace")
 FD_KERNELS = ("jacobi_eigh_hermitian",)
@@ -2278,6 +2316,11 @@ def phase3_multi(scene, dev, card):
                   "(printed; gated at 8 sweeps)", flush=True)
             feeds = _multi_held(scene, dev, card, pairs, label, jacobi_sweeps=CONVERGED_SWEEPS)
         _check(f"multi {label} loudspeaker feeds", feeds, TOL_FEEDS)
+    feeds = _multi_newton(scene, dev, card, pairs)
+    print(f"[phase 3 multi] newton: loudspeaker feeds rel_err {feeds:.3e} at 2 sweeps (printed; "
+          "gated at 8 sweeps)", flush=True)
+    _check("multi newton loudspeaker feeds",
+           _multi_newton(scene, dev, card, pairs, sweeps=CONVERGED_SWEEPS), TOL_FEEDS)
     profiled = None
     for label, counts in MULTI_TIMED.items():
         per_n = {}
@@ -2294,6 +2337,446 @@ def phase3_multi(scene, dev, card):
               + f" card={card}", flush=True)
     return profiled
 
+
+# ---- phase 3, 'newton' batched: a select a scene (ops/jdiag.py) ------------
+
+NEWTON_HOPS = 16
+NEWTON_ONSET = 11  # scene 1's input steps up 40 dB at this hop (0-based)
+
+
+def _newton_inputs(cfg, dev, n):
+    """(2, NEWTON_HOPS, n, hop) on the card: one seeded hop of noise a scene
+    repeated (a periodic input, so that once the buffers are full each
+    scene's dark matrices stop changing and 'newton' refreshes its carried
+    inverse instead of rebuilding it), scene 1 40 dB down before
+    NEWTON_ONSET (an onset)."""
+    base = np.random.default_rng(SEED + 7).standard_normal((2, 1, n, cfg.hop)).astype(np.float32)
+    x = np.repeat(base, NEWTON_HOPS, axis=1)
+    x[:, :NEWTON_ONSET, 1] *= 0.01
+    return torch.as_tensor(x).to(dev)
+
+
+def _multi_newton(scene, dev, card, pairs, sweeps=None):
+    """MULTI_N scenes of production with 'newton' in one batched hop, which
+    decides each scene's rebuild on the device (a select of both branches),
+    graphed, NEWTON_HOPS hops: every hop against the eager batched hop from
+    the same state (bit for bit: the condition for capturing it), and each
+    scene against its own single-scene eager hop, which decides on the host:
+    the same decision, statistics within TOL_STATS, target feeds within
+    TOL_MULTI_TARGET, launch counts equal; the onset rebuilds scene 1 alone
+    on at least one hop. Returns the loudspeaker feeds' worst error."""
+    from apvast_torch import MultiSceneApVast, production_overrides
+    from apvast_torch.engine import process_hop
+    from apvast_torch.engine.graph import clone_state
+    from apvast_torch.ops import kernels as K
+    from apvast_torch.parallel.mesh import scene_of
+    from apvast_torch.utils.scenes import scale_scene
+
+    extra = {} if sweeps is None else {"jacobi_sweeps": sweeps}
+    cfg = scale_scene(16, **(production_overrides() | {"subspace_whiten": "newton"} | extra)).config
+    label = "newton" if sweeps is None else f"newton ({sweeps} sweeps)"
+    model = MultiSceneApVast(cfg, pairs[:MULTI_N], device=dev)
+    eager = MultiSceneApVast(cfg, pairs[:MULTI_N], device=dev, graph=False)
+    if not model.graphed:
+        raise AssertionError(f"{label}: the batched hop is not graphed ({model.eager_reason})")
+    x = _newton_inputs(cfg, dev, MULTI_N)
+    worst = {"graph against eager": 0.0, "statistics": 0.0}
+    feeds = {name: ([], []) for name in ("out_a_t", "out_b_t", "out_a", "out_b")}
+    decisions = []
+    for i in range(NEWTON_HOPS):
+        before = clone_state(model.state)
+        eager.state = clone_state(before)
+        K.reset_launch_counts()
+        out = model.process_input_buffers(x[0, i], x[1, i])
+        counts = K.launch_counts()
+        ref = eager.process_input_buffers(x[0, i], x[1, i])
+        for name in ("out_a", "out_b", "out_a_t", "out_b_t", "rebuilt", "silenced"):
+            diff = (getattr(out, name).double() - getattr(ref, name).double()).abs().max()
+            worst["graph against eager"] = max(worst["graph against eager"], float(diff))
+        for f in dataclasses.fields(before):
+            if isinstance(getattr(before, f.name), torch.Tensor):
+                diff = (getattr(model.state, f.name).double()
+                        - getattr(eager.state, f.name).double()).abs().max()
+                worst["graph against eager"] = max(worst["graph against eager"], float(diff))
+        decisions.append(out.rebuilt.tolist())
+        stats = _multi_statistics(model, model.state)
+        for k in range(MULTI_N):
+            K.reset_launch_counts()
+            new_k, out_k = process_hop(cfg, scene_of(model.plan, k), clone_state(scene_of(before, k)),
+                                       x[0, i, k], x[1, i, k])
+            if K.launch_counts() != counts:
+                raise AssertionError(f"multi {label} hop {i + 1} scene {k}: single-scene "
+                                     f"launches {K.launch_counts()}, batched {counts}")
+            if out_k.rebuilt != decisions[-1][k]:
+                raise AssertionError(f"multi {label} hop {i + 1} scene {k}: batched decision "
+                                     f"{decisions[-1][k]}, its own hop's {out_k.rebuilt}")
+            for a, b in zip(stats, _single_statistics(model, new_k)):
+                worst["statistics"] = max(worst["statistics"], _rel(a[k], b)[1])
+            for name, (got, want) in feeds.items():
+                got.append(getattr(out, name)[k].clone())
+                want.append(getattr(out_k, name))
+    for key, names in (("target feeds", ("out_a_t", "out_b_t")),
+                       ("loudspeaker feeds", ("out_a", "out_b"))):
+        worst[key] = max(_rel(torch.stack(feeds[name][0][k::MULTI_N]),
+                              torch.stack(feeds[name][1][k::MULTI_N]))[1]
+                         for name in names for k in range(MULTI_N))
+    alone = [i + 1 for i, d in enumerate(decisions)
+             if i >= NEWTON_ONSET and d[1] and not any(d[:1] + d[2:])]
+    silenced = model.silenced.tolist()
+    print(f"[phase 3 multi] {label}: {MULTI_N} scenes graphed, {NEWTON_HOPS} hops of a periodic "
+          f"input, scene 1's +40 dB onset at hop {NEWTON_ONSET + 1}: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + f"; launches a hop {({k: v for k, v in counts.items() if v})} (batched = single); "
+          f"decisions per hop and scene {[''.join('R' if r else '.' for r in d) for d in decisions]}"
+          f" (each scene's own); scene 1 alone rebuilt on hops {alone}; silenced {silenced}; "
+          f"capture s {_capture_s(model)} card={card}", flush=True)
+    if worst["graph against eager"] != 0.0:
+        raise AssertionError(f"multi {label}: the graphed batched hop is not the eager one bit "
+                             f"for bit ({worst['graph against eager']:.3e})")
+    _check(f"multi {label} statistics", worst["statistics"], TOL_STATS)
+    _check(f"multi {label} target feeds", worst["target feeds"], TOL_MULTI_TARGET)
+    if not alone:
+        raise AssertionError(f"multi {label}: the onset rebuilt scene 1 alone on no hop")
+    if any(silenced):
+        raise AssertionError(f"multi {label}: silenced {silenced}")
+    if counts != _want("production", 1):
+        raise AssertionError(f"multi {label}: launches {counts}")
+    return worst["loudspeaker feeds"]
+
+
+# ---- phase 3, sharding: ranks of a gloo group on the one card --------------
+
+SHARD_RANKS = 2
+SHARD_HOPS = 8
+SHARD_TIMEOUT_S = 900.0
+# The 32-speaker mic-sharded scene, the JAX package's own scaling test
+# (tests/test_sharding.py::test_mic_sharded_tpu_scale_jl1600) and its bars.
+SHARD32 = {"num_mics": 32, "subspace_oversample": 14, "subspace_iters": 2}
+SHARD32_STAT_RTOL, SHARD32_STAT_ATOL = 1e-4, 1e-6  # atol of the buffer's max
+SHARD32_FEED_RTOL, SHARD32_FEED_ATOL = 1e-2, 3e-2  # atol of the feeds' scale
+
+
+def _exceeds(got, want, rtol, atol) -> float:
+    """The largest excess of |got - want| over atol + rtol |want| (<= 0 when
+    within), with the difference's max printed beside it."""
+    diff = (got.double() - want.double()).abs()
+    return float((diff - (atol + rtol * want.double().abs())).max())
+
+
+def _shard_eager_ms(times):
+    """A rank's eager host-clock times: the first hop (caches, plans) and
+    the median of the rest."""
+    rest = sorted(times[1:])
+    return (f"eager ms/hop: hop 1 {1e3 * times[0]:.3f}, median of hops 2-{len(times)} "
+            f"{1e3 * rest[len(rest) // 2]:.3f} (host clock, synchronized; printed, not gated)")
+
+
+def _shard_mic_td(rank, dev, card):
+    """(a) The 32-speaker scene (JL = 1600) over a mic mesh of the ranks:
+    SHARD_HOPS hops, each held against the unsharded hop on the card from
+    the same (gathered) state: ``wresp_stat`` to rtol 1e-4, atol 1e-6 of its
+    max; the loudspeaker feeds finite and within rtol 1e-2, atol 3e-2 of
+    scale (the JAX package's bars)."""
+    from apvast_torch.config import GevdSolver
+    from apvast_torch.engine import build_plan, init_state
+    from apvast_torch.ops import kernels as K
+    from apvast_torch.ops.collective import mic_sum
+    from apvast_torch.parallel.mesh import (
+        gather_blocks, make_mesh, shard_plan, shard_scene_batch, sharded_multi_scene_hop,
+        stack_plans, stack_states)
+    from apvast_torch.utils.scenes import scale_scene
+
+    scene = scale_scene(32, gevd_solver=GevdSolver.SUBSPACE, **SHARD32)
+    cfg = scene.config
+    plan = stack_plans([build_plan(cfg, scene.rir_a, scene.rir_b, dev)])
+    state = stack_states([init_state(cfg, dev, generator=torch.Generator().manual_seed(2))])
+    mesh = make_mesh({"mic": SHARD_RANKS})
+    sp, ss = shard_plan(plan, mesh), shard_scene_batch(state, mesh)
+    fn, whole = sharded_multi_scene_hop(cfg, mesh), sharded_multi_scene_hop(cfg)
+    x = torch.as_tensor(np.random.default_rng(SEED + 32).standard_normal(
+        (SHARD_HOPS, 2, 1, cfg.hop)).astype(np.float32)).to(dev)
+    stat_excess = feed_excess = -np.inf
+    times, counts = [], {}
+    for i in range(SHARD_HOPS):
+        before = gather_blocks(ss, mesh)
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ss, out = fn(sp, ss, x[i, 0], x[i, 1])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts = K.launch_counts()
+        got = gather_blocks(ss, mesh)
+        want_state, want = whole(plan, before, x[i, 0], x[i, 1])
+        stat = want_state.wresp_stat
+        stat_excess = max(stat_excess, _exceeds(got.wresp_stat, stat, SHARD32_STAT_RTOL,
+                                                SHARD32_STAT_ATOL * float(stat.abs().max())))
+        for name in ("out_a", "out_b"):
+            g, w = getattr(out, name), getattr(want, name)
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"shard mic td rank {rank} hop {i + 1}: non-finite {name}")
+            feed_excess = max(feed_excess, _exceeds(g, w, SHARD32_FEED_RTOL,
+                                                    SHARD32_FEED_ATOL * float(w.abs().max())))
+    # The hop's one collective alone: the (4, JL, JL) statistics summed
+    # over the mic group through the host.
+    r_mats = torch.ones((4, cfg.jl, cfg.jl), device=dev)
+    reduce_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mic_sum(r_mats, mesh.group("mic"))
+        torch.cuda.synchronize()
+        reduce_s.append(time.perf_counter() - t0)
+    print(f"[phase 3 shard] rank {rank} (a) TD, mic mesh {mesh.shape}, scale_scene(32, "
+          f"num_mics=32) JL={cfg.jl}, {SHARD_HOPS} hops each against the unsharded hop from the "
+          f"same state: wresp_stat excess over its bar {stat_excess:.3e}, loudspeaker feeds "
+          f"excess {feed_excess:.3e} (<= 0 passes); launches {({k: v for k, v in counts.items() if v})}"
+          f"; {_shard_eager_ms(times)}; the statistics' all-reduce alone "
+          f"{1e3 * min(reduce_s):.3f} ms (best of 3) card={card}", flush=True)
+    if stat_excess > 0 or feed_excess > 0:
+        raise AssertionError(f"shard mic td rank {rank}: outside the bars")
+
+
+def _shard_scene_td(rank, dev, card, sweeps=None):
+    """(b) Four production scenes of ``scale_scene(16)`` over a scene mesh,
+    two a rank, SHARD_HOPS hops, each rank's hop held against the
+    single-process batched hop of its own two scenes from the same state:
+    statistics TOL_STATS, target feeds TOL_MULTI_TARGET, and (with
+    ``sweeps``, K4 converged) loudspeaker feeds TOL_FEEDS; every kernel of
+    the path once a hop."""
+    from apvast_torch import production_overrides
+    from apvast_torch.engine import build_plan, hop_statistics, init_state
+    from apvast_torch.engine.graph import clone_state
+    from apvast_torch.ops import kernels as K
+    from apvast_torch.parallel.mesh import (
+        make_mesh, scene_block, shard_plan, shard_scene_batch, sharded_multi_scene_hop,
+        stack_plans, stack_states)
+    from apvast_torch.utils.scenes import scale_scene
+
+    extra = {} if sweeps is None else {"jacobi_sweeps": sweeps}
+    scene = scale_scene(16, **(production_overrides() | extra))
+    cfg = scene.config
+    pairs = _scene_pairs(scene, MULTI_N)
+    plans = stack_plans([build_plan(cfg, a, b, dev) for a, b in pairs])
+    states = stack_states([init_state(cfg, dev, generator=torch.Generator().manual_seed(i))
+                           for i in range(MULTI_N)])
+    mesh = make_mesh({"scene": SHARD_RANKS})
+    sp, ss = shard_plan(plans, mesh), shard_scene_batch(states, mesh)
+    fn, block = sharded_multi_scene_hop(cfg, mesh), sharded_multi_scene_hop(cfg)
+    x = _multi_inputs(cfg, dev, SHARD_HOPS, MULTI_N)
+    stats_fn = torch.func.vmap(lambda w, t: hop_statistics(cfg, w, t))
+    worst = {"statistics": 0.0, "target feeds": 0.0, "loudspeaker feeds": 0.0}
+    times, rebuilt = [], []
+    for i in range(SHARD_HOPS):
+        before = clone_state(ss)
+        xa, xb = scene_block(x[0, i], mesh), scene_block(x[1, i], mesh)
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ss, out = fn(sp, ss, xa, xb)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts = K.launch_counts()
+        if counts != _want("production", 1):
+            raise AssertionError(f"shard scene td rank {rank} hop {i + 1}: launches {counts}")
+        rebuilt.append(out.rebuilt)
+        want_state, want = block(sp, before, xa, xb)
+        if want.rebuilt != out.rebuilt:
+            raise AssertionError(f"shard scene td rank {rank} hop {i + 1}: rebuild decisions "
+                                 f"differ ({out.rebuilt}, {want.rebuilt})")
+        for a, b in zip(stats_fn(ss.wresp_stat, ss.wtarget_stat),
+                        stats_fn(want_state.wresp_stat, want_state.wtarget_stat)):
+            worst["statistics"] = max(worst["statistics"], _rel(a, b)[1])
+        for key, names in (("target feeds", ("out_a_t", "out_b_t")),
+                           ("loudspeaker feeds", ("out_a", "out_b"))):
+            for name in names:
+                worst[key] = max(worst[key], _rel(getattr(out, name), getattr(want, name))[1])
+    label = "configured" if sweeps is None else f"{sweeps} sweeps"
+    print(f"[phase 3 shard] rank {rank} (b) TD, scene mesh {mesh.shape}, production "
+          f"({label}), scenes {mesh.coordinate('scene') * 2}-{mesh.coordinate('scene') * 2 + 1} "
+          f"of {MULTI_N}, {SHARD_HOPS} hops each against the batched hop of the same two scenes "
+          f"from the same state: " + ", ".join(f"{k} rel_err {v:.3e}" for k, v in worst.items())
+          + f"; rebuilds {rebuilt}; launches a hop {({k: v for k, v in counts.items() if v})}; "
+          f"{_shard_eager_ms(times)} card={card}", flush=True)
+    _check(f"shard scene td rank {rank} statistics", worst["statistics"], TOL_STATS)
+    _check(f"shard scene td rank {rank} target feeds", worst["target feeds"], TOL_MULTI_TARGET)
+    if sweeps is not None:
+        _check(f"shard scene td rank {rank} loudspeaker feeds", worst["loudspeaker feeds"],
+               TOL_FEEDS)
+
+
+def _shard_mic_fd(rank, dev, card):
+    """(c) The FD engine (fd-jacobi settings, the FFT convolution: K1 folds
+    every microphone) on ``scale_scene(16, num_mics=16)`` over a mic mesh:
+    SHARD_HOPS hops, each held against the unsharded FD hop from the same
+    (gathered) state: cov and cross within TOL_STATS of scale; K7 once a
+    hop."""
+    from apvast_torch.engine import build_plan, init_fd_state
+    from apvast_torch.ops import kernels as K
+    from apvast_torch.parallel.mesh import (
+        gather_blocks, make_mesh, shard_fd_state, shard_plan, sharded_multi_scene_fd_hop,
+        stack_plans, stack_states)
+    from apvast_torch.utils.scenes import scale_scene
+
+    s = 16
+    scene = scale_scene(s, num_mics=16, num_eigenvectors=s, fd_jacobi_sweeps=FD_SWEEPS,
+                        fd_eigh="jacobi", use_matmul_dft=True, use_pallas_conv=False)
+    cfg = scene.config
+    plan = stack_plans([build_plan(cfg, scene.rir_a, scene.rir_b, dev)])
+    state = stack_states([init_fd_state(cfg, dev, generator=torch.Generator().manual_seed(3))])
+    mesh = make_mesh({"mic": SHARD_RANKS})
+    sp, ss = shard_plan(plan, mesh), shard_fd_state(state, mesh)
+    fn = sharded_multi_scene_fd_hop(cfg, mesh, forgetting=FD_FORGETTING)
+    whole = sharded_multi_scene_fd_hop(cfg, forgetting=FD_FORGETTING)
+    x = torch.as_tensor(np.random.default_rng(SEED + 16).standard_normal(
+        (SHARD_HOPS, 2, 1, cfg.hop)).astype(np.float32)).to(dev)
+    worst = {"cov": 0.0, "cross": 0.0}
+    times = []
+    for i in range(SHARD_HOPS):
+        before = gather_blocks(ss, mesh)
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ss, out = fn(sp, ss, x[i, 0], x[i, 1])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts = K.launch_counts()
+        if counts != {name: int(name in FD_KERNELS) for name in K.WRAPPERS}:
+            raise AssertionError(f"shard mic fd rank {rank} hop {i + 1}: launches {counts}")
+        want_state, _ = whole(plan, before, x[i, 0], x[i, 1])
+        for name in worst:
+            worst[name] = max(worst[name], _rel(getattr(ss, name), getattr(want_state, name))[1])
+        if not torch.isfinite(out.out_a).all() or int(out.silenced.sum()):
+            raise AssertionError(f"shard mic fd rank {rank} hop {i + 1}: unhealthy outputs")
+    print(f"[phase 3 shard] rank {rank} (c) FD fd-jacobi, mic mesh {mesh.shape}, "
+          f"scale_scene(16, num_mics=16), {SHARD_HOPS} hops each against the unsharded FD hop "
+          f"from the same state: " + ", ".join(f"{k} rel_err {v:.3e}" for k, v in worst.items())
+          + f"; launches a hop {({k: v for k, v in counts.items() if v})}; "
+          f"{_shard_eager_ms(times)} card={card}", flush=True)
+    for name, rel in worst.items():
+        _check(f"shard mic fd rank {rank} {name}", rel, TOL_STATS)
+
+
+def _shard_rank(rank, store, card):
+    """One rank of ``[phase 3 shard]``: joins the gloo group (a file store),
+    runs (a), (b) configured and at CONVERGED_SWEEPS, and (c) on the card;
+    a failed check raises, and the rank's process exits non-zero."""
+    import os
+
+    import torch.distributed as dist
+
+    # Gloo's pairs connect over loopback: the machine may have no other
+    # interface.
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=SHARD_RANKS)
+    try:
+        _shard_mic_td(rank, dev, card)
+        _shard_scene_td(rank, dev, card)
+        _shard_scene_td(rank, dev, card, sweeps=CONVERGED_SWEEPS)
+        _shard_mic_fd(rank, dev, card)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase3_shard(card):
+    """Sharding (see the module docstring): SHARD_RANKS processes on the one
+    card in a gloo group (NCCL refuses two ranks on one device), spawned,
+    joined within SHARD_TIMEOUT_S, every process ended before returning; a
+    rank's failure fails the phase."""
+    import os
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        context = mp.start_processes(_shard_rank, args=(os.path.join(tmp, "store"), card),
+                                     nprocs=SHARD_RANKS, join=False, start_method="spawn")
+        try:
+            while not context.join(timeout=5.0):
+                if time.perf_counter() - t0 > SHARD_TIMEOUT_S:
+                    raise AssertionError(f"[phase 3 shard] ranks still running after "
+                                         f"{SHARD_TIMEOUT_S:.0f} s")
+        finally:
+            for p in context.processes:
+                if p.is_alive():
+                    p.terminate()
+                p.join(timeout=30)
+    print(f"[phase 3 shard] {SHARD_RANKS} ranks passed (a), (b) and (c) in "
+          f"{time.perf_counter() - t0:.1f} s card={card}", flush=True)
+
+
+# ---- phase 3, the kept lag assemblies and the c0 methods --------------------
+
+LAG_ASSEMBLIES = ("pair", "wide", "tap")
+C0_METHODS = ("auto", "conv", "matmul", "fft")
+
+
+def _lag_c0(dev, card):
+    """Each c0_method at the north-star shapes (4, 17, 16, 999), J = 50,
+    against the float64 correlations on the card (1e-4 of scale), timed."""
+    from apvast_torch.ops import kernels as K
+    from apvast_torch.ops import lag_statistics as L
+
+    j = 50
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((4, 17, 16, 999), generator=g, device=dev)
+    oracle = L._c0_conv(x.double(), 999 - j + 1)
+    flush = torch.empty(64 * 2**20 // 4, device=dev)
+    for method in C0_METHODS:
+        K.reset_launch_counts()
+        got = L._compute_c0(x, j, method)
+        launches = K.launch_counts()["lag_corr"]
+        rel = _rel(got, oracle)[1]
+        ms = _time_ms(lambda m=method: L._compute_c0(x, j, m), 10, flush)
+        print(f"[phase 3 lag] c0_method={method!r} {tuple(x.shape)}, J={j}: rel_err {rel:.3e} "
+              f"against float64, {ms:.4f} ms (CUDA events, L2 flushed), K2 launches {launches} "
+              f"card={card}", flush=True)
+        if (launches == 1) != (method == "auto"):
+            raise AssertionError(f"c0_method={method!r}: {launches} K2 launches")
+        _check(f"c0_method={method!r}", rel, TOL_KERNEL)
+
+
+def phase3_lag(scene, dev, card):
+    """The pair, wide and tap assemblies (full form, C0 by K2) on the
+    production path: 64 hops each (``drive``: launches, silenced 0, the
+    first CPU_HOPS hops' statistics and target feeds against the CPU, the
+    contrast), the statistics of the final state against the skew
+    assembly's (full form) from that state (1e-4, the tap-major ones
+    permuted source-major); then the c0 methods."""
+    from apvast_torch import production_overrides
+    from apvast_torch.engine import hop_statistics
+    from apvast_torch.engine.graph import clone_state
+
+    noise, sig = _inputs(scene)
+    skew_cfg = dataclasses.replace(scene.config, **(production_overrides()
+                                                    | {"statistics_half_form": False}))
+    s, j = scene.config.num_srcs, scene.config.filter_length
+    for assembly in LAG_ASSEMBLIES:
+        overrides = production_overrides() | {"lag_assembly": assembly}
+        model = drive(scene, dev, card, f"{assembly}-assembly", overrides,
+                      _want(assembly, HOPS), sig, noise, gate_feeds=False)[0]
+        if not model.graphed:
+            raise AssertionError(f"{assembly}-assembly: not graphed ({model.eager_reason})")
+        state = clone_state(model.state)
+        r, v = hop_statistics(model.config, state.wresp_stat, state.wtarget_stat)
+        if assembly == "tap":  # tap-major (t, s) -> source-major (s, t)
+            r = r.reshape(4, j, s, j, s).permute(0, 2, 1, 4, 3).reshape(4, s * j, s * j)
+            v = v.reshape(2, j, s).transpose(1, 2).reshape(2, s * j)
+        want_r, want_v = hop_statistics(skew_cfg, state.wresp_stat, state.wtarget_stat)
+        rel = max(_rel(r, want_r)[1], _rel(v, want_v)[1])
+        print(f"[phase 3 lag] {assembly}-assembly: statistics of the state after {HOPS} hops "
+              f"against the skew assembly's (full form) from that state: rel_err {rel:.3e}; "
+              f"silenced {int(model.silenced)} card={card}", flush=True)
+        _check(f"{assembly}-assembly statistics against skew", rel, TOL_STATS)
+        del model
+    _lag_c0(dev, card)
 
 # ---- phase 3, evaluation: metrics, checkpoints, MATLAB, bf16, offline ------
 
@@ -2810,6 +3293,8 @@ def main() -> int:
     phase3_serve(scene, dev, card)
     timed = phase3_time(scene, dev, card)
     multi = phase3_multi(scene, dev, card)
+    phase3_shard(card)
+    phase3_lag(scene, dev, card)
     phase3_eval(scene, dev, card)
 
     if args.profile:

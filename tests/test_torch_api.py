@@ -1,22 +1,26 @@
 """The port's public surface: ``ApVast`` hop by hop against whole signals,
-the device rule, the configurations the port refuses, and the evaluation
-metrics against the JAX package's."""
+the device rule, the configurations once refused (every one runs now), and
+the evaluation metrics against the JAX package's."""
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from apvast_torch import ApVast, GevdSolver, build_plan, production_overrides
-from apvast_torch.config import RegularizationVariant
+from apvast_torch.config import RegularizationVariant, check_port_slice
 from apvast_torch.engine import init_state, process_hop
 from apvast_torch.evaluation import acoustic_contrast_db, normalized_mse, predict_pressure
-from apvast_torch.utils.convert import config_from_jax
+from apvast_torch.utils.convert import config_from_jax, state_from_numpy
 from apvast_torch.utils.rir import synthetic_rirs
 from apvast_torch.utils.scenes import reference_scene, scale_scene
 from apvast_tpu import evaluation as jax_evaluation
+from apvast_tpu.engine import build_plan as jax_build_plan
+from apvast_tpu.engine import init_state as jax_init_state
+from apvast_tpu.engine import process_hop as jax_process_hop
 from _torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 _SCENE = dict(
@@ -93,35 +97,31 @@ _ROUND3 = dict(gevd_solver=GevdSolver.SUBSPACE, dtype="float32", subspace_oversa
 
 
 @pytest.mark.parametrize(
-    "overrides,refused",
+    "overrides",
     [
-        (production_overrides() | {"subspace_whiten": "newton"}, False),
-        (dict(gevd_solver=GevdSolver.SUBSPACE), False),
-        (dict(weighting_conv_taps=31), False),
-        (dict(use_pallas_statistics=True, dtype="float32"), False),
-        (dict(use_lag_statistics=True, lag_assembly="wide"), True),
-        (dict(regularization=RegularizationVariant.MATLAB), False),
-        (dict(regularization=RegularizationVariant.PYTHON_NORM), False),
-        (production_overrides() | {"tracking_li_bf16": True}, False),
-        (production_overrides() | {"tracking_residual_precision": "default"}, False),
-        (_ROUND3 | dict(use_pallas_subspace=True), False),
-        (_ROUND3 | dict(use_pallas_whiten=True), False),
+        production_overrides() | {"subspace_whiten": "newton"},
+        dict(gevd_solver=GevdSolver.SUBSPACE),
+        dict(weighting_conv_taps=31),
+        dict(use_pallas_statistics=True, dtype="float32"),
+        dict(use_lag_statistics=True, lag_assembly="wide"),
+        dict(regularization=RegularizationVariant.MATLAB),
+        dict(regularization=RegularizationVariant.PYTHON_NORM),
+        production_overrides() | {"tracking_li_bf16": True},
+        production_overrides() | {"tracking_residual_precision": "default"},
+        _ROUND3 | dict(use_pallas_subspace=True),
+        _ROUND3 | dict(use_pallas_whiten=True),
     ],
     ids=["production-newton", "subspace", "weighting-conv", "dense-pallas-statistics",
          "wide-assembly", "matlab-loading", "python-norm-loading", "bf16-preconditioner",
          "bf16-residual", "subspace-kernel", "whiten-kernel"],
 )
-def test_out_of_slice_configs_raise(overrides, refused):
-    """A configuration the port does not run raises NotImplementedError. The
-    round-3 subspace solvers ('invert' by default, 'newton') and their
-    kernels, the truncated weighting, the dense statistics kernel, the
-    norm-scaled loadings (MATLAB, PYTHON_NORM) and the tracking solver's
-    bfloat16 knobs, refused before the port ran them, convert and run a
-    hop."""
-    if refused:
-        with pytest.raises(NotImplementedError):
-            _model(**overrides)
-        return
+def test_out_of_slice_configs_raise(overrides):
+    """Every configuration once refused as out of the port's slices runs
+    now: the round-3 subspace solvers ('invert' by default, 'newton') and
+    their kernels, the truncated weighting, the dense statistics kernel,
+    the wide lag assembly (the JAX package's default), the norm-scaled
+    loadings (MATLAB, PYTHON_NORM) and the tracking solver's bfloat16
+    knobs: each converts and runs a hop."""
     m = _model(**overrides)
     assert config_from_jax(dataclasses.asdict(m.config)) == m.config
     out = m.process_input_buffers(np.ones(64), np.ones(64))
@@ -129,13 +129,27 @@ def test_out_of_slice_configs_raise(overrides, refused):
 
 
 def test_out_of_slice_config_raises_in_the_hop(small_scene):
+    """The wide lag assembly (refused by the hop before the port ran it)
+    runs in the hop, and three hops equal the JAX package's in float64;
+    only a dtype the port does not run is refused now."""
     jc, rir_a, rir_b = small_scene
+    jc = dataclasses.replace(jc, use_lag_statistics=True, lag_assembly="wide")
     tc = config_from_jax(dataclasses.asdict(jc))
-    plan, state = build_plan(tc, rir_a, rir_b, "cpu"), init_state(tc, "cpu")
-    refused = dataclasses.replace(tc, use_lag_statistics=True, lag_assembly="wide")
-    hop = torch.zeros(tc.hop, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        process_hop(refused, plan, state, hop, hop)
+    jplan, jstate = jax_build_plan(jc, rir_a, rir_b), jax_init_state(jc, key=jax.random.key(0))
+    plan = build_plan(tc, rir_a, rir_b, "cpu")
+    state = state_from_numpy(tc, {f.name: None if getattr(jstate, f.name) is None
+                                  else np.asarray(getattr(jstate, f.name))
+                                  for f in dataclasses.fields(jstate)}, "cpu")
+    rng = np.random.default_rng(8)
+    for _ in range(3):
+        a, b = rng.standard_normal(tc.hop), rng.standard_normal(tc.hop)
+        state, out = process_hop(tc, plan, state, torch.from_numpy(a), torch.from_numpy(b))
+        jstate, jout = jax_process_hop(jc, jplan, jstate, jnp.asarray(a), jnp.asarray(b))
+        want = np.asarray(jout.out_a)
+        np.testing.assert_allclose(out.out_a.numpy(), want, rtol=1e-9,
+                                   atol=1e-9 * np.abs(want).max())
+    with pytest.raises(ValueError, match="dtype"):
+        check_port_slice(dataclasses.replace(tc, dtype="bfloat16"))
 
 
 def test_jacobi_refuses_float64():

@@ -43,6 +43,7 @@ from apvast_tpu.engine.fd_hop import init_fd_state as jax_init_fd_state
 from apvast_tpu.engine.fd_hop import process_hop_fd as jax_process_hop_fd
 from apvast_tpu.models.apvast_fd import ApVastFD as JaxApVastFD
 from apvast_tpu.utils.rir import synthetic_rirs
+from _torch_dist import one_rank_group
 from _torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 FIELDS = ("out_a", "out_b", "out_a_t", "out_b_t")
@@ -271,15 +272,28 @@ def test_fd_hop_errors_match_jax(overrides):
     assert str(torch_err.value) == str(jax_err.value)
 
 
-def test_fd_hop_mic_axis_is_not_ported():
+def test_fd_hop_mic_axis_is_not_ported(tmp_path):
+    """``mic_axis`` runs (it raised before sharding was ported): with a mic
+    group of one rank the hop equals the hop without one bit for bit, and
+    the conv kernel with a mic axis raises JAX's ValueError. Sharding over
+    several ranks: ``tests/test_torch_sharding.py``."""
     rir_a, rir_b = _scene()
-    for conv, err in ((True, ValueError), (False, NotImplementedError)):
-        jc = _config(rir_a, rir_b, use_pallas_conv=conv, dtype="float32")
-        tc = config_from_jax(dataclasses.asdict(jc))
-        hop = torch.zeros(jc.hop)
-        with pytest.raises(err, match="mic sharding" if conv else "Queue 1 item 7"):
-            process_hop_fd(tc, build_plan(tc, rir_a, rir_b, "cpu"), init_fd_state(tc, "cpu"),
-                           hop, hop, mic_axis="mics")
+    jc = _config(rir_a, rir_b, use_pallas_conv=True, dtype="float32")
+    tc = config_from_jax(dataclasses.asdict(jc))
+    hop = torch.zeros(jc.hop)
+    with pytest.raises(ValueError, match="mic sharding"):
+        process_hop_fd(tc, build_plan(tc, rir_a, rir_b, "cpu"), init_fd_state(tc, "cpu"),
+                       hop, hop, mic_axis=object())
+    tc = dataclasses.replace(tc, use_pallas_conv=False)
+    plan = build_plan(tc, rir_a, rir_b, "cpu")
+    state = init_fd_state(tc, "cpu", generator=torch.Generator().manual_seed(0))
+    a, b = torch.randn(2, jc.hop, generator=torch.Generator().manual_seed(1))
+    want_state, want = process_hop_fd(tc, plan, state, a, b)
+    with one_rank_group(tmp_path) as group:
+        got_state, got = process_hop_fd(tc, plan, state, a, b, mic_axis=group)
+    for name in ("out_a", "out_b", "out_a_t", "out_b_t"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert torch.equal(got_state.cov, want_state.cov)
 
 
 @pytest.mark.parametrize("matmul_dft", [False, True])

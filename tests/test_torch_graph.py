@@ -172,6 +172,9 @@ _CONFIGS = {
                                                     "use_matmul_dft": False}, False, True),
     "exact": (production_overrides() | {"gevd_solver": GevdSolver.EIGH}, False, False),
     "newton": (production_overrides() | {"subspace_whiten": "newton"}, False, False),
+    "pair-assembly": (production_overrides() | {"lag_assembly": "pair"}, False, True),
+    "wide-assembly": (production_overrides() | {"lag_assembly": "wide"}, False, True),
+    "tap-assembly": (production_overrides() | {"lag_assembly": "tap"}, False, True),
     "fd-jacobi": (_FD | {"fd_eigh": "jacobi"}, True, True),
     "fd-full": (_FD | {"fd_span": "full"}, True, True),
     "fd-coupled": (_FD | {"fd_span": "full", "fd_bin_coupling": 7, "fd_frame_taps": 2,
@@ -207,7 +210,8 @@ def test_graphed_configurations_pass_the_guard(name, monkeypatch):
     assert (eager_reason(cfg, fd) is None) == graphed
     hops = _hops(cfg, 3)
     branches = (True, False) if name in ("production", "dense", "weighting-conv",
-                                         "output-spans", "fft-conv-and-wola") else (False,)
+                                         "output-spans", "fft-conv-and-wola", "pair-assembly",
+                                         "wide-assembly", "tap-assembly") else (False,)
     hop_into(cfg, plan, state, hops[0, 0], hops[0, 1], True)  # the warmup fills the caches
     for i, rebuilt in enumerate(branches, start=1):
         if graphed:

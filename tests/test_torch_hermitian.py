@@ -22,6 +22,8 @@ the JAX package and a float64 NumPy oracle.
   do not depend on the phase, against JAX's in float32 (1e-4 of scale).
 """
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -341,7 +343,8 @@ def test_eigh_when_the_solver_fails(monkeypatch):
     matrices that LAPACK solves) and rounds back; a matrix on which that
     fails too is filled with NaNs, as JAX fills an element whose info is
     not 0."""
-    from apvast_torch.ops import jdiag
+    # The module (the package exports the function jdiag under its name).
+    jdiag = importlib.import_module("apvast_torch.ops.jdiag")
 
     solve = torch.linalg.eigh
 

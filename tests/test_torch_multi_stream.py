@@ -18,8 +18,10 @@
    per-example loop (its warning is an error here).
 4. One batched hop of each graphed configuration passes
    ``tests/test_torch_graph.py``'s capture guard.
-5. What the batched hop refuses: 'newton', a mesh, stacked states out of
-   lockstep, a shared operand given per scene.
+5. 'newton' batched (each scene's decision a select on the device) and a
+   mesh of one rank run; what the batched hop refuses: stacked states out
+   of lockstep, a shared plan field that differs, a shared operand given
+   per scene.
 """
 
 import dataclasses
@@ -38,7 +40,7 @@ from apvast_torch.engine import process_hop_fd
 from apvast_torch.engine.graph import clone_state
 from apvast_torch.ops import kernels as K
 from apvast_torch.parallel import sharded_multi_scene_fd_hop, sharded_multi_scene_hop
-from apvast_torch.parallel.mesh import scene_of, stack_plans, stack_states
+from apvast_torch.parallel.mesh import make_mesh, scene_of, stack_plans, stack_states
 from apvast_torch.utils.convert import config_from_jax, plans_from_numpy, states_from_numpy
 from apvast_torch.utils.rir import synthetic_rirs
 from apvast_tpu.config import ApVastConfig as JaxConfig
@@ -47,6 +49,7 @@ from apvast_tpu.engine import build_plan as jax_build_plan
 from apvast_tpu.engine import init_state as jax_init_state
 from apvast_tpu.engine.stream import run_multi_stream as jax_run_multi_stream
 from test_torch_graph import _CONFIGS, _SCENE, HostDataError, guarded
+from _torch_dist import one_rank_group
 from _torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 HOPS = 7
@@ -276,8 +279,8 @@ def test_ops_have_fake_shapes():
         assert [r.dtype for r in real] == [f.dtype for f in fake], name
 
 
-_GUARDED = ("production", "invert", "solve", "dense", "weighting-conv", "output-spans",
-            "fft-conv-and-wola", "fd-jacobi", "fd-full", "fd-coupled", "fd-cg")
+_GUARDED = ("production", "invert", "solve", "newton", "dense", "weighting-conv",
+            "output-spans", "fft-conv-and-wola", "fd-jacobi", "fd-full", "fd-coupled", "fd-cg")
 
 
 @pytest.mark.parametrize("name", _GUARDED)
@@ -303,20 +306,37 @@ def test_exact_batched_hop_fails_the_guard(monkeypatch):
         hop_into(cfg, plan, state, x[0], x[1], batched=True)
 
 
-def test_refusals():
+def test_refusals(tmp_path):
+    """'newton' and a mesh, refused before the batched select form and
+    sharding were ported, run: a batched 'newton' hop per scene and the
+    model, and a mesh of one rank (``tests/test_torch_sharding.py`` shards
+    over several) equal to no mesh bit for bit. What the batched hop still
+    refuses: stacked states out of lockstep, a shared plan field that
+    differs, a shared operand given per scene."""
     cfg, plans, states, _ = _scenes("newton", 2)
-    with pytest.raises(ValueError, match="'newton' cannot be batched"):
-        sharded_multi_scene_hop(cfg)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal((2, 2, cfg.hop)).astype(np.float32))
+    _, out = sharded_multi_scene_hop(cfg)(stack_plans(plans), stack_states(states), x[0], x[1])
+    assert out.rebuilt.tolist() == [True, True] and torch.isfinite(out.out_a).all()
     rirs = [(synthetic_rirs(120, 4, 3, seed=1), synthetic_rirs(120, 4, 3, seed=2))] * 2
-    with pytest.raises(ValueError, match="'newton' cannot be batched"):
-        MultiSceneApVast(cfg, rirs, device="cpu")
+    out = MultiSceneApVast(cfg, rirs, device="cpu").process_input_buffers(x[0], x[1])
+    assert torch.isfinite(out.out_a).all()
     cfg, plans, states, _ = _scenes("production", 2)
-    with pytest.raises(ValueError, match="Queue 1 item 7"):
-        sharded_multi_scene_hop(cfg, mesh=object())
-    with pytest.raises(ValueError, match="Queue 1 item 7"):
-        MultiSceneApVast(cfg, rirs, device="cpu", mesh=object())
-    with pytest.raises(ValueError, match="Queue 1 item 7"):
-        sharded_multi_scene_fd_hop(cfg, mesh=object())
+    plan, state = stack_plans(plans), stack_states(states)
+    with one_rank_group(tmp_path):
+        mesh = make_mesh({"scene": 1})  # K1 (use_pallas_conv) refuses a mic axis
+        _, got = sharded_multi_scene_hop(cfg, mesh=mesh)(plan, clone_state(state), x[0], x[1])
+        model = MultiSceneApVast(cfg, rirs, device="cpu", mesh=mesh)
+        with_mesh = model.process_input_buffers(x[0], x[1])
+        fd_cfg, fd_plans, fd_states, _ = _scenes("fd-jacobi", 2)
+        fd_plan, fd_state = stack_plans(fd_plans), stack_states(fd_states)
+        _, fd_got = sharded_multi_scene_fd_hop(fd_cfg, mesh=mesh)(fd_plan, fd_state, x[0], x[1])
+    _, want = sharded_multi_scene_hop(cfg)(plan, state, x[0], x[1])
+    without = MultiSceneApVast(cfg, rirs, device="cpu").process_input_buffers(x[0], x[1])
+    _, fd_want = sharded_multi_scene_fd_hop(fd_cfg)(fd_plan, fd_state, x[0], x[1])
+    for name in ("out_a", "out_b", "out_a_t", "out_b_t"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+        assert torch.equal(getattr(with_mesh, name), getattr(without, name)), name
+        assert torch.equal(getattr(fd_got, name), getattr(fd_want, name)), name
     # Stacked states out of lockstep, from the JAX package's arrays and the port's.
     arrays = {name: np.stack([v, v]) if v is not None else None
               for name, v in _arrays(states[0]).items()}
