@@ -132,13 +132,20 @@ def launch(name: str, entry: str, *args) -> None:
 
 
 def check_input(
-    t: torch.Tensor, name: str, ndim: int, device: torch.device | None = None
+    t: torch.Tensor,
+    name: str,
+    ndim: int,
+    device: torch.device | None = None,
+    cpu_float64: bool = False,
 ) -> None:
     """Raise unless ``t`` is a contiguous float32 tensor of ``ndim`` dims
-    (on ``device`` when given)."""
+    (on ``device`` when given); ``cpu_float64`` also takes float64 on the
+    CPU, where the wrapper's plain version computes in it."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor")
-    if t.dtype != torch.float32:
+    if t.dtype != torch.float32 and not (
+        cpu_float64 and t.dtype == torch.float64 and t.device.type == "cpu"
+    ):
         raise ValueError(f"{name} must be float32 (a float32 kernel), got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name} must have {ndim} dims, got shape {tuple(t.shape)}")

@@ -111,9 +111,11 @@ def lag_skew_assemble(
     """
     if _batch.via_op(lhs_t, rhs_sm, c0_sm):
         return lag_skew_assemble_op(lhs_t, rhs_sm, c0_sm, j, half_scaled)
-    _build.check_input(lhs_t, "lhs_t", 3)
-    _build.check_input(rhs_sm, "rhs_sm", 3, lhs_t.device)
-    _build.check_input(c0_sm, "c0_sm", 3, lhs_t.device)
+    # Float64 on the CPU: the plain version, as the JAX kernel's interpret
+    # mode computes it there; on the card the kernel takes float32 only.
+    _build.check_input(lhs_t, "lhs_t", 3, cpu_float64=True)
+    _build.check_input(rhs_sm, "rhs_sm", 3, lhs_t.device, cpu_float64=True)
+    _build.check_input(c0_sm, "c0_sm", 3, lhs_t.device, cpu_float64=True)
     p, js1, c = lhs_t.shape
     if j <= 0 or js1 % j:
         raise ValueError(f"lhs_t rows {js1} are not a multiple of J={j}")

@@ -307,10 +307,13 @@ def _c0_and_cross_fused(
 
 
 def covariance_via_lags_skew(
-    buf: torch.Tensor, d: torch.Tensor, j: int, form: str = "full", c0_method: str = "pallas"
+    buf: torch.Tensor, d: torch.Tensor, j: int, form: str = "full", c0_method: str = "auto"
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Source-major lag statistics through the skew assembly (kernel K3),
-    C0 by kernel K2 unless ``c0_method`` says otherwise.
+    C0 by kernel K2 on the card unless ``c0_method`` says otherwise. K2 and
+    K3 are float32 kernels: on the card float64 raises; on the CPU their
+    plain versions compute it, as the JAX package's interpret-mode kernels
+    do.
 
     Args:
         buf: (4, M, S, N) weighted-response statistics buffers, the
@@ -319,7 +322,8 @@ def covariance_via_lags_skew(
         j: filter length J.
         form: "full" returns R; "half" returns M with R = M + M^T (K3's
             half form) and skips the symmetric completion pass.
-        c0_method: as for :func:`covariance_via_lags`; "pallas" (K2).
+        c0_method: as for :func:`covariance_via_lags` (JAX's default,
+            "auto": K2 for float32 on the card, "conv" on the CPU).
 
     Returns:
         (r_mats (4, S*J, S*J), r_vecs (2, S*J)).

@@ -244,10 +244,37 @@ Phase 3  the main path, ``ApVast`` on ``scale_scene(16)`` for 64 hops (two
                   assembly's from that state (1e-4); each ``c0_method``
                   (auto = K2, conv, matmul, fft) at (4, 17, 16, 999), J =
                   50, against float64 (1e-4), timed.
+         scale32  the JAX package's one-chip scaling scene (BASELINE.json
+                  config 5), ``scale_scene(32)``: S = 32, M = 33, J = 50,
+                  JL = 1600, V = 50, k = 64, widths not cut. Production
+                  (graphed), invert (graphed) and exact (eager) for 64 hops
+                  each through ``drive`` (launches, silenced 0, hops 1-2
+                  against the CPU hop from the card's state: statistics and
+                  target feeds to 1e-4; the feeds to 5e-2 in a rerun at 8
+                  sweeps); production and invert within 0.25 dB of exact at
+                  rank 1 and V (the JAX package's tracking gate); the
+                  graphed production hop against the eager one over 16 hops
+                  from one state, bit for bit; tools/resid_profile.py's +20
+                  dB step from hop 40 (every hop's residual and the reason
+                  of each rebuild printed, the stationary band printed, a
+                  residual-triggered rebuild within 2 hops of the step
+                  gated, the threshold the JAX package's 2.5); one stream's
+                  device memory (production and invert); eager against
+                  graphed ms/hop of production and invert in turns; four
+                  scenes of this geometry in one graphed batched hop held
+                  as ``[phase 3 multi]`` holds them, ms per batched hop and
+                  memory. Phase 2 also times K1, K2, K3 (half form) and K5
+                  at this scene's shapes against their plain versions
+                  (1e-4).
+         demo     ``examples/run_demo_torch.py`` in this process, 20 hops on
+                  the card for the default (exact), ``--fast`` and ``--fd``,
+                  each against its ``--cpu`` run: contrast within 0.25 dB
+                  and NMSE within 5% relative per span and zone;
+                  ``--fast`` launches K1, K5 and K6; wall seconds.
 Phase 4  (``--profile``) device time by kernel and by stage over 32
-         steady-state hops of the six timed paths, eager and graphed (a
-         graphed hop's kernels by name only), and the device's idle
-         share.
+         steady-state hops of the six timed paths and of production and
+         invert at 32 speakers, eager and graphed (a graphed hop's kernels
+         by name only), and the device's idle share.
 
 The last line of output is ``{"ok": true, "device": {...}}``; any failure
 exits non-zero before it.
@@ -351,6 +378,20 @@ def _rel(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
     diff = (a - b).abs().max().item()
     scale = b.abs().max().item()
     return diff, diff / max(scale, 1e-30)
+
+
+def _bound(flops, bytes_, tc_flops=None):
+    """(bound ms, "operations" or "bytes", the fp32 bound ms or None): the
+    larger of bytes over the memory rate and operations over the peak rate;
+    with ``tc_flops`` (3xTF32: three TF32 passes of those on the tensor
+    cores, the rest fp32 FMA) the fp32 bound of all ``flops`` beside it."""
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_bytes = bytes_ / PEAK_BYTES * 1e3
+    fp32_ms = None
+    if tc_flops is not None:
+        fp32_ms = max(t_ops, t_bytes)
+        t_ops = (3 * tc_flops / PEAK_TF32_FLOPS + (flops - tc_flops) / PEAK_FP32_FLOPS) * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", fp32_ms
 
 
 def _check(name: str, rel: float, tol: float) -> None:
@@ -531,6 +572,69 @@ def _oracle_checks(name, shapes, card):
                                      f"{e_k:.3e} > {TOL_ORACLE_RATIO} x plain's {e_p:.3e}")
 
 
+def _stream_cases(cfg, plan, rnd):
+    """K1, K2, K3 (half form) and K5 on inputs of ``cfg``'s shapes drawn by
+    ``rnd``: per kernel its wrapper, plain version and library call on them,
+    the operations (``flops``, ``tc_flops`` where tensor cores may take
+    them) and bytes of its bound (each input read once, each output written
+    once), the inputs (``args``) and a note of their shapes. Phase 2 (the
+    north star) and the 32-speaker timing both take their cases from here."""
+    from apvast_torch.ops import kernels as K
+
+    m, s, j, v = cfg.num_mics, cfg.num_srcs, cfg.filter_length, cfg.num_solutions
+    hop, block = cfg.hop, cfg.block_size
+    F = torch.nn.functional
+    # K1 streaming convolution: segments (2, fir_fft_size), rows M(2S+1).
+    seg, kern = rnd(2, cfg.fir_fft_size) * 1e-1, plan.conv_kernels
+    taps, rows = kern.shape[-1], kern.shape[1]
+    hist = seg.shape[-1] - hop
+    # K2 lag correlations: (4, M, S+1, N-1) with the target row, J lags.
+    x2 = rnd(4, m, s + 1, cfg.statistics_buffer_length - 1) * 1e-3
+    n2 = x2.shape[-1]
+    k2 = n2 - j + 1
+    c0_in = x2.permute(2, 0, 1, 3).reshape(s + 1, 4 * m, n2).contiguous()
+    c0_w = x2[..., :k2].permute(0, 2, 1, 3).reshape(4 * (s + 1), m, k2).contiguous()
+    # K3 skew assembly: lhsT (4, J*S, 2M), rhs (4, 2M, S*J), c0 (4, S, S*J).
+    lhs3, rhs3, c03 = rnd(4, j * s, 2 * m), rnd(4, 2 * m, s * j), rnd(4, s, s * j)
+    # K5 output filter: windowed block (2, block), V*S filter rows.
+    x5 = (plan.window * rnd(2, block)).contiguous()
+    f5, t5 = rnd(2, v * s, j) * 1e-2, rnd(2, v * s, block - hop) * 1e-2
+    ext5 = torch.cat([x5[:, block - (j - 1):], x5], -1)[None].contiguous()
+    w5 = f5.flip(-1).reshape(2 * v * s, 1, j).contiguous()
+    return {
+        "streaming_conv": dict(
+            args=(seg, kern), shape=f"(2, {seg.shape[-1]}) x {tuple(kern.shape)}",
+            kernel=lambda: K.streaming_conv(seg, kern, hop),
+            plain=lambda: K.streaming_conv_plain(seg, kern, hop),
+            # The one call that computes K1's function: cuBLAS on a window view.
+            library=lambda: kern @ seg.unfold(-1, hop, 1)[:, hist - taps + 1: hist + 1].flip(1),
+            flops=2 * 2 * rows * taps * hop, tc_flops=2 * 2 * rows * taps * hop,
+            bytes=4 * (seg.numel() + kern.numel() + 2 * rows * hop)),
+        "lag_corr": dict(
+            args=(x2,), shape=f"{tuple(x2.shape)}, J={j}",
+            kernel=lambda: K.lag_corr(x2, j), plain=lambda: K.lag_corr_plain(x2, j),
+            library=lambda: F.conv1d(c0_in, c0_w, groups=4),
+            flops=2 * 4 * m * (s + 1) ** 2 * j * k2,
+            bytes=4 * (x2.numel() + 4 * (s + 1) ** 2 * j)),
+        "skew_assembly": dict(
+            args=(lhs3, rhs3, c03),
+            shape=f"lhsT {tuple(lhs3.shape)}, rhs {tuple(rhs3.shape)}, c0 {tuple(c03.shape)}, "
+                  "half form",
+            kernel=lambda: K.lag_skew_assemble(lhs3, rhs3, c03, j, half_scaled=True),
+            plain=lambda: K.lag_skew_assemble_plain(lhs3, rhs3, c03, j, half_scaled=True),
+            library=None,
+            flops=2 * 4 * (j * s) * (2 * m) * (s * j),
+            bytes=4 * (lhs3.numel() + rhs3.numel() + c03.numel() + 4 * s * j * s * j)),
+        "output_filter": dict(
+            args=(x5, f5, t5), shape=f"(2, {block}) x {tuple(f5.shape)}, tail {tuple(t5.shape)}",
+            kernel=lambda: K.circular_filter_overlap(x5, f5, plan.window, t5, hop),
+            plain=lambda: K.circular_filter_overlap_plain(x5, f5, plan.window, t5, hop),
+            library=lambda: F.conv1d(ext5, w5, groups=2),
+            flops=2 * 2 * v * s * j * block,
+            bytes=4 * (x5.numel() + f5.numel() + block + 2 * t5.numel() + 2 * v * s * hop)),
+    }
+
+
 def phase2(scene, dev, card):
     from apvast_torch.engine.plan import build_plan
     from apvast_torch.ops import kernels as K
@@ -554,23 +658,15 @@ def phase2(scene, dev, card):
     flush = torch.zeros(64 * 2**20 // 4, dtype=torch.float32, device=dev)
     results = []
 
-    # K1 streaming convolution: segments (2, fir_fft_size), rows 2MS+M.
-    seg = rnd(2, cfg.fir_fft_size) * 1e-1
-    kern = plan.conv_kernels
-    taps, rows = kern.shape[-1], kern.shape[1]
-    hist = seg.shape[-1] - hop
-    conv_w = kern.flip(-1).reshape(2 * rows, 1, taps)
+    # K1, K2, K3 and K5 at the north star's shapes (shared with the
+    # 32-speaker timing).
+    stream = _stream_cases(cfg, plan, rnd)
+    seg, kern = stream["streaming_conv"]["args"]
+    taps, hist = kern.shape[-1], seg.shape[-1] - hop
+    conv_w = kern.flip(-1).reshape(2 * kern.shape[1], 1, taps)
     conv_in = seg[None, :, hist - taps + 1 :].contiguous()
-
-    # K2 lag correlations: (4, M, S+1, N-1) with the target row, J lags.
-    x2 = rnd(4, m, s + 1, cfg.statistics_buffer_length - 1) * 1e-3
-    n2 = x2.shape[-1]
-    k2 = n2 - j + 1
-    c0_in = x2.permute(2, 0, 1, 3).reshape(s + 1, 4 * m, n2).contiguous()
-    c0_w = x2[..., :k2].permute(0, 2, 1, 3).reshape(4 * (s + 1), m, k2).contiguous()
-
-    # K3 skew assembly: lhsT (4, J*S, 2M), rhs (4, 2M, S*J), c0 (4, S, S*J).
-    lhs3, rhs3, c03 = rnd(4, j * s, 2 * m), rnd(4, 2 * m, s * j), rnd(4, s, s * j)
+    (x2,) = stream["lag_corr"]["args"]
+    lhs3, rhs3, c03 = stream["skew_assembly"]["args"]
     # Ragged and wide K3 shapes of their own generator (the inputs of every
     # other check are as before): reference_scene()'s J = 100 (S = 8, C =
     # 18), scale_scene(32)'s S = 32 (C = 66), and S = 33 at J = 3.
@@ -637,11 +733,7 @@ def phase2(scene, dev, card):
     b10, b10_200, b10_1024 = spd(2, jl), spd(1, 200), spd(1, 1024)
     eye_jl = torch.eye(jl, device=dev)
 
-    # K5 output filter: windowed block (2, block), V*S filter rows.
-    x5 = (plan.window * rnd(2, block)).contiguous()
-    f5, t5 = rnd(2, v * s, j) * 1e-2, rnd(2, v * s, block - hop) * 1e-2
-    ext5 = torch.cat([x5[:, block - (j - 1) :], x5], -1)[None].contiguous()
-    w5 = f5.flip(-1).reshape(2 * v * s, 1, j).contiguous()
+    x5, f5, t5 = stream["output_filter"]["args"]
 
     # K6 dense statistics: the deleted-form buffers (4, M, S, N - 1) and the
     # aligned targets (2, M, K); SJ = 1600 (S = 32) and a ragged SJ = 300.
@@ -669,19 +761,12 @@ def phase2(scene, dev, card):
 
     cases = [
         dict(
-            name="streaming_conv", route="cuda",
+            stream["streaming_conv"], name="streaming_conv", route="cuda",
             source="apvast_torch/csrc/streaming_conv.cu",
             replaces="apvast_tpu/ops/pallas/streaming_conv.py:53",
-            kernel=lambda: K.streaming_conv(seg, kern, hop),
-            plain=lambda: K.streaming_conv_plain(seg, kern, hop),
-            # The one call that computes K1's function: cuBLAS on a window view.
-            library=lambda: kern @ seg.unfold(-1, hop, 1)[:, hist - taps + 1 : hist + 1].flip(1),
             context={"conv1d_ms": lambda: F.conv1d(conv_in, conv_w, groups=2)},
             oracle=[("north star", lambda a, b: K.streaming_conv(a, b, hop),
                      lambda a, b: K.streaming_conv_plain(a, b, hop), (seg, kern))],
-            flops=2 * 2 * rows * taps * hop,
-            tc_flops=2 * 2 * rows * taps * hop,
-            bytes=4 * (seg.numel() + kern.numel() + 2 * rows * hop),
             ragged=[
                 (lambda a, b: K.streaming_conv(a, b, 50),
                  lambda a, b: K.streaming_conv_plain(a, b, 50),
@@ -689,16 +774,11 @@ def phase2(scene, dev, card):
             ],
         ),
         dict(
-            name="lag_corr", route="cuda",
+            stream["lag_corr"], name="lag_corr", route="cuda",
             source="apvast_torch/csrc/lag_corr.cu",
             replaces="apvast_tpu/ops/pallas/lag_corr.py:60",
-            kernel=lambda: K.lag_corr(x2, j),
-            plain=lambda: K.lag_corr_plain(x2, j),
-            library=lambda: F.conv1d(c0_in, c0_w, groups=4),
             oracle=[("north star", lambda a: K.lag_corr(a, j), lambda a: K.lag_corr_plain(a, j),
                      (x2,))],
-            flops=2 * 4 * m * (s + 1) ** 2 * j * k2,
-            bytes=4 * (x2.numel() + 4 * (s + 1) ** 2 * j),
             ragged=[
                 (lambda a: K.lag_corr(a, 9), lambda a: K.lag_corr_plain(a, 9),
                  (rnd(4, 3, 5, 70),)),
@@ -707,16 +787,11 @@ def phase2(scene, dev, card):
             ],
         ),
         dict(
-            name="skew_assembly", route="cuda",
-            source="apvast_torch/csrc/skew_assembly.cu",
-            replaces="apvast_tpu/ops/pallas/skew_assembly.py:118",
             # The main path's form is the half form; the full form (the
             # exact path's) is checked and timed beside it.
-            kernel=lambda: K.lag_skew_assemble(lhs3, rhs3, c03, j, half_scaled=True),
-            plain=lambda: K.lag_skew_assemble_plain(lhs3, rhs3, c03, j, half_scaled=True),
-            library=None,
-            flops=2 * 4 * (j * s) * (2 * m) * (s * j),
-            bytes=4 * (lhs3.numel() + rhs3.numel() + c03.numel() + 4 * s * j * s * j),
+            stream["skew_assembly"], name="skew_assembly", route="cuda",
+            source="apvast_torch/csrc/skew_assembly.cu",
+            replaces="apvast_tpu/ops/pallas/skew_assembly.py:118",
             oracle=[("north star", lambda a, b, c: K.lag_skew_assemble(a, b, c, j, True),
                      lambda a, b, c: K.lag_skew_assemble_plain(a, b, c, j, True),
                      (lhs3, rhs3, c03)),
@@ -839,12 +914,9 @@ def phase2(scene, dev, card):
             ],
         ),
         dict(
-            name="output_filter", route="cuda",
+            stream["output_filter"], name="output_filter", route="cuda",
             source="apvast_torch/csrc/output_filter.cu",
             replaces="apvast_tpu/ops/pallas/output_filter.py:72",
-            kernel=lambda: K.circular_filter_overlap(x5, f5, plan.window, t5, hop),
-            plain=lambda: K.circular_filter_overlap_plain(x5, f5, plan.window, t5, hop),
-            library=lambda: F.conv1d(ext5, w5, groups=2),
             oracle=[("north star", lambda a, b, w, t: K.circular_filter_overlap(a, b, w, t, hop),
                      lambda a, b, w, t: K.circular_filter_overlap_plain(a, b, w, t, hop),
                      (x5, f5, plan.window, t5)),
@@ -852,9 +924,6 @@ def phase2(scene, dev, card):
                      lambda a, b, w, t: K.circular_filter_overlap_plain(a, b, w, t, 30),
                      tuple(torch.randn(sh, generator=g3).to(dev)
                            for sh in ((2, 100), (2, 37, 9), (100,), (2, 37, 70))))],
-            flops=2 * 2 * v * s * j * block,
-            bytes=4 * (x5.numel() + f5.numel() + block + t5.numel()
-                       + 2 * v * s * hop + t5.numel()),
             ragged=[
                 (lambda a, b, w, t: K.circular_filter_overlap(a, b, w, t, 30),
                  lambda a, b, w, t: K.circular_filter_overlap_plain(a, b, w, t, 30),
@@ -943,7 +1012,8 @@ def phase2(scene, dev, card):
             replaces="apvast_tpu/ops/pallas/output_filter.py:165",
             kernel=lambda: K.circular_filter(x5, f5),
             plain=lambda: K.circular_filter_plain(x5, f5),
-            library=lambda: F.conv1d(ext5, w5, groups=2),
+            # K5's library call: the same convolution, without the overlap.
+            library=stream["output_filter"]["library"],
             oracle=[("north star", K.circular_filter, K.circular_filter_plain, (x5, f5))],
             flops=2 * 2 * v * s * j * block,
             bytes=4 * (x5.numel() + f5.numel() + 2 * v * s * block),
@@ -1005,18 +1075,11 @@ def phase2(scene, dev, card):
             extra_ms[key] = _time_ms(fn, 50, flush, CHAIN_SPIN_CYCLES)
             print(f"[phase 2] {c['name']}: {key} (see the docstring) "
                   f"{extra_ms[key]:.5f} ms card={card}", flush=True)
-        t_ops = c["flops"] / PEAK_FP32_FLOPS * 1e3
-        t_bytes = c["bytes"] / PEAK_BYTES * 1e3
+        bound_ms, bound_by, fp32_ms = _bound(c["flops"], c["bytes"], c.get("tc_flops"))
         simt = ""
-        if "tc_flops" in c:
-            # 3xTF32: three TF32 passes on the tensor cores, the rest fp32 FMA.
-            extra_ms["bound_fp32_ms"] = max(t_ops, t_bytes)
-            simt = (f"bound_fp32_us={extra_ms['bound_fp32_ms'] * 1e3:.2f} "
-                    f"fp32_share={extra_ms['bound_fp32_ms'] / kernel_ms:.3f} ")
-            t_ops = (3 * c["tc_flops"] / PEAK_TF32_FLOPS
-                     + (c["flops"] - c["tc_flops"]) / PEAK_FP32_FLOPS) * 1e3
-        bound_ms = max(t_ops, t_bytes)
-        bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        if fp32_ms is not None:
+            extra_ms["bound_fp32_ms"] = fp32_ms
+            simt = f"bound_fp32_us={fp32_ms * 1e3:.2f} fp32_share={fp32_ms / kernel_ms:.3f} "
         print(
             f"[phase 2] {c['name']}: rel_err={rel:.3e} max_abs_err={max_abs:.3e} "
             f"kernel_ms={kernel_ms:.5f} plain_ms={plain_ms:.5f} "
@@ -1412,8 +1475,8 @@ def _contrast(scene, tail_a):
 
 
 def _compare_with_cpu(scene, label, cfg, overrides, noise, states, outs, hops_a, hops_b,
-                      gate_feeds=True):
-    """The first CPU_HOPS hops through the port on the CPU (plain versions):
+                      gate_feeds=True, cpu_hops=CPU_HOPS):
+    """The first ``cpu_hops`` hops through the port on the CPU (plain versions):
     from the card's state hop by hop under a subspace solver (unconverged
     Jacobi sweeps make a free-running stream drift), free-running under the
     exact one. Statistics to TOL_STATS, target feeds to TOL_TARGET and
@@ -1427,7 +1490,7 @@ def _compare_with_cpu(scene, label, cfg, overrides, noise, states, outs, hops_a,
         plan = build_plan(cfg, scene.rir_a, scene.rir_b, "cpu")
         cpu_outs = []
         worst = {}
-        for i in range(CPU_HOPS):
+        for i in range(cpu_hops):
             cpu_state, o = process_hop(cfg, plan, _to(states[i], "cpu"), hops_a[i], hops_b[i])
             cpu_outs.append((o.out_a, o.out_b, o.out_a_t, o.out_b_t))
             for name, a, b in zip(
@@ -1438,38 +1501,38 @@ def _compare_with_cpu(scene, label, cfg, overrides, noise, states, outs, hops_a,
                 rel = _rel(a.cpu(), b)[1]
                 worst[name] = max(worst.get(name, 0.0), rel)
                 _check(f"{label} hop {i + 1} statistics {name}", rel, TOL_STATS)
-        print(f"[phase 3] {label}: statistics of hops 1-{CPU_HOPS} within "
+        print(f"[phase 3] {label}: statistics of hops 1-{cpu_hops} within "
               f"{TOL_STATS:.0e} of the CPU: worst rel_err "
               f"{ {name: f'{x:.2e}' for name, x in worst.items()} }", flush=True)
     else:
         cpu = _model(scene, "cpu", noise, overrides)
-        cpu_outs = [cpu.process_input_buffers(hops_a[i], hops_b[i]) for i in range(CPU_HOPS)]
+        cpu_outs = [cpu.process_input_buffers(hops_a[i], hops_b[i]) for i in range(cpu_hops)]
         for name, a, b in zip(
             ("R", "r"),
             hop_statistics(cfg, states[-1].wresp_stat, states[-1].wtarget_stat),
             hop_statistics(cfg, cpu.state.wresp_stat, cpu.state.wtarget_stat),
         ):
-            _compare(label, f"hop {CPU_HOPS} statistics {name}", a.cpu(), b, TOL_STATS)
+            _compare(label, f"hop {cpu_hops} statistics {name}", a.cpu(), b, TOL_STATS)
     for f, name in enumerate(("out_a", "out_b", "out_a_t", "out_b_t")):
         g = torch.stack([o[f] for o in outs]).cpu()
         c = torch.stack([o[f].expand_as(g[0]) for o in cpu_outs])
-        per_hop = [f"{_rel(g[i], c[i])[1]:.1e}" for i in range(CPU_HOPS)]
+        per_hop = [f"{_rel(g[i], c[i])[1]:.1e}" for i in range(cpu_hops)]
         target = name.endswith("_t")
         gated = target or gate_feeds
-        print(f"[phase 3] {label} {name} vs CPU, hops 1-{CPU_HOPS}: per hop {per_hop}"
+        print(f"[phase 3] {label} {name} vs CPU, hops 1-{cpu_hops}: per hop {per_hop}"
               f"{'' if gated else f', all {_rel(g, c)[1]:.1e} (not gated)'}", flush=True)
         if gated:
             _check(f"{label} {name} vs CPU", _rel(g, c)[1], TOL_TARGET if target else TOL_FEEDS)
     print(f"[phase 3] {label}: CPU comparison took {time.perf_counter() - t2:.1f} s", flush=True)
 
 
-def _run_hops(model, label, sig, dev, hops, want_counts, card, per_hop):
+def _run_hops(model, label, sig, dev, hops, want_counts, card, per_hop, cpu_hops=CPU_HOPS):
     """``hops`` hops of ``model`` on the card from the program signals
     ``sig``: the launch counts against ``want_counts``, ``silenced == 0``,
     every output's shape (ranks, hop, srcs) and finiteness, and the host
-    time of the first CPU_HOPS hops and of the rest (the steady state).
+    time of the first cpu_hops hops and of the rest (the steady state).
     ``per_hop(i, out)`` runs after each hop. Returns the CPU input hops, the
-    states and outputs of the first CPU_HOPS hops, the counts and the
+    states and outputs of the first cpu_hops hops, the counts and the
     steady-state ms/hop (None without a steady-state window)."""
     from apvast_torch.engine.graph import clone_state
     from apvast_torch.ops import kernels as K
@@ -1485,11 +1548,11 @@ def _run_hops(model, label, sig, dev, hops, want_counts, card, per_hop):
     states, outs = [clone_state(model.state)], []
     t_first = t0 = time.perf_counter()
     for i in range(hops):
-        if i == CPU_HOPS:
+        if i == cpu_hops:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
         out = model.process_input_buffers(hops_a_dev[i], hops_b_dev[i])
-        if i < CPU_HOPS:
+        if i < cpu_hops:
             outs.append(out)
             states.append(clone_state(model.state))
         per_hop(i, out)
@@ -1507,24 +1570,25 @@ def _run_hops(model, label, sig, dev, hops, want_counts, card, per_hop):
         for t in out:
             if tuple(t.shape) != (ranks, cfg.hop, cfg.num_srcs) or not torch.isfinite(t).all():
                 raise AssertionError(f"{label}: bad output, shape {tuple(t.shape)}")
-    first = min(hops, CPU_HOPS)
-    first_s = (t0 if hops > CPU_HOPS else t1) - t_first
-    ms_hop = (t1 - t0) / (hops - CPU_HOPS) * 1e3 if hops > CPU_HOPS else None
-    steady = (f"steady state {ms_hop:.3f} ms/hop over hops {CPU_HOPS + 1}-{hops}"
+    first = min(hops, cpu_hops)
+    first_s = (t0 if hops > cpu_hops else t1) - t_first
+    ms_hop = (t1 - t0) / (hops - cpu_hops) * 1e3 if hops > cpu_hops else None
+    steady = (f"steady state {ms_hop:.3f} ms/hop over hops {cpu_hops + 1}-{hops}"
               if ms_hop is not None else "no steady-state window")
-    print(f"[phase 3] {label}: scale_scene(16), {hops} hops, {ranks} output ranks, silenced=0, "
+    print(f"[phase 3] {label}: S={cfg.num_srcs} JL={cfg.jl}, {hops} hops, {ranks} output ranks, "
+          f"silenced=0, "
           f"first {first} hops {first_s * 1e3 / first:.3f} ms/hop, {steady} (host clock, "
           f"synchronized) card={card}", flush=True)
     return hops_a, hops_b, hops_a_dev, hops_b_dev, states, outs, counts, ms_hop
 
 
 def drive(scene, dev, card, label, overrides, want_counts, sig, noise, hops=None,
-          gate_feeds=True):
+          gate_feeds=True, cpu_hops=CPU_HOPS):
     """``hops`` (default HOPS) hops of one configuration on the card: launch
-    counts, health, steady-state time (``_run_hops``), the first CPU_HOPS
+    counts, health, steady-state time (``_run_hops``), the first ``cpu_hops``
     hops against the CPU (the loudspeaker feeds only printed unless
-    ``gate_feeds``), and the zone-A tail feeds at rank 1 and rank V for the
-    contrast."""
+    ``gate_feeds``), and the zone-A contrast of the tail feeds at rank 1 and
+    rank V (None without hops past TAIL_FROM)."""
     from apvast_torch.config import uses_tracking_solver
     from apvast_torch.engine.hop import half_form
 
@@ -1542,22 +1606,24 @@ def drive(scene, dev, card, label, overrides, want_counts, sig, noise, hops=None
             tail_a.append(out[0][:: v - 1])  # a view of ranks 1 and V
 
     hops_a, hops_b, hops_a_dev, hops_b_dev, states, outs, counts, ms_hop = _run_hops(
-        model, label, sig, dev, hops, want_counts, card, per_hop)
+        model, label, sig, dev, hops, want_counts, card, per_hop, cpu_hops)
     print(f"[phase 3] {label}: half_form={half_form(cfg)}, {model.rebuilds} rebuilds",
           flush=True)
     if tracking:
         r = torch.stack(resid).cpu()
-        steady = (f", hops {CPU_HOPS + 1}-{hops}: min {float(r[CPU_HOPS:].min()):.4f} max "
-                  f"{float(r[CPU_HOPS:].max()):.4f}" if hops > CPU_HOPS else "")
+        steady = (f", hops {cpu_hops + 1}-{hops}: min {float(r[cpu_hops:].min()):.4f} max "
+                  f"{float(r[cpu_hops:].max()):.4f}" if hops > cpu_hops else "")
         print(f"[phase 3] {label}: {model.rebuilds} preconditioner rebuilds in {hops} hops; "
               f"gevd_resid min {float(r.min()):.4f} max {float(r.max()):.4f} "
               f"(hops 1-{hops}){steady}", flush=True)
 
     _compare_with_cpu(scene, label, cfg, overrides, noise, states, outs, hops_a, hops_b,
-                      gate_feeds)
-    contrast = _contrast(scene, tail_a)
-    print(f"[phase 3] {label}: zone-A contrast over hops {TAIL_FROM + 1}-{hops}: rank 1 "
-          f"{contrast[0]:.4f} dB, rank {v} {contrast[1]:.4f} dB", flush=True)
+                      gate_feeds, cpu_hops)
+    contrast = None
+    if tail_a:  # hops past TAIL_FROM
+        contrast = _contrast(scene, tail_a)
+        print(f"[phase 3] {label}: zone-A contrast over hops {TAIL_FROM + 1}-{hops}: rank 1 "
+              f"{contrast[0]:.4f} dB, rank {v} {contrast[1]:.4f} dB", flush=True)
     return model, hops_a_dev, hops_b_dev, ms_hop, counts, contrast
 
 
@@ -1611,17 +1677,34 @@ def _want(path, hops, **extra):
     return {name: hops if name in PATH_KERNELS[path] else 0 for name in K.WRAPPERS} | extra
 
 
-def configured_then_converged(scene, dev, card, sig, noise, label, config, want, hops=None):
+def configured_then_converged(scene, dev, card, sig, noise, label, config, want, hops=None,
+                              cpu_hops=CPU_HOPS):
     """The path as configured (``hops``, default HOPS), its statistics and
-    target feeds held against the CPU, then CPU_HOPS hops of it with K4 at
-    CONVERGED_SWEEPS, the loudspeaker feeds too. Returns ``drive``'s result
-    for the first."""
+    target feeds held against the CPU over ``cpu_hops`` hops, then
+    ``cpu_hops`` hops of it with K4 at CONVERGED_SWEEPS, the loudspeaker
+    feeds too. Returns ``drive``'s result for the first."""
     hops = HOPS if hops is None else hops
-    path = drive(scene, dev, card, label, config, want, sig, noise, hops=hops, gate_feeds=False)
-    converged = {name: n * CPU_HOPS // hops for name, n in want.items()}
+    path = drive(scene, dev, card, label, config, want, sig, noise, hops=hops, gate_feeds=False,
+                 cpu_hops=cpu_hops)
+    converged = {name: n * cpu_hops // hops for name, n in want.items()}
     drive(scene, dev, card, f"{label} ({CONVERGED_SWEEPS} sweeps)",
-          config | {"jacobi_sweeps": CONVERGED_SWEEPS}, converged, sig, noise, hops=CPU_HOPS)
+          config | {"jacobi_sweeps": CONVERGED_SWEEPS}, converged, sig, noise, hops=cpu_hops,
+          cpu_hops=cpu_hops)
     return path
+
+
+def _contrast_gates(scene, gates, tag="phase 3"):
+    """Each (label, path, reference label, reference) of ``drive`` results:
+    the path's zone-A contrast within TOL_CONTRAST_DB of the reference's at
+    rank 1 and rank V."""
+    for label, path, ref_label, ref in gates:
+        for rank, p, e in zip((1, scene.config.num_eigenvectors), path[5], ref[5]):
+            delta = p - e
+            print(f"[{tag}] contrast gate rank {rank}: {label} {p:.4f} dB, {ref_label} "
+                  f"{e:.4f} dB, delta {delta:+.4f} dB (limit {TOL_CONTRAST_DB} dB)", flush=True)
+            if not abs(delta) <= TOL_CONTRAST_DB:
+                raise AssertionError(f"contrast gate failed for {label} at rank {rank}: "
+                                     f"{delta:+.4f} dB")
 
 
 def phase3(scene, dev, card, results):
@@ -1651,16 +1734,9 @@ def phase3(scene, dev, card, results):
     for r in results:
         if r["name"] not in (*FD_KERNELS, *UNCALLED_KERNELS):
             r["launches"] = launched_by.get(r["name"], prod)[4][r["name"]]
-    gates = [("production", prod, "exact", exact), ("invert", invert, "exact", exact),
-             ("dense", dense, "exact", exact), ("weighting-conv", wconv, "production", prod)]
-    for label, path, ref_label, ref in gates:
-        for rank, p, e in zip((1, scene.config.num_eigenvectors), path[5], ref[5]):
-            delta = p - e
-            print(f"[phase 3] contrast gate rank {rank}: {label} {p:.4f} dB, {ref_label} "
-                  f"{e:.4f} dB, delta {delta:+.4f} dB (limit {TOL_CONTRAST_DB} dB)", flush=True)
-            if not abs(delta) <= TOL_CONTRAST_DB:
-                raise AssertionError(f"contrast gate failed for {label} at rank {rank}: "
-                                     f"{delta:+.4f} dB")
+    _contrast_gates(scene, [("production", prod, "exact", exact),
+                            ("invert", invert, "exact", exact), ("dense", dense, "exact", exact),
+                            ("weighting-conv", wconv, "production", prod)])
     print(f"[phase 3] steady state: production {prod[3]:.3f} ms/hop, exact {exact[3]:.3f} "
           f"ms/hop, invert {invert[3]:.3f} ms/hop, dense {dense[3]:.3f} ms/hop, weighting-conv "
           f"{wconv[3]:.3f} ms/hop card={card}", flush=True)
@@ -1847,11 +1923,11 @@ def _statistics(model):
     return hop_statistics(model.config, model.state.wresp_stat, model.state.wtarget_stat)
 
 
-def _graph_against_eager(scene, dev, card, label, noise, x, **extra):
-    """CPU_HOPS hops of a graphed and an eager model, each hop from the
+def _graph_against_eager(scene, dev, card, label, noise, x, hops=CPU_HOPS, **extra):
+    """``hops`` hops of a graphed and an eager model, each hop from the
     graphed model's state: launch counts equal, statistics and target feeds
-    within TOL_GRAPH of scale, loudspeaker feeds printed (returned),
-    silenced == 0, the same rebuilds. Returns the feeds' worst rel_err."""
+    within TOL_GRAPH of scale, loudspeaker feeds printed, silenced == 0, the
+    same rebuilds. Returns the worst (rel_err, max |diff|) of each."""
     from apvast_torch.engine.graph import clone_state
     from apvast_torch.ops import kernels as K
 
@@ -1868,7 +1944,7 @@ def _graph_against_eager(scene, dev, card, label, noise, x, **extra):
         diff, rel = _rel(a, b)
         worst[key] = (max(worst[key][0], rel), max(worst[key][1], diff))
 
-    for i in range(CPU_HOPS):
+    for i in range(hops):
         eager.state = clone_state(graphed.state)
         K.reset_launch_counts()
         got = graphed.process_input_buffers(x[0, i], x[1, i])
@@ -1884,7 +1960,8 @@ def _graph_against_eager(scene, dev, card, label, noise, x, **extra):
             if want[f] is not None:
                 note("target feeds" if f >= 2 else "loudspeaker feeds", got[f], want[f])
     silenced = (int(graphed.silenced.item()), int(eager.silenced.item()))
-    print(f"[phase 3 graph] {label}: {CPU_HOPS} hops from one state, graphed against eager: "
+    print(f"[phase 3 graph] {label} ({scene.name}): {hops} hops from one state, graphed against "
+          "eager: "
           + ", ".join(f"{k} rel_err {r:.3e} max|diff| {d:.3e}" for k, (r, d) in worst.items())
           + f"; launches equal; rebuilds {graphed.rebuilds} / {eager.rebuilds}; silenced "
           f"{silenced}; capture s {_capture_s(graphed)} card={card}", flush=True)
@@ -1893,7 +1970,7 @@ def _graph_against_eager(scene, dev, card, label, noise, x, **extra):
     if silenced != (0, 0) or graphed.rebuilds != eager.rebuilds:
         raise AssertionError(f"{label}: silenced {silenced}, rebuilds {graphed.rebuilds} / "
                              f"{eager.rebuilds}")
-    return worst["loudspeaker feeds"][0]
+    return worst
 
 
 def _capture_s(model):
@@ -1986,10 +2063,10 @@ def phase3_graph(scene, dev, card):
     x = torch.as_tensor(sig).to(dev).reshape(2, HOPS, -1)
     for label in GRAPHED:
         fd = _path_overrides(scene)[label][0]
-        feeds = _graph_against_eager(scene, dev, card, label, noise, x)
+        feeds = _graph_against_eager(scene, dev, card, label, noise, x)["loudspeaker feeds"][0]
         if not fd:
             feeds = _graph_against_eager(scene, dev, card, label, noise, x,
-                                         jacobi_sweeps=CONVERGED_SWEEPS)
+                                         jacobi_sweeps=CONVERGED_SWEEPS)["loudspeaker feeds"][0]
             print(f"[phase 3 graph] {label} at {CONVERGED_SWEEPS} sweeps: loudspeaker feeds "
                   f"rel_err {feeds:.3e} (limit {TOL_FEEDS})", flush=True)
         _check(f"{label} graphed loudspeaker feeds", feeds, TOL_FEEDS)
@@ -2040,6 +2117,40 @@ def phase3_serve(scene, dev, card):
                                  f"{host.dropped_input_chunks} drops, max |diff| {diff:.3e}")
 
 
+def _eager_graphed_ms(scene, dev, card, noise, x, label, tag="phase 3 time"):
+    """Host-clock steady-state ms/hop of one path, eager against graphed,
+    both from one state and input, in turns (eager, graphed, graphed, eager
+    over two TIME_HOPS windows after TIME_WARM hops); the graph's capture
+    time and residual reads per hop printed. Returns (eager model, graphed
+    model, inputs, eager ms, graphed ms)."""
+    models = [_path_model(scene, dev, noise, label, graph) for graph in (False, None)]
+    for m in models:
+        for i in range(TIME_WARM):
+            m.process_input_buffers(x[0, i], x[1, i])
+
+    def timed(m, start):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(start, start + TIME_HOPS):
+            m.process_input_buffers(x[0, i % HOPS], x[1, i % HOPS])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / TIME_HOPS * 1e3
+
+    reads0 = models[1].graph.resid_reads
+    w1, w2 = TIME_WARM, TIME_WARM + TIME_HOPS
+    e1, g1, g2, e2 = (timed(models[0], w1), timed(models[1], w1), timed(models[1], w2),
+                      timed(models[0], w2))
+    eager, graphed = (e1 + e2) / 2, (g1 + g2) / 2
+    reads = (models[1].graph.resid_reads - reads0) / (2 * TIME_HOPS)
+    print(f"[{tag}] {label}: steady state eager {eager:.3f} ms/hop ({e1:.3f}, "
+          f"{e2:.3f}), graphed {graphed:.3f} ms/hop ({g1:.3f}, {g2:.3f}), "
+          f"{eager / graphed:.2f}x; "
+          f"capture s {_capture_s(models[1])}; residual reads {reads:.3f} a hop; rebuilds "
+          f"{models[0].rebuilds} / {models[1].rebuilds} (host clock, synchronized) "
+          f"card={card}", flush=True)
+    return (*models, x, eager, graphed)
+
+
 def phase3_time(scene, dev, card):
     """Host-clock steady-state ms/hop of each TIMED path, eager against
     graphed, both from one state and input, in turns (eager, graphed,
@@ -2050,32 +2161,7 @@ def phase3_time(scene, dev, card):
     x = torch.as_tensor(sig).to(dev).reshape(2, HOPS, -1)
     out = {}
     for label in TIMED:
-        models = [_path_model(scene, dev, noise, label, graph) for graph in (False, None)]
-        for m in models:
-            for i in range(TIME_WARM):
-                m.process_input_buffers(x[0, i], x[1, i])
-
-        def timed(m, start):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for i in range(start, start + TIME_HOPS):
-                m.process_input_buffers(x[0, i % HOPS], x[1, i % HOPS])
-            torch.cuda.synchronize()
-            return (time.perf_counter() - t0) / TIME_HOPS * 1e3
-
-        reads0 = models[1].graph.resid_reads
-        w1, w2 = TIME_WARM, TIME_WARM + TIME_HOPS
-        e1, g1, g2, e2 = (timed(models[0], w1), timed(models[1], w1), timed(models[1], w2),
-                          timed(models[0], w2))
-        eager, graphed = (e1 + e2) / 2, (g1 + g2) / 2
-        reads = (models[1].graph.resid_reads - reads0) / (2 * TIME_HOPS)
-        print(f"[phase 3 time] {label}: steady state eager {eager:.3f} ms/hop ({e1:.3f}, "
-              f"{e2:.3f}), graphed {graphed:.3f} ms/hop ({g1:.3f}, {g2:.3f}), "
-              f"{eager / graphed:.2f}x; "
-              f"capture s {_capture_s(models[1])}; residual reads {reads:.3f} a hop; rebuilds "
-              f"{models[0].rebuilds} / {models[1].rebuilds} (host clock, synchronized) "
-              f"card={card}", flush=True)
-        out[label] = (*models, x, eager, graphed)
+        out[label] = _eager_graphed_ms(scene, dev, card, noise, x, label)
     print(f"[phase 3 time] production graphed {out['production'][4]:.3f} ms/hop against the "
           f"{REALTIME_MS:.2f} ms real-time limit of one stream (a measurement, not a gate) "
           f"card={card}", flush=True)
@@ -2266,8 +2352,8 @@ def _multi_held(scene, dev, card, pairs, label, **extra):
                               torch.stack(feeds[name][1][k::MULTI_N]))[1]
                          for name in names for k in range(MULTI_N))
     silenced = model.silenced.tolist()
-    print(f"[phase 3 multi] {label}: {MULTI_N} scenes graphed, {CPU_HOPS} hops, each scene "
-          f"against its own single-scene hop from the same state: "
+    print(f"[phase 3 multi] {label} ({scene.name}): {MULTI_N} scenes graphed, {CPU_HOPS} hops, "
+          f"each scene against its own single-scene hop from the same state: "
           + ", ".join(f"{k} rel_err {v:.3e}" for k, v in worst.items())
           + f"; launches a hop {({k: v for k, v in want_counts.items() if v})} (batched = single);"
           f" rebuilds {rebuilds}; silenced {silenced}; capture s {_capture_s(model)} card={card}",
@@ -2778,6 +2864,276 @@ def phase3_lag(scene, dev, card):
         del model
     _lag_c0(dev, card)
 
+# ---- phase 3, the 32-speaker scene: scale_scene(32), JL = 1600 -------------
+
+# BASELINE.json config 5, the JAX package's one-chip scaling scene
+# (tools/tracking_gate.py, tools/resid_profile.py): S = 32, M = 33, J = 50,
+# JL = 1600, V = 50, k = 64, widths not cut. A CPU hop at JL = 1600 takes
+# seconds, so SCALE32_CPU_HOPS hops are held against the CPU.
+SCALE32_SRCS = 32
+SCALE32_CPU_HOPS = 2
+SCALE32_GRAPH_HOPS = 16  # graphed against eager, from one state
+# tools/resid_profile.py's experiment: both programs +20 dB from the 0-based
+# hop SCALE32_STEP_HOP on; a residual-triggered rebuild on one of the
+# SCALE32_STEP_WITHIN hops that follow the step's first hop.
+SCALE32_STEP_HOP = 39
+SCALE32_STEP_GAIN = 10.0
+SCALE32_STEP_WITHIN = 2
+
+
+def phase2_scale32(scene, dev, card, results):
+    """K1, K2, K3 (half form) and K5 at the 32-speaker scene's shapes
+    against their plain versions (TOL_KERNEL of scale), timed as phase 2
+    times them (CUDA events, L2 flushed, the card spinning while the host
+    enqueues), beside their bounds (as phase 2 counts them) and library
+    calls; added to each kernel's row of ``results`` under ``scale32_*``."""
+    from apvast_torch.engine.plan import build_plan
+
+    cfg = scene.config
+    plan = build_plan(cfg, scene.rir_a, scene.rir_b, dev)
+    g = torch.Generator().manual_seed(SEED + SCALE32_SRCS)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g).to(dev)
+
+    flush = torch.zeros(64 * 2**20 // 4, dtype=torch.float32, device=dev)
+    rows_by_name = {r["name"]: r for r in results}
+    for name, c in _stream_cases(cfg, plan, rnd).items():
+        errs = _errs(c["kernel"](), c["plain"]())
+        torch.cuda.synchronize()
+        max_abs, rel = max(e[0] for e in errs), max(e[1] for e in errs)
+        _check(f"{name} (32-speaker shape)", rel, TOL_KERNEL)
+        kernel_ms = _time_ms(c["kernel"], 50, flush)
+        plain_ms = _time_ms(c["plain"], 10, flush)
+        library_ms = _time_ms(c["library"], 50, flush) if c["library"] else None
+        bound_ms, bound_by, _ = _bound(c["flops"], c["bytes"], c.get("tc_flops"))
+        print(f"[phase 2 scale32] {name} {c['shape']}: rel_err={rel:.3e} "
+              f"max_abs_err={max_abs:.3e} kernel_ms={kernel_ms:.5f} plain_ms={plain_ms:.5f} "
+              f"library_ms={library_ms if library_ms is None else f'{library_ms:.5f}'} "
+              f"bound_us={bound_ms * 1e3:.2f} ({bound_by}) "
+              f"roofline_share={bound_ms / kernel_ms:.3f} card={card}", flush=True)
+        rows_by_name[name].update(
+            scale32_ms=kernel_ms, scale32_plain_ms=plain_ms, scale32_library_ms=library_ms,
+            scale32_bound_ms=bound_ms, scale32_bound_by=bound_by, scale32_max_abs_err=max_abs)
+
+
+def _scale32_residual_step(scene, dev, card, noise, sig):
+    """tools/resid_profile.py on the card: the graphed production path for
+    HOPS hops with both programs SCALE32_STEP_GAIN times louder from hop
+    SCALE32_STEP_HOP on. Prints every hop's tracking residual and why each
+    rebuild happened (warmup, period or residual, by the rebuild predicate
+    on the host), and the stationary band (the residual of the non-rebuild
+    hops after the warmup and before the step). Gates: silenced 0, and a
+    residual-triggered rebuild within SCALE32_STEP_WITHIN hops of the step.
+    Stationary hops above the threshold are reported as a finding, not
+    gated: the threshold stays the JAX package's."""
+    from apvast_torch import production_overrides
+
+    model = _model(scene, dev, noise, production_overrides())
+    if not model.graphed:
+        raise AssertionError(f"production-32: not graphed ({model.eager_reason})")
+    cfg = model.config
+    stepped = sig.copy()
+    stepped[:, SCALE32_STEP_HOP * cfg.hop:] *= SCALE32_STEP_GAIN
+    x = torch.as_tensor(stepped).to(dev).reshape(2, HOPS, -1)
+    threshold, warmup = cfg.tracking_residual_rebuild, cfg.tracking_warmup_hops
+    period = cfg.tracking_rebuild_period
+    resid, reasons = [], []
+    for i in range(HOPS):
+        gevd_hop, rebuilds = model.state.gevd_hop, model.rebuilds
+        model.process_input_buffers(x[0, i], x[1, i])
+        resid.append(float(model.state.gevd_resid))
+        if model.rebuilds == rebuilds:
+            reasons.append(None)
+        elif gevd_hop < warmup:
+            reasons.append("warmup")
+        elif gevd_hop % period == 0:
+            reasons.append("period")
+        else:
+            reasons.append("residual")
+    silenced = int(model.silenced.item())
+    stationary = [i for i in range(warmup, SCALE32_STEP_HOP) if reasons[i] is None]
+    band = sorted(resid[i] for i in stationary)
+    above = [i + 1 for i in stationary if resid[i] > threshold]
+    triggered = [i + 1 for i, why in enumerate(reasons) if why == "residual"]
+    in_window = [h for h in triggered
+                 if SCALE32_STEP_HOP + 1 < h <= SCALE32_STEP_HOP + 1 + SCALE32_STEP_WITHIN]
+    print(f"[phase 3 scale32] residual step: production graphed, {HOPS} hops, both programs "
+          f"+20 dB from hop {SCALE32_STEP_HOP + 1}; threshold {threshold}, period {period}, "
+          f"warmup {warmup}; per hop (hop: residual, rebuild reason): "
+          + ", ".join(f"{i + 1}: {r:.4f}{'' if why is None else ' ' + why}"
+                      for i, (r, why) in enumerate(zip(resid, reasons)))
+          + f"; silenced {silenced} card={card}", flush=True)
+    print(f"[phase 3 scale32] residual step: stationary band (hops {warmup + 1}-"
+          f"{SCALE32_STEP_HOP} without a rebuild, {len(band)} hops) min {band[0]:.4f} median "
+          f"{band[len(band) // 2]:.4f} max {band[-1]:.4f}; step: residual "
+          f"{resid[SCALE32_STEP_HOP]:.4f} on hop {SCALE32_STEP_HOP + 1}; residual-triggered "
+          f"rebuilds on hops {triggered}, within {SCALE32_STEP_WITHIN} hops of the step "
+          f"{in_window}", flush=True)
+    if above:
+        print(f"[phase 3 scale32] FINDING: stationary hops {above} read a residual above the "
+              f"threshold {threshold} (reported, not gated; the threshold stays {threshold})",
+              flush=True)
+    if silenced:
+        raise AssertionError(f"residual step: silenced {silenced}")
+    if not in_window:
+        raise AssertionError(f"residual step: no residual-triggered rebuild within "
+                             f"{SCALE32_STEP_WITHIN} hops of the step (residual-triggered: "
+                             f"{triggered})")
+
+
+def _device_mib(build):
+    """``build()``'s peak device memory and what stays allocated while its
+    result lives, in MiB above what was allocated before."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kept = build()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    return kept, peak, (torch.cuda.memory_allocated() - base) / 2**20
+
+
+def phase3_scale32(scene, dev, card, results):
+    """The 32-speaker scene through the production path (see the module
+    docstring). Returns, for phase 4, the production and the invert path's
+    eager and graphed models, inputs and ms/hop by label."""
+    from apvast_torch import GevdSolver, production_overrides
+
+    t_phase = time.perf_counter()
+    tag = "phase 3 scale32"
+    cfg = scene.config
+    prod_cfg = production_overrides()
+    print(f"[{tag}] {scene.name}: S={cfg.num_srcs} M={cfg.num_mics} J={cfg.filter_length} "
+          f"JL={cfg.jl} V={cfg.num_eigenvectors} "
+          f"k={cfg.num_eigenvectors + prod_cfg['subspace_oversample']} "
+          f"block={cfg.block_size} hop={cfg.hop} buffer={cfg.statistics_buffer_length} "
+          f"perceptual={cfg.perceptual} {cfg.dtype}", flush=True)
+    noise, sig = _inputs(scene)
+    held = functools.partial(configured_then_converged, scene, dev, card, sig, noise,
+                             cpu_hops=SCALE32_CPU_HOPS)
+    # K10a factors the dark matrices only while JL pads to at most 1024 (the
+    # JAX engine's rule, engine/hop.py): at JL = 1600 'invert' factors them
+    # with torch's Cholesky, and K9 runs at n = 1600.
+    panels = -(-cfg.jl // 128)
+    whiten = panels * HOPS if panels * 128 <= 1024 else 0
+    prod = held("production-32", prod_cfg, _want("production", HOPS))
+    invert = held("invert-32", prod_cfg | INVERT, _want("invert", HOPS, whiten=whiten))
+    exact = drive(scene, dev, card, "exact-32", prod_cfg | {"gevd_solver": GevdSolver.EIGH},
+                  _want("exact", HOPS), sig, noise, cpu_hops=SCALE32_CPU_HOPS)
+    for label, path in (("production-32", prod), ("invert-32", invert)):
+        if not path[0].graphed:
+            raise AssertionError(f"{label}: not graphed ({path[0].eager_reason})")
+    _contrast_gates(scene, [("production-32", prod, "exact-32", exact),
+                            ("invert-32", invert, "exact-32", exact)], tag)
+    for r in results:
+        n = (invert if r["name"] in ROUND3_KERNELS else prod)[4].get(r["name"], 0)
+        if n:
+            r["scale32_launches"] = n
+    del prod, invert, exact
+
+    x = torch.as_tensor(sig).to(dev).reshape(2, HOPS, -1)
+    worst = _graph_against_eager(scene, dev, card, "production", noise, x,
+                                 hops=SCALE32_GRAPH_HOPS)
+    if any(diff != 0 for _, diff in worst.values()):
+        raise AssertionError(f"production-32: the graphed hop is not the eager hop bit for bit "
+                             f"({worst})")
+    _scale32_residual_step(scene, dev, card, noise, sig)
+
+    def one_stream(label):
+        model = _path_model(scene, dev, noise, label, None)
+        for i in range(TIME_WARM):
+            model.process_input_buffers(x[0, i], x[1, i])
+        return model
+
+    for label in ("production", "invert"):
+        _, peak, kept = _device_mib(functools.partial(one_stream, label))
+        print(f"[{tag}] {label}-32, one stream graphed, {TIME_WARM} hops: device memory peak "
+              f"{peak:.1f} MiB, {kept:.1f} MiB allocated while it lives "
+              f"(torch.cuda.max_memory_allocated) card={card}", flush=True)
+    timed = {f"{label}-32": _eager_graphed_ms(scene, dev, card, noise, x, label, tag)
+             for label in ("production", "invert")}
+    print(f"[{tag}] graphed: production-32 {timed['production-32'][4]:.3f} ms/hop, invert-32 "
+          f"{timed['invert-32'][4]:.3f} ms/hop against the {REALTIME_MS:.2f} ms real-time limit "
+          f"of one stream (host clock; measurements, not gates) card={card}", flush=True)
+
+    pairs = _scene_pairs(scene, MULTI_N)
+    feeds = _multi_held(scene, dev, card, pairs, "production")
+    print(f"[{tag}] multi production-32: loudspeaker feeds rel_err {feeds:.3e} at "
+          f"{prod_cfg['jacobi_sweeps']} sweeps (printed; gated at {CONVERGED_SWEEPS} sweeps)",
+          flush=True)
+    _check("multi production-32 loudspeaker feeds",
+           _multi_held(scene, dev, card, pairs, "production", jacobi_sweeps=CONVERGED_SWEEPS),
+           TOL_FEEDS)
+    (_, _, ms), peak, kept = _device_mib(
+        lambda: _multi_time(scene, dev, card, pairs, "production", MULTI_N))
+    print(f"[{tag}] multi production-32 N={MULTI_N}: {ms:.3f} ms per batched hop, "
+          f"{MULTI_N * REALTIME_MS / ms:.2f} streams per card; device memory peak {peak:.1f} MiB "
+          f"({peak / MULTI_N:.1f} a stream) card={card}", flush=True)
+    print(f"[{tag}] took {time.perf_counter() - t_phase:.1f} s card={card}", flush=True)
+    return timed
+
+
+# ---- phase 3, the demo: examples/run_demo_torch.py --------------------------
+
+DEMO_HOPS = 20
+DEMO_FLAGS = {"exact": (), "fast": ("--fast",), "fd": ("--fd",)}
+DEMO_FAST_KERNELS = ("streaming_conv", "output_filter", "statistics")
+TOL_DEMO_NMSE = 5e-2  # relative, the card's run against the CPU's
+
+
+def phase3_demo(card):
+    """The port's demo (``examples/run_demo_torch.py``) in this process at
+    DEMO_HOPS hops on the card, for the default (the exact solver),
+    ``--fast`` and ``--fd``, each against the same demo with ``--cpu``:
+    every span's zone contrast within TOL_CONTRAST_DB and NMSE within
+    TOL_DEMO_NMSE relative; ``--fast`` launches K1, K5 and K6; wall seconds
+    printed."""
+    import importlib.util
+    import os
+
+    from apvast_torch.ops import kernels as K
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples",
+                        "run_demo_torch.py")
+    spec = importlib.util.spec_from_file_location("run_demo_torch", path)
+    demo = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(demo)
+    for label, flags in DEMO_FLAGS.items():
+        argv = ["--hops", str(DEMO_HOPS), *flags]
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        on_card = demo.run(demo.parse_args(argv))
+        card_s = time.perf_counter() - t0
+        counts = K.launch_counts()
+        t0 = time.perf_counter()
+        on_cpu = demo.run(demo.parse_args([*argv, "--cpu"]))
+        cpu_s = time.perf_counter() - t0
+        if on_card["device"] != "cuda" or on_cpu["device"] != "cpu":
+            raise AssertionError(f"demo {label}: ran on {on_card['device']} / {on_cpu['device']}")
+        worst_db = worst_nmse = 0.0
+        for got, want in zip(on_card["rows"], on_cpu["rows"]):
+            worst_db = max(worst_db, abs(got[1] - want[1]), abs(got[2] - want[2]))
+            worst_nmse = max(worst_nmse,
+                             *(abs(g - w) / abs(w) for g, w in zip(got[3:5], want[3:5])))
+            print(f"[phase 3 demo] {label} span {got[0]}: card contrast A {got[1]:.4f} B "
+                  f"{got[2]:.4f} dB, NMSE A {got[3]:.4f} B {got[4]:.4f}, detectability "
+                  f"{got[5]:.3e};"
+                  f" cpu {want[1]:.4f} {want[2]:.4f} dB, {want[3]:.4f} {want[4]:.4f}, "
+                  f"{want[5]:.3e}", flush=True)
+        print(f"[phase 3 demo] {label} ({' '.join(argv)}): card against --cpu: contrast "
+              f"{worst_db:.4f} dB (limit {TOL_CONTRAST_DB}), NMSE {worst_nmse:.3e} relative "
+              f"(limit {TOL_DEMO_NMSE}); launches {({k: v for k, v in counts.items() if v})}; "
+              f"wall s: card {card_s:.2f} (stream {on_card['seconds']:.2f}), cpu {cpu_s:.2f} "
+              f"(stream {on_cpu['seconds']:.2f}) card={card}", flush=True)
+        if worst_db > TOL_CONTRAST_DB or worst_nmse > TOL_DEMO_NMSE:
+            raise AssertionError(f"demo {label}: the card's table is not the CPU's")
+        if label == "fast" and not all(counts[name] for name in DEMO_FAST_KERNELS):
+            raise AssertionError(f"demo --fast: launches {counts}, want {DEMO_FAST_KERNELS}")
+
 # ---- phase 3, evaluation: metrics, checkpoints, MATLAB, bf16, offline ------
 
 TOL_METRICS = 1e-4  # the card's per-hop metrics against the CPU's float64
@@ -3247,7 +3603,7 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="add phase 4, a torch.profiler breakdown of the production, the "
                          "invert, the dense, the weighting-conv, the fd-jacobi and the "
-                         "fd-full path")
+                         "fd-full path, and of production and invert at 32 speakers")
     args = ap.parse_args()
 
     # ---- phase 0: environment ------------------------------------------
@@ -3280,11 +3636,12 @@ def main() -> int:
             elif "registers" in line or "spill" in line:
                 print(f"[phase 1] {name}: {line.strip()}", flush=True)
 
-    scene = scale_scene(16)
+    scene, scene32 = scale_scene(16), scale_scene(SCALE32_SRCS)
 
     # ---- phase 2: kernels against their plain versions -----------------
     results = phase2(scene, dev, card)
     phase2_folded(scene, dev, card, results)
+    phase2_scale32(scene32, dev, card, results)
 
     # ---- phase 3: the main path ----------------------------------------
     phase3(scene, dev, card, results)
@@ -3294,10 +3651,13 @@ def main() -> int:
     timed = phase3_time(scene, dev, card)
     multi = phase3_multi(scene, dev, card)
     phase3_shard(card)
+    scale32 = phase3_scale32(scene32, dev, card, results)
+    phase3_demo(card)
     phase3_lag(scene, dev, card)
     phase3_eval(scene, dev, card)
 
     if args.profile:
+        timed |= scale32
         for label, (eager, graphed, x, eager_ms, graphed_ms) in timed.items():
             phase4(f"{label} eager", eager, x, card, eager_ms)
             phase4(f"{label} graphed", graphed, x, card, graphed_ms)

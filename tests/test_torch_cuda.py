@@ -883,6 +883,23 @@ def test_kernels_refuse_float64_on_the_card(dev):
         K.streaming_conv(torch.zeros(2, 100, device=dev), torch.zeros(2, 3, 20), 40)
 
 
+@pytest.mark.parametrize("form", ["full", "half"])
+def test_skew_statistics_refuse_float64_on_the_card(dev, form):
+    """Float64 skew statistics run K3's plain version on the CPU only: on
+    the card K3 (and K2) take float32, and float64 raises."""
+    j, n = 5, 40
+    buf = torch.zeros(4, 2, 3, n, dtype=torch.float64, device=dev)
+    d = torch.zeros(2, 2, n - j + 1, dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        K.lag_skew_assemble(*(torch.zeros(*s, dtype=torch.float64, device=dev)
+                              for s in ((4, 15, 4), (4, 4, 15), (4, 3, 15))), j)
+    with pytest.raises(ValueError, match="float32"):
+        LS.covariance_via_lags_skew(buf, d, j, form=form)
+    for c0_method in ("pallas", "auto"):
+        with pytest.raises(ValueError, match="float32"):
+            LS.covariance_via_lags_skew(buf, d, j, form=form, c0_method=c0_method)
+
+
 def _s8_kwargs(rng, overrides):
     rir_a, rir_b = synthetic_rirs(96, 8, 3, seed=81), synthetic_rirs(96, 8, 3, seed=82)
     noise = (1e-3 * rng.standard_normal((4, 3, 8, 128)), 1e-3 * rng.standard_normal((2, 3, 128)))

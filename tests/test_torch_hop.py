@@ -193,12 +193,14 @@ def test_state_carried_over_from_jax(small_scene, config):
 
 
 def test_skew_statistics_need_float32(small_scene):
-    jc, rir_a, rir_b = small_scene
-    tc = config_from_jax(
-        dataclasses.asdict(dataclasses.replace(jc, use_lag_statistics=True, lag_assembly="skew"))
-    )
-    plan = build_plan(tc, rir_a, rir_b, device="cpu")
-    state = init_state(tc, device="cpu")
-    hop = torch.zeros(tc.hop, dtype=torch.float64)
-    with pytest.raises(ValueError, match="float32"):
-        process_hop(tc, plan, state, hop, hop)
+    """Float64 skew lag statistics: K2 and K3 are float32 kernels, so C0
+    comes by convolution and the layout from K3's plain version, as the JAX
+    engine computes them in float64 on the CPU (its kernel in interpret
+    mode); the hop equals the JAX engine's within 1e-9 (the port raised
+    here before)."""
+    pair = _Pair(*_small(small_scene, use_lag_statistics=True, lag_assembly="skew"))
+    assert pair.tc.dtype == "float64"
+    for _ in range(4):
+        got, want = pair.step(*pair.inputs())
+        for g, w in zip(got, want):
+            assert g.dtype == np.float64 and _rel(g, w) <= 1e-9
