@@ -1,0 +1,7 @@
+"""``idle_share`` of the one live north-star stream (``ns16-prod-x1``), split from
+the other cells' so that its wider spread between processes sets a bound
+of its own: the same reading (``metrics/idle_share.py``)."""
+
+from harness.spec import metric_reader
+
+read = metric_reader("idle_share")
