@@ -28,12 +28,19 @@ the replay. Batched, 'newton' decides each scene's rebuild on the device
 (a select of both branches), so it is captured as one graph whose
 per-scene decision is a static output. A sharded hop (a mesh) runs
 eagerly: its collectives go through the host.
+
+The hop meter (``observability.HopMeter``) times the input copy, the
+residual read and the launch on the host, the captures as set-up, and
+captures its timed marks into a twin of each branch graph:
+``process_hop``'s section boundaries and, last, ``writeback`` after the
+state and output copies. A hop replays the branch graph without marks,
+and the meter's sampled hops the twin.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-import time
 
 import torch
 
@@ -41,9 +48,12 @@ from apvast_torch.config import ApVastConfig, uses_subspace_solver, uses_trackin
 from apvast_torch.engine.fd_hop import FdState, process_hop_fd
 from apvast_torch.engine.hop import HopOutputs, process_hop, rebuild_predicate
 from apvast_torch.engine.plan import ApVastPlan
+from apvast_torch.observability import MARKS, meter
 from apvast_torch.ops import kernels as K
 from apvast_torch.parallel.mesh import sharded_multi_scene_fd_hop, sharded_multi_scene_hop
 from apvast_torch.utils.device import torch_dtype
+
+_meter = meter()
 
 _EIGH = "torch.linalg.eigh, which checks its result on the host (a device read mid-hop)"
 
@@ -202,7 +212,10 @@ class GraphedHop:
     captured: each graph keeps the counts of its capture, which
     :meth:`replay` adds, and the counts of the warmup and the captures
     are taken back out. ``batched``: the scene-batched hop (module
-    docstring), ``plan`` and ``state`` batched over scenes."""
+    docstring), ``plan`` and ``state`` batched over scenes. ``marked``:
+    each branch's twin graph with the timed marks
+    (``observability.MARKS``) and its events, which live as long as it;
+    none where the hop has no section marks, as the FD engine's."""
 
     def __init__(self, config: ApVastConfig, plan: ApVastPlan, state, forgetting: float = 0.9,
                  batched: bool = False):
@@ -223,13 +236,13 @@ class GraphedHop:
         self.out: HopOutputs | None = None
         self.graphs: dict[bool, torch.cuda.CUDAGraph] = {}
         self.launches: dict[bool, dict[str, int]] = {}
-        self.capture_seconds: dict[bool, float] = {}
-        # The previous hop's residual in pinned host memory, its copy's
-        # event, and how many hops read it.
+        self.marked: dict[bool, tuple[torch.cuda.CUDAGraph, list[torch.cuda.Event]]] = {}
+        # The previous hop's residual in pinned host memory and its copy's
+        # event.
         self._resid_host = torch.zeros((), dtype=torch.float32, pin_memory=True)
         self._resid_event = torch.cuda.Event()
-        self.resid_reads = 0
-        self._capture(device, (True, False) if self.tracking else (False,))
+        with _meter.setup_span("capture"):
+            self._capture(device, (True, False) if self.tracking else (False,))
 
     def _body(self, state, rebuilt: bool) -> HopOutputs:
         return hop_into(self.config, self.plan, state, self.hops[..., 0, :],
@@ -237,7 +250,6 @@ class GraphedHop:
 
     def _capture(self, device, branches) -> None:
         counts = K.launch_counts()
-        hop0 = getattr(self.state, "gevd_hop", None)
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
@@ -252,24 +264,42 @@ class GraphedHop:
         })
         pool = None
         for rebuilt in branches:
-            K.reset_launch_counts()
-            graph = torch.cuda.CUDAGraph()
-            t0 = time.perf_counter()
-            with torch.cuda.graph(graph, pool=pool):
-                out = self._body(self.state, rebuilt)
-                for f in dataclasses.fields(out):
-                    if isinstance(getattr(out, f.name), torch.Tensor):
-                        getattr(self.out, f.name).copy_(getattr(out, f.name))
-            torch.cuda.synchronize(device)
-            self.capture_seconds[rebuilt] = time.perf_counter() - t0
+            with _meter.setup_span("capture.rebuild" if rebuilt else "capture.hop", id(self)):
+                # The branch with the meter's marks, then, if it has them,
+                # its twin without, which the unsampled hops replay.
+                graph, marks = self._capture_branch(device, rebuilt, pool, True)
+                pool = graph.pool()
+                if marks:
+                    self.marked[rebuilt] = (graph, marks)
+                    graph, _ = self._capture_branch(device, rebuilt, pool, False)
             self.launches[rebuilt] = K.launch_counts()
             self.graphs[rebuilt] = graph
-            pool = graph.pool()
-            if hop0 is not None:
-                self.state.gevd_hop = hop0
-            del out
         K.reset_launch_counts()
         K.add_launch_counts(counts)
+
+    def _capture_branch(self, device, rebuilt: bool, pool, marked: bool):
+        """The branch ``rebuilt`` captured into ``pool``, its outputs copied
+        into the static outputs; ``marked``: with the meter's timed marks.
+        Returns the graph and the events of its seven marks (none where
+        the hop has no marks)."""
+        K.reset_launch_counts()
+        hop0 = getattr(self.state, "gevd_hop", None)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=pool), contextlib.ExitStack() as stack:
+            marks = stack.enter_context(_meter.capturing()) if marked else []
+            out = self._body(self.state, rebuilt)
+            for f in dataclasses.fields(out):
+                if isinstance(getattr(out, f.name), torch.Tensor):
+                    getattr(self.out, f.name).copy_(getattr(out, f.name))
+            if marked and tuple(name for name, _ in marks) == MARKS[:-1]:
+                _meter.mark("writeback")
+        torch.cuda.synchronize(device)
+        if hop0 is not None:
+            self.state.gevd_hop = hop0
+        if marks and tuple(name for name, _ in marks) != MARKS:
+            raise RuntimeError(f"the hop recorded the marks {[n for n, _ in marks]}, "
+                               f"not {list(MARKS)}")
+        return graph, [event for _, event in marks]
 
     def load(self, state) -> None:
         """Copy ``state`` into the static state (what the next replay
@@ -280,6 +310,7 @@ class GraphedHop:
         """Copy the next hop's two inputs ((hop,) each, (N, hop) batched)
         into the static input buffer: one copy of the stacked pair for host
         arrays, one each for device tensors."""
+        t0 = _meter.begin("stage")
         shape = self.hops.shape[:-2] + self.hops.shape[-1:]
         if isinstance(hop_a, torch.Tensor) and isinstance(hop_b, torch.Tensor):
             self.hops[..., 0, :].copy_(hop_a.reshape(shape))
@@ -287,17 +318,21 @@ class GraphedHop:
         else:
             self.hops.copy_(torch.stack([torch.as_tensor(hop_a).reshape(shape),
                                          torch.as_tensor(hop_b).reshape(shape)], dim=-2))
+        _meter.end("stage", t0)
 
     def _read_resid(self) -> float:
         """The previous hop's residual (batched: the largest over the
         scenes): copied into pinned memory behind its replay, read once the
         copy's event has passed."""
+        t0 = _meter.begin("resid")
         resid = self.state.gevd_resid
         self._resid_host.copy_(resid.amax() if resid.dim() else resid, non_blocking=True)
         self._resid_event.record()
         self._resid_event.synchronize()
-        self.resid_reads += 1
-        return self._resid_host.item()
+        _meter.resid_reads += 1
+        value = self._resid_host.item()
+        _meter.end("resid", t0)
+        return value
 
     def decide_rebuild(self) -> bool:
         """The tracking solver's rebuild decision for the next hop (False
@@ -310,8 +345,9 @@ class GraphedHop:
         """Replay the branch ``rebuilt`` on the staged inputs. Returns the
         static outputs, which the next replay overwrites (``rebuilt`` the
         branch's, or the hop's own decision where it is a tensor)."""
-        self.graphs[bool(rebuilt)].replay()
-        K.add_launch_counts(self.launches[bool(rebuilt)])
+        branch = bool(rebuilt)
+        _meter.launch(self.graphs[branch], branch, self.marked.get(branch))
+        K.add_launch_counts(self.launches[branch])
         if self.tracking:
             self.state.gevd_hop += 1
         if isinstance(self.out.rebuilt, torch.Tensor):

@@ -37,6 +37,7 @@ from apvast_torch.config import (
 )
 from apvast_torch.engine.plan import ApVastPlan, hop_gates
 from apvast_torch.engine.state import ApVastState, SubspaceState, TrackingState
+from apvast_torch.observability import meter
 from apvast_torch.ops.collective import mic_sum
 from apvast_torch.ops.framing import framed_statistics
 from apvast_torch.ops.jdiag import (
@@ -65,6 +66,8 @@ from apvast_torch.ops.wola import (
 )
 from apvast_torch.perceptual.model import perceptual_gain
 from apvast_torch.utils.device import torch_dtype
+
+_meter = meter()
 
 # Path axis: 0=A->A, 1=A->B, 2=B->A, 3=B->B. Program signal A drives paths
 # 0 and 1, B paths 2 and 3; path p goes through zone p % 2's RIR set and
@@ -241,12 +244,17 @@ def rebuild_predicate(config: ApVastConfig, gevd_hop: int, read_resid) -> bool:
     counter is a host int and ``read_resid()`` gives the residual (float32)
     from the device, called only on the hops that need it, so the
     factorization runs only on the hops that take it and the hop body
-    takes the decision as an argument."""
-    if gevd_hop < config.tracking_warmup_hops or gevd_hop % config.tracking_rebuild_period == 0:
-        return True
+    takes the decision as an argument. Each decision is counted by its
+    cause in the hop meter (``observability.HopMeter.decided``)."""
+    if gevd_hop < config.tracking_warmup_hops:
+        return _meter.decided("warmup")
+    if gevd_hop % config.tracking_rebuild_period == 0:
+        return _meter.decided("cadence")
     threshold = config.tracking_residual_rebuild
     # In float32, as the tensor comparison with a Python threshold is.
-    return threshold > 0 and bool(np.float32(read_resid()) > np.float32(threshold))
+    if threshold > 0 and bool(np.float32(read_resid()) > np.float32(threshold)):
+        return _meter.decided("residual")
+    return _meter.decided("none")
 
 
 _JACOBI_F64 = (
@@ -363,7 +371,11 @@ def process_hop(
     every microphone here. ``select_rebuild``: 'newton' only, decide the
     rebuild on the device by a select of both branches (the scene-batched
     hop's form, under ``torch.func.vmap``); ``rebuilt`` is then a bool
-    tensor."""
+    tensor.
+
+    The section boundaries are the hop meter's timed marks
+    (``observability.HopMeter.mark``), recorded only into a graph being
+    captured."""
     check_port_slice(config)
     if mic_axis is not None and config.use_pallas_conv:
         raise ValueError(
@@ -380,12 +392,14 @@ def process_hop(
     hop, block = config.hop, config.block_size
     j, s, v = config.filter_length, config.num_srcs, config.num_eigenvectors
     win = plan.window
+    _meter.mark("start")
 
     # ---- 1. streaming RIR convolution ----------------------------------
     hops = torch.stack([hop_a, hop_b]).to(device=device, dtype=dtype)  # (2, hop)
     conv_history, resp, target_resp = convolve_inputs(
         config, plan, state.conv_history, state.resp, state.target_resp, hops
     )
+    _meter.mark("conv")
 
     # ---- 2+3. perceptual weighting of target and responses -------------
     taps = config.weighting_conv_taps
@@ -415,9 +429,11 @@ def process_hop(
         )
     else:
         wresp_stat = slide(state.wresp_stat, wr_emit)
+    _meter.mark("weight")
 
     # ---- 4. statistics -------------------------------------------------
     r_mats, r_vecs = hop_statistics(config, wresp_stat, wtarget_stat, mic_axis)
+    _meter.mark("stats")
 
     # ---- 5. GEVD + variable-span synthesis -----------------------------
     # Zone A pencil: (R_AA, R_AB); zone B pencil: (R_BB, R_BA).
@@ -504,6 +520,7 @@ def process_hop(
         filters = w_family.reshape(2, v, j, s).transpose(-1, -2)
     else:
         filters = w_family.reshape(2, v, s, j)  # source-major w[s*J + tap]
+    _meter.mark("solve")
 
     # ---- 6. slide input blocks -----------------------------------------
     input_blocks = slide(state.input_blocks, hops)
@@ -576,4 +593,5 @@ def process_hop(
         silenced=silenced,
         rebuilt=rebuilt,
     )
+    _meter.mark("out")
     return new_state, outputs

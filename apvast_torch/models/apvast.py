@@ -16,7 +16,10 @@ from apvast_torch.engine.hop import process_hop
 from apvast_torch.engine.plan import build_plan
 from apvast_torch.engine.state import init_state
 from apvast_torch.models.base import HopModel
+from apvast_torch.observability import meter
 from apvast_torch.utils.device import resolve_device
+
+_meter = meter()
 
 
 class ApVast(HopModel):
@@ -73,7 +76,8 @@ class ApVast(HopModel):
             **config_overrides,
         )
         self.device = resolve_device(device)
-        self.plan = build_plan(self.config, rir_a, rir_b, self.device)
+        with _meter.setup_span("plan"):
+            self.plan = build_plan(self.config, rir_a, rir_b, self.device)
         self._init_dispatch(graph)
         self.reset(
             generator=generator, response_noise=response_noise,

@@ -10,7 +10,10 @@ from apvast_torch.config import ApVastConfig
 from apvast_torch.engine.fd_hop import init_fd_state, process_hop_fd
 from apvast_torch.engine.plan import build_plan
 from apvast_torch.models.base import HopModel
+from apvast_torch.observability import meter
 from apvast_torch.utils.device import resolve_device
+
+_meter = meter()
 
 
 class ApVastFD(HopModel):
@@ -77,7 +80,8 @@ class ApVastFD(HopModel):
             )
         self.forgetting = float(forgetting)
         self.device = resolve_device(device)
-        self.plan = build_plan(self.config, rir_a, rir_b, self.device)
+        with _meter.setup_span("plan"):
+            self.plan = build_plan(self.config, rir_a, rir_b, self.device)
         self._init_dispatch(graph)
         self.reset(generator=generator, response_noise=response_noise)
 

@@ -15,7 +15,10 @@ import torch
 from apvast_torch.engine.graph import GraphedHop, graph_reason
 from apvast_torch.engine.hop import HopOutputs
 from apvast_torch.engine.stream import stitch_outputs
+from apvast_torch.observability import meter
 from apvast_torch.utils.device import torch_dtype
+
+_meter = meter()
 
 
 class GraphDispatch:
@@ -93,8 +96,16 @@ class HopModel(GraphDispatch):
             raise ValueError(f"inputs must be exactly hop={hop} samples")
 
     def _step(self, input_a, input_b) -> HopOutputs:
-        """One hop; on a graphed model the outputs are the graph's static
-        buffers, which the next hop overwrites."""
+        """One hop, metered as the hop meter's ``entry``; on a graphed model
+        the outputs are the graph's static buffers, which the next hop
+        overwrites."""
+        t0 = _meter.enter()
+        out = self._advance(input_a, input_b)
+        _meter.leave(t0, out.rebuilt)
+        return out
+
+    def _advance(self, input_a, input_b) -> HopOutputs:
+        """:meth:`_step` without the meter's ``entry`` span."""
         if self._graph is None:
             input_a, input_b = self._signal(input_a), self._signal(input_b)
             self._check_hop(input_a, input_b)
@@ -112,15 +123,19 @@ class HopModel(GraphDispatch):
 
     def process_input_buffers(self, input_a, input_b):
         """One hop. Returns (out_a, out_b, out_a_t, out_b_t), each
-        (ranks, hop, srcs), or None for a disabled zone."""
-        out = self._kept(self._step(input_a, input_b))
+        (ranks, hop, srcs), or None for a disabled zone. The whole call is
+        the hop meter's ``entry`` span."""
+        t0 = _meter.enter()
+        out = self._kept(self._advance(input_a, input_b))
         v = self._num_outputs
-        return (
+        feeds = (
             out.out_a,
             out.out_b,
             out.out_a_t.expand(v, *out.out_a_t.shape),
             out.out_b_t.expand(v, *out.out_b_t.shape),
         )
+        _meter.leave(t0, out.rebuilt)
+        return feeds
 
     def process_signals(self, signal_a, signal_b):
         """All whole hops of two program signals, hop by hop. Returns

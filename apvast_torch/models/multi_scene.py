@@ -20,6 +20,7 @@ from apvast_torch.engine.hop import HopOutputs
 from apvast_torch.engine.plan import build_plan
 from apvast_torch.engine.state import init_state
 from apvast_torch.models.base import GraphDispatch
+from apvast_torch.observability import meter
 from apvast_torch.parallel.mesh import (
     Mesh,
     check_mesh,
@@ -31,6 +32,8 @@ from apvast_torch.parallel.mesh import (
     stack_states,
 )
 from apvast_torch.utils.device import resolve_device, torch_dtype
+
+_meter = meter()
 
 
 class MultiSceneApVast(GraphDispatch):
@@ -70,7 +73,8 @@ class MultiSceneApVast(GraphDispatch):
         self.mesh = mesh
         self.device = resolve_device(device)
         self._num_scenes = len(rir_pairs)
-        plan = stack_plans([build_plan(config, ra, rb, self.device) for ra, rb in rir_pairs])
+        with _meter.setup_span("plan"):
+            plan = stack_plans([build_plan(config, ra, rb, self.device) for ra, rb in rir_pairs])
         self.plan = plan if mesh is None else shard_plan(plan, mesh)
         self._hop = sharded_multi_scene_hop(config, mesh)
         self._init_dispatch(graph)
@@ -126,7 +130,9 @@ class MultiSceneApVast(GraphDispatch):
         """Advance every scene one hop. ``hops_a`` / ``hops_b``:
         (num_scenes, hop). Returns HopOutputs with a leading scene axis
         (fresh tensors; ``rebuilt`` one host bool for the scenes, or per
-        scene for 'newton'); with a mesh, this rank's scenes'."""
+        scene for 'newton'); with a mesh, this rank's scenes'. The whole
+        call is the hop meter's ``entry`` span."""
+        t0 = _meter.enter()
         hops_a, hops_b = torch.as_tensor(hops_a), torch.as_tensor(hops_b)
         expected = (self.num_scenes, self.config.hop)
         if tuple(hops_a.shape) != expected or tuple(hops_b.shape) != expected:
@@ -144,4 +150,5 @@ class MultiSceneApVast(GraphDispatch):
             self.rebuilds = self.rebuilds + out.rebuilt.to(torch.int32)
         else:
             self.rebuilds += int(out.rebuilt)
+        _meter.leave(t0, out.rebuilt)
         return out

@@ -1,0 +1,13 @@
+"""Device ms a hop in the state write-back and the static output copies after the hop
+body: the program's hop meter's timed marks,
+captured into a twin of each branch graph that every ``SAMPLE_EVERY``-th
+replay of the branch runs (``apvast_torch/observability.py``); each
+branch's mean weighted by its share of the window's hops, unprofiled hops
+only. None unless every branch the window's hops took has a sample and
+none was missed."""
+
+from harness.meter import section_ms
+
+
+def read(record: dict):
+    return section_ms(record, "writeback")

@@ -1974,8 +1974,13 @@ def _graph_against_eager(scene, dev, card, label, noise, x, hops=CPU_HOPS, **ext
 
 
 def _capture_s(model):
-    return {("rebuild" if k else "hop"): round(v, 3)
-            for k, v in model.graph.capture_seconds.items()}
+    """Seconds of each branch's capture of ``model``'s graph (the hop
+    meter's set-up spans)."""
+    from apvast_torch.observability import meter
+
+    owner = id(model.graph)
+    return {name.split(".", 1)[1]: round(seconds, 3) for name, seconds, who in meter().setup
+            if who == owner and name.startswith("capture.")}
 
 
 def _replays_bit_for_bit(scene, dev, card, noise, x):
@@ -2082,6 +2087,7 @@ def phase3_serve(scene, dev, card):
     within half a quantization step), no chunk dropped, ms per hop of each
     drain."""
     from apvast_torch import StreamHost
+    from apvast_torch.observability import meter
 
     noise, sig = _inputs(scene)
     cfg = scene.config
@@ -2093,6 +2099,7 @@ def phase3_serve(scene, dev, card):
     peak = float(np.abs(want).max())
     for batch, pcm in ((1, False), (8, False), (8, True)):
         model = _path_model(scene, dev, noise, "production", None)
+        reads0 = meter().resid_reads
         host = StreamHost(model, span_index=-1, backlog_hops=n, batch_hops=batch, pcm_feeds=pcm)
         for start in range(0, n * hop, SERVE_CHUNK):
             chunk = slice(start, start + SERVE_CHUNK)
@@ -2111,7 +2118,7 @@ def phase3_serve(scene, dev, card):
               f"{SERVE_CHUNK}-sample chunks, {ms:.3f} ms/hop (host clock, drain of the whole "
               f"backlog), dropped_input_chunks={host.dropped_input_chunks}, rings against "
               f"process_input_buffers max |diff| {diff:.3e} (limit {bar:.3e}); residual reads "
-              f"{model.graph.resid_reads} in {n} hops card={card}", flush=True)
+              f"{meter().resid_reads - reads0} in {n} hops card={card}", flush=True)
         if done != n or host.dropped_input_chunks or got.shape != want.shape or diff > bar:
             raise AssertionError(f"StreamHost batch_hops={batch} pcm={pcm}: {done} hops, "
                                  f"{host.dropped_input_chunks} drops, max |diff| {diff:.3e}")
@@ -2136,12 +2143,14 @@ def _eager_graphed_ms(scene, dev, card, noise, x, label, tag="phase 3 time"):
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) / TIME_HOPS * 1e3
 
-    reads0 = models[1].graph.resid_reads
+    from apvast_torch.observability import meter
+
+    reads0 = meter().resid_reads
     w1, w2 = TIME_WARM, TIME_WARM + TIME_HOPS
     e1, g1, g2, e2 = (timed(models[0], w1), timed(models[1], w1), timed(models[1], w2),
                       timed(models[0], w2))
     eager, graphed = (e1 + e2) / 2, (g1 + g2) / 2
-    reads = (models[1].graph.resid_reads - reads0) / (2 * TIME_HOPS)
+    reads = (meter().resid_reads - reads0) / (2 * TIME_HOPS)
     print(f"[{tag}] {label}: steady state eager {eager:.3f} ms/hop ({e1:.3f}, "
           f"{e2:.3f}), graphed {graphed:.3f} ms/hop ({g1:.3f}, {g2:.3f}), "
           f"{eager / graphed:.2f}x; "

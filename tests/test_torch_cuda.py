@@ -14,7 +14,11 @@ under replay, graph=True refused where the hop reads the device mid-hop,
 K2, K9 and K10b captured alone, and the serving drain against the hop
 loop; checkpoint resume under the graph (the bfloat16 carry included),
 the MATLAB configuration against the CPU, the bfloat16 carry graphed
-against eager, and the offline VAST sweep in float64 against the CPU.
+against eager, and the offline VAST sweep in float64 against the CPU;
+the hop meter (observability.py) on the card: its timed marks in a twin
+of each branch graph, the twin against the graph without marks bit for
+bit, the sections against the replay they time, no sync added, and
+``trace``'s ``launch`` span around ``cudaGraphLaunch``.
 
 Needs a card: every test is marked ``cuda`` and skips without one. This
 file imports neither JAX nor the shared fixtures, so on a machine without
@@ -1686,3 +1690,134 @@ def test_residual_precision_default_on_the_card_matches_cpu(dev):
         g = torch.stack([p[0] for p in pairs])
         assert torch.isfinite(g).all()
         assert _rel(g, torch.stack([p[1] for p in pairs])) <= tol
+
+
+def test_hop_meter_marks_both_branch_graphs(dev):
+    """The production hop's two branch graphs each have a twin that
+    carries the hop meter's seven timed marks, and a sampled replay of
+    each branch replays the twin and is read at the next replay (hops
+    whose feeds the caller waits for, as a closed loop does)."""
+    from apvast_torch.observability import MARKS, SAMPLE_EVERY, SECTIONS, meter
+
+    rng = np.random.default_rng(27)
+    model = ApVast(device=dev, **_s8_kwargs(rng, production_overrides()))
+    graph = model.graph
+    assert set(graph.marked) == {False, True}
+    for b in (False, True):
+        twin, events = graph.marked[b]
+        assert len(events) == len(MARKS) and twin is not graph.graphs[b]
+    m = meter()
+    m.reset()
+    m._branch_replays = [SAMPLE_EVERY - 1] * 2  # each branch's next replay is sampled
+    hops = 40
+    for a, b in rng.standard_normal((hops, 2, 64)).astype(np.float32):
+        model.process_input_buffers(a, b)
+        torch.cuda.synchronize()
+    w = m.window(hops)
+    assert w.samples() == {True: (1, 0), False: (1, 0)}
+    assert all(w.section_ms(s) > 0 for s in SECTIONS)
+    assert w.host_ms("launch") > 0 and w.host_ms("stage") > 0
+
+
+@pytest.mark.parametrize("rebuilt", [False, True], ids=["no-rebuild", "rebuild"])
+def test_hop_meter_twin_replays_bit_for_bit(dev, rebuilt):
+    """A branch's marked twin and its graph without marks, replayed from
+    one saved state on the same inputs: outputs and state bit for bit."""
+    graphed, _, rng = _graphed_pair(dev, "production")
+    for _ in range(7):  # past the warmup
+        graphed.process_input_buffers(*rng.standard_normal((2, 64)).astype(np.float32))
+    saved = clone_state(graphed.state)
+    a, b = (torch.from_numpy(x).to(dev) for x in rng.standard_normal((2, 64)).astype(np.float32))
+    runs = []
+    for replay in (graphed.graph.graphs[rebuilt].replay, graphed.graph.marked[rebuilt][0].replay):
+        graphed.state = saved
+        graphed.graph.stage(a, b)
+        replay()
+        out = graphed.graph.out
+        runs.append(([out.out_a.clone(), out.out_b.clone(), out.out_a_t.clone()],
+                     clone_state(graphed.graph.state)))
+    torch.cuda.synchronize()
+    (outs, state), (want_outs, want_state) = runs
+    for x, y in zip(outs, want_outs):
+        assert torch.equal(x, y)
+    for f in dataclasses.fields(state):
+        x, y = getattr(state, f.name), getattr(want_state, f.name)
+        assert torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y, f.name
+
+
+@pytest.mark.parametrize("rebuilt", [False, True])
+def test_hop_meter_sections_sum_to_the_replay(dev, rebuilt):
+    """The six sections of a replay add up to within 5 % of a timing event
+    pair recorded around it (mean of 10 replays of the branch)."""
+    rng = np.random.default_rng(28)
+    model = ApVast(device=dev, **_s8_kwargs(rng, production_overrides()))
+    twin, marks = model.graph.marked[rebuilt]
+    outer = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    sums, spans = [], []
+    for a, b in rng.standard_normal((12, 2, 64)).astype(np.float32):
+        model.graph.stage(a, b)
+        outer[0].record()
+        twin.replay()
+        outer[1].record()
+        torch.cuda.synchronize()
+        sums.append(sum(x.elapsed_time(y) for x, y in zip(marks, marks[1:])))
+        spans.append(outer[0].elapsed_time(outer[1]))
+    got, want = np.mean(sums[2:]), np.mean(spans[2:])
+    assert abs(got - want) <= 0.05 * want, (got, want)
+
+
+def test_hop_meter_adds_no_sync(dev):
+    """Graphed hops with the meter return while a long kernel queued
+    before them still runs: neither a sampled replay nor the read of its
+    sections at the next hop waits for the device (warmup hops, which read
+    no residual, on inputs already on the card: a copy from pageable host
+    memory waits for the stream)."""
+    from apvast_torch.observability import SAMPLE_EVERY, meter
+
+    rng = np.random.default_rng(29)
+    model = ApVast(device=dev, **_s8_kwargs(rng, production_overrides()))
+    m = meter()
+    m.reset()
+    m._branch_replays = [SAMPLE_EVERY - 1] * 2  # the next replay is sampled
+    hops = torch.from_numpy(rng.standard_normal((2, 2, 64)).astype(np.float32)).to(dev)
+    done = torch.cuda.Event()
+    torch.cuda._sleep(2_000_000_000)  # about a second
+    done.record()
+    for a, b in hops:
+        model.process_input_buffers(a, b)
+    assert not done.query(), "a metered hop waited for the device"
+    assert m.window(2).samples() == {True: (0, 1)}
+    torch.cuda.synchronize()
+
+
+def test_trace_puts_launch_around_cuda_graph_launch(dev, tmp_path):
+    """Under observability.trace the Chrome trace holds the meter's spans
+    as user annotations, and every cudaGraphLaunch lies inside a
+    ``launch`` span (inside an ``entry``)."""
+    import json
+    import os
+
+    from apvast_torch.observability import trace
+
+    rng = np.random.default_rng(30)
+    model = ApVast(device=dev, **_s8_kwargs(rng, production_overrides()))
+    with trace(str(tmp_path)):
+        for a, b in rng.standard_normal((8, 2, 64)).astype(np.float32):
+            model.process_input_buffers(a, b)
+        torch.cuda.synchronize()
+    (name,) = os.listdir(tmp_path)
+    with open(tmp_path / name) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+
+    def spans(name, cat=None):
+        return [(e["ts"], e["ts"] + e["dur"]) for e in events
+                if e["name"] == name and (cat is None or e.get("cat") == cat)]
+
+    launches = spans("launch", "user_annotation")
+    entries = spans("entry", "user_annotation")
+    graph_launches = spans("cudaGraphLaunch")
+    assert len(launches) == len(entries) == 8 and len(graph_launches) == 8
+    for t0, t1 in graph_launches:
+        assert any(a <= t0 and t1 <= b for a, b in launches)
+    for t0, t1 in launches:
+        assert any(a <= t0 and t1 <= b for a, b in entries)
