@@ -7,7 +7,12 @@ package a
 ``use_pallas_*`` flag means "use the hand-written Hopper kernel"
 (``apvast_torch/csrc/*.cu``, wrapped in ``apvast_torch/ops/kernels/``),
 and ``use_matmul_dft`` means the WOLA transforms run as ``torch`` matmuls
-against DFT matrices.
+against DFT matrices; off, they run as real FFTs (cuFFT on the card).
+:func:`production_overrides` holds the values of the JAX package's
+``production_overrides("tpu")`` but one: ``use_matmul_dft`` is off. The
+TPU's matrix unit favours the dense DFT and it has no fast FFT; on the
+H100 the dense DFT is fp32 GEMM work a hundred times the FFT's, and
+cuFFT's real transforms are bound by memory bandwidth.
 
 The port runs the time-domain hop of the JAX engine: the exact GEVD
 solver (``GevdSolver.EIGH``) or a subspace solver (``GevdSolver.SUBSPACE``
@@ -444,7 +449,13 @@ def production_overrides() -> dict:
     """The values of the JAX package's ``production_overrides("tpu")`` for
     the port's fields: float32, the tracking subspace solver with the
     Jacobi Rayleigh-Ritz kernel, skew-assembled half-form lag statistics
-    and every kernel flag on. The exact-solver oracle is
+    and every kernel flag on; and the one departure, ``use_matmul_dft``
+    False: the WOLA transforms run as batched cuFFT real transforms, not
+    as dense DFT matmuls, which suit the TPU's matrix unit and cost the
+    H100 fp32 GEMMs (the plan then builds no DFT matrices). The same
+    transforms, the same exact weighting, float32 throughout; the JAX
+    value is ``production_overrides("tpu")["use_matmul_dft"]``, True.
+    The exact-solver oracle is
     ``production_overrides() | {"gevd_solver": GevdSolver.EIGH}``; the
     round-3 production solver adds ``{"subspace_whiten": "invert",
     "jacobi_sweeps": 3, "use_pallas_subspace": True, "use_pallas_whiten":
@@ -466,7 +477,7 @@ def production_overrides() -> dict:
         use_pallas_statistics=True,
         use_pallas_output=True,
         use_pallas_conv=True,
-        use_matmul_dft=True,
+        use_matmul_dft=False,
         small_eigh="jacobi",
         jacobi_sweeps=2,
     )

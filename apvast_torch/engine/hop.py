@@ -5,7 +5,7 @@ the reference a batch axis:
 
 1. streaming RIR convolution    (FFT overlap-save, or kernel K1)
 2. weighted target update       (WOLA analysis + perceptual weighting)
-3. weighted response update     (matmul-DFT or FFT WOLA, or the truncated
+3. weighted response update     (FFT or matmul-DFT WOLA, or the truncated
                                  time-domain weighting: a circular
                                  convolution, kernel K8)
 4. statistics                   (framed Gram, plain or kernel K6, or lag
@@ -60,6 +60,7 @@ from apvast_torch.ops.wola import (
     rfft_batched,
     slide,
     slide_tail,
+    windowed_block,
     wola_analyze,
     wola_overlap_add_tail,
     wola_synthesize,
@@ -169,18 +170,20 @@ def convolve_inputs(config, plan, conv_history, resp, target_resp, hops):
 
 
 def _analyze(config, plan, blocks):
-    """WOLA analysis: FFT, or (use_matmul_dft) matmuls against the plan's
-    window-folded DFT matrices. ``blocks`` may be a (tail, fresh) pair,
-    which the matmul path contracts part by part against row slices of
-    the matrices without forming the concatenated block."""
+    """WOLA analysis: ``rfft`` (cuFFT on the card) of the windowed blocks,
+    or (use_matmul_dft) matmuls against the plan's window-folded DFT
+    matrices. ``blocks`` may be a (tail, fresh) pair: the matmul path
+    contracts it part by part against row slices of the matrices, the FFT
+    path writes the windowed parts straight into the one block that
+    ``rfft`` reads."""
     if isinstance(blocks, tuple):
+        tail, fresh = blocks
         if config.use_matmul_dft:
-            tail, fresh = blocks
             split = tail.shape[-1]
             re = tail @ plan.dft_cos[:split] + fresh @ plan.dft_cos[split:]
             im = tail @ plan.dft_sin[:split] + fresh @ plan.dft_sin[split:]
             return torch.complex(re, -im)
-        blocks = torch.cat(blocks, dim=-1)
+        return rfft_batched(windowed_block(plan.window, tail, fresh), config.block_size)
     if config.use_matmul_dft:
         return torch.complex(blocks @ plan.dft_cos, -(blocks @ plan.dft_sin))
     return wola_analyze(plan.window, blocks)
@@ -218,10 +221,11 @@ def weighted_spectra(config, plan, resp, target_resp):
     response spectra)."""
     t_spec, weighting = target_weighting(config, plan, target_resp)
     r_spec = _analyze(config, plan, resp)  # (4, m, s, bins)
+    # The zone gates (0 or 1) and the weighting as one real factor: one
+    # pass over the response spectra.
     gates = hop_gates(config, r_spec.device)
-    r_spec = r_spec * gates.signal[:, None, None, None]
-    r_spec = r_spec * torch.cat([weighting, weighting])[:, :, None, :]
-    return t_spec * weighting, r_spec
+    gain = torch.cat([weighting, weighting]) * gates.signal[:, None, None]
+    return t_spec * weighting, r_spec * gain[:, :, None, :]
 
 
 def half_form(config: ApVastConfig) -> bool:

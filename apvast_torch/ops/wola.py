@@ -1,12 +1,15 @@
 """Weighted overlap-add (WOLA) filterbank primitives (port of
 ``apvast_tpu/ops/wola.py``). Batched over any leading axes; the time axis
-is always last."""
+is always last. :func:`windowed_block` is the hop's fused analysis
+window."""
 
 from __future__ import annotations
 
 import math
 
 import torch
+
+from apvast_torch.ops.kernels import _batch
 
 
 def rfft_batched(blocks: torch.Tensor, n: int) -> torch.Tensor:
@@ -37,6 +40,28 @@ def wola_synthesize(
 ) -> torch.Tensor:
     """One-sided inverse FFT + synthesis window."""
     return window * irfft_batched(spectra, block_size)
+
+
+def windowed_block(window: torch.Tensor, tail: torch.Tensor, fresh: torch.Tensor) -> torch.Tensor:
+    """``window * cat([tail, fresh], -1)``, each half multiplied straight
+    into its place in one contiguous block (``tail`` (..., block - n),
+    ``fresh`` (..., n)): the block is written once, where a concatenation
+    and then a window multiply write it twice. ``out=`` has no vmap rule,
+    so inside ``torch.func.vmap`` this calls its op, whose rule folds the
+    scene axis into the rows (``ops/kernels/_batch.py``)."""
+    if _batch.via_op(tail, fresh):
+        return windowed_block_op(window, tail, fresh)
+    split = tail.shape[-1]
+    block = tail.new_empty((*tail.shape[:-1], window.shape[-1]))
+    torch.mul(tail, window[:split], out=block[..., :split])
+    torch.mul(fresh, window[split:], out=block[..., split:])
+    return block
+
+
+windowed_block_op = _batch.fold(
+    "windowed_block", windowed_block, shared=("window",),
+    fake=lambda window, tail, fresh: tail.new_empty((*tail.shape[:-1], window.shape[-1])),
+)
 
 
 def wola_overlap_add(overlap: torch.Tensor, new_block: torch.Tensor, hop: int):

@@ -38,7 +38,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--fd", action="store_true", help="frequency-domain engine")
     parser.add_argument(
         "--fast", action="store_true",
-        help="production stack: subspace GEVD + the CUDA kernels + matmul-DFT (float32)",
+        help="production stack: subspace GEVD + the CUDA kernels + FFT WOLA (float32)",
     )
     parser.add_argument("--wav-a", help="program A wav file (default: noise)")
     parser.add_argument("--wav-b", help="program B wav file (default: noise)")
@@ -91,7 +91,7 @@ def run(args: argparse.Namespace) -> dict:
         common.update(
             gevd_solver=GevdSolver.SUBSPACE, subspace_oversample=6, subspace_iters=2,
             use_pallas_statistics=True, use_pallas_output=True, use_pallas_conv=True,
-            use_matmul_dft=True,
+            use_matmul_dft=args.fd,  # cuFFT WOLA; the FD engine keeps its DFT matmuls
         )
     if args.fd:
         spans = (1, srcs // 2, srcs)  # per-bin ranks 1..num_srcs

@@ -1158,6 +1158,7 @@ _GRAPHED_TD = {
     "solve": {"subspace_whiten": "solve"},
     "dense": {"use_lag_statistics": False},
     "weighting-conv": {"weighting_conv_taps": 31},
+    "matmul-wola": {"use_matmul_dft": True},
 }
 _GRAPHED_FD = {
     "fd-jacobi": {"fd_eigh": "jacobi"},
@@ -1372,7 +1373,8 @@ def _assert_same(got, want, where):
         assert torch.equal(x, y) if isinstance(y, torch.Tensor) else x == y, (where, f.name)
 
 
-@pytest.mark.parametrize("config", ["production", "invert", "dense", "weighting-conv"])
+@pytest.mark.parametrize("config", ["production", "invert", "dense", "weighting-conv",
+                                    "matmul-wola"])
 def test_multi_scene_graphed_equals_eager_on_the_card(dev, config):
     """MultiSceneApVast at N = 2, graphed against eager (graph=False), hop by
     hop from one state: outputs and state bit for bit, the same launch
@@ -1393,6 +1395,51 @@ def test_multi_scene_graphed_equals_eager_on_the_card(dev, config):
         _assert_same(got, want, hop)
         _assert_same(graphed.states, eager.states, hop)
     assert int(graphed.silenced.sum()) == 0
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["single", "batched"])
+def test_fft_wola_replays_make_no_cufft_plan(dev, batched):
+    """The production WOLA (cuFFT) under the graph: the warm pass before the
+    captures makes every cuFFT plan the hop uses, so replays of both
+    branches (warmup rebuilds, then tracked hops) add none to the plan
+    cache; the plans are there."""
+    cache = torch.backends.cuda.cufft_plan_cache[torch.cuda.current_device()]
+    cache.clear()
+    if batched:
+        model = _multi_model(dev, "production", 3)
+        shape = (2, 3, 64)
+    else:
+        model, _, _ = _graphed_pair(dev, "production")
+        shape = (2, 64)
+    assert model.graphed and not model.config.use_matmul_dft and model.plan.dft_cos is None
+    rng = np.random.default_rng(16)
+    model.process_input_buffers(*rng.standard_normal(shape).astype(np.float32))
+    plans = cache.size
+    assert plans > 0
+    for _ in range(9):
+        model.process_input_buffers(*rng.standard_normal(shape).astype(np.float32))
+    assert 0 < model.rebuilds < 10 and cache.size == plans
+    assert int(model.silenced.sum()) == 0
+
+
+def test_batched_wola_launches_one_transform_for_all_scenes(dev):
+    """The vmapped production hop launches the cuFFT kernels of one scene's
+    hop whatever the scene count: no per-scene loop (device kernels by name
+    under the profiler, one eager hop at N = 1 and N = 3)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = {}
+    for n in (1, 3):
+        model = _multi_model(dev, "production", n, graph=False)
+        rng = np.random.default_rng(17)
+        model.process_input_buffers(*rng.standard_normal((2, n, 64)).astype(np.float32))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            model.process_input_buffers(*rng.standard_normal((2, n, 64)).astype(np.float32))
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+        counts[n] = sorted(x for x in names if "fft" in x.lower())
+    assert counts[1] and counts[3] == counts[1], counts
 
 
 @pytest.mark.parametrize("config", ["production", "invert", "dense", "weighting-conv"])

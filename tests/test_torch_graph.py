@@ -170,6 +170,7 @@ _CONFIGS = {
     "output-spans": (production_overrides() | {"output_spans": (1, 3)}, False, True),
     "fft-conv-and-wola": (production_overrides() | {"use_pallas_conv": False,
                                                     "use_matmul_dft": False}, False, True),
+    "matmul-wola": (production_overrides() | {"use_matmul_dft": True}, False, True),
     "exact": (production_overrides() | {"gevd_solver": GevdSolver.EIGH}, False, False),
     "newton": (production_overrides() | {"subspace_whiten": "newton"}, False, False),
     "pair-assembly": (production_overrides() | {"lag_assembly": "pair"}, False, True),
@@ -210,8 +211,9 @@ def test_graphed_configurations_pass_the_guard(name, monkeypatch):
     assert (eager_reason(cfg, fd) is None) == graphed
     hops = _hops(cfg, 3)
     branches = (True, False) if name in ("production", "dense", "weighting-conv",
-                                         "output-spans", "fft-conv-and-wola", "pair-assembly",
-                                         "wide-assembly", "tap-assembly") else (False,)
+                                         "output-spans", "fft-conv-and-wola", "matmul-wola",
+                                         "pair-assembly", "wide-assembly",
+                                         "tap-assembly") else (False,)
     hop_into(cfg, plan, state, hops[0, 0], hops[0, 1], True)  # the warmup fills the caches
     for i, rebuilt in enumerate(branches, start=1):
         if graphed:

@@ -39,6 +39,7 @@ from apvast_torch.engine import build_plan, hop_into, init_fd_state, init_state,
 from apvast_torch.engine import process_hop_fd
 from apvast_torch.engine.graph import clone_state
 from apvast_torch.ops import kernels as K
+from apvast_torch.ops.wola import windowed_block
 from apvast_torch.parallel import sharded_multi_scene_fd_hop, sharded_multi_scene_hop
 from apvast_torch.parallel.mesh import make_mesh, scene_of, stack_plans, stack_states
 from apvast_torch.utils.convert import config_from_jax, plans_from_numpy, states_from_numpy
@@ -223,6 +224,8 @@ _OPS = {
         _Scenes(torch.linalg.inv(torch.linalg.cholesky(_spd(_N, 2, 24, 24, seed=1))).contiguous()),
         _Scenes(_seeded(_N, 2, 24, 8, seed=2)), 2, 1e-6]),
     "chol_panel": (K.chol_panel, [_Scenes(_spd(_N, 2, 128, 128))]),
+    "windowed_block": (windowed_block, [torch.hann_window(32), _Scenes(_seeded(_N, 4, 3, 12)),
+                                        _Scenes(_seeded(_N, 4, 3, 20, seed=1))]),
 }
 
 
@@ -280,7 +283,8 @@ def test_ops_have_fake_shapes():
 
 
 _GUARDED = ("production", "invert", "solve", "newton", "dense", "weighting-conv",
-            "output-spans", "fft-conv-and-wola", "fd-jacobi", "fd-full", "fd-coupled", "fd-cg")
+            "output-spans", "fft-conv-and-wola", "matmul-wola", "fd-jacobi", "fd-full",
+            "fd-coupled", "fd-cg")
 
 
 @pytest.mark.parametrize("name", _GUARDED)

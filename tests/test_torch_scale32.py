@@ -170,7 +170,10 @@ class _Scene32:
                                  pytest.param(DEEP, id="jl800", marks=pytest.mark.slow),
                                  pytest.param({}, id="jl1600", marks=pytest.mark.slow)])
 def test_production_against_jax(cut):
-    pair = _Scene32(production_overrides("tpu") | JAX_CONV, port_production_overrides(), cut)
+    # The port's production WOLA is the FFT; JAX's TPU form, the DFT matmuls, on both sides.
+    jax_wola = {"use_matmul_dft": production_overrides("tpu")["use_matmul_dft"]}
+    pair = _Scene32(production_overrides("tpu") | JAX_CONV,
+                    port_production_overrides() | jax_wola, cut)
     jc, tc = pair.jc, pair.tc
     assert (tc.num_srcs, tc.num_mics, tc.rir_length, tc.block_size, tc.hop) == (32, 33, 2400,
                                                                              1600, 800)
