@@ -280,7 +280,7 @@ class GraphedHop:
     def _capture_branch(self, device, rebuilt: bool, pool, marked: bool):
         """The branch ``rebuilt`` captured into ``pool``, its outputs copied
         into the static outputs; ``marked``: with the meter's timed marks.
-        Returns the graph and the events of its seven marks (none where
+        Returns the graph and the events of its marks (none where
         the hop has no marks)."""
         K.reset_launch_counts()
         hop0 = getattr(self.state, "gevd_hop", None)

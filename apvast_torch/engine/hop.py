@@ -378,8 +378,8 @@ def process_hop(
     tensor.
 
     The section boundaries are the hop meter's timed marks
-    (``observability.HopMeter.mark``), recorded only into a graph being
-    captured."""
+    (``observability.MARKS``, ``HopMeter.mark``), recorded only into a
+    graph being captured."""
     check_port_slice(config)
     if mic_axis is not None and config.use_pallas_conv:
         raise ValueError(
@@ -454,10 +454,16 @@ def process_hop(
     if not config.run_b:
         a_stack = torch.stack([a_stack[0], filler])
         b_stack = torch.stack([b_stack[0], filler])
+    _meter.mark("pencils")
     carry = {}
     rebuilt = False
     whiten = config.subspace_whiten
     _refuse_kernel_flags(config, dtype)
+    tracking = uses_subspace_solver(config) and whiten == "tracking"
+    if not tracking:
+        # The tracking solver marks its rebuild factorization itself; the
+        # other solvers' factorizations count as their step.
+        _meter.mark("factor")
     if not uses_subspace_solver(config):
         u, lam = jdiag(a_stack, b_stack, reg)  # (2, jl, jl), (2, jl)
         # The exact path has no zeroing guard (parity semantics); it counts
@@ -466,7 +472,7 @@ def process_hop(
             (~torch.isfinite(u)).sum(dtype=torch.int32)
             + (~torch.isfinite(lam)).sum(dtype=torch.int32)
         )
-    elif whiten == "tracking":
+    elif tracking:
         rebuilt = (
             rebuild_predicate(config, state.gevd_hop, lambda: state.gevd_resid.item())
             if rebuild_override is None
@@ -513,6 +519,7 @@ def process_hop(
             whiten_kernel=whiten_kernel,
         )  # (2, jl, v), (2, v), (2, jl, k), int32
         carry["gevd_minv"] = None
+    _meter.mark("track")
     w_family = variable_span_filters(u, lam, r_vecs, config.mu, v)  # (2, v, jl)
     gates = hop_gates(config, device)
     w_family = w_family * gates.zone[:, None, None]

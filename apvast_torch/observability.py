@@ -228,13 +228,32 @@ SPANS = ("entry", "stage", "resid", "launch")
 #: (``engine/hop.py::rebuild_predicate``); a row holds the index, -1 where
 #: its hop took no decision.
 CAUSES = ("none", "warmup", "cadence", "residual")
-#: The timed marks captured into each branch graph of a graphed hop: the
-#: boundaries of ``engine/hop.py::process_hop``'s numbered sections and,
-#: last, of the state and output copies of ``engine/graph.py::hop_into``
-#: and ``GraphedHop``. Section ``SECTIONS[i]`` runs from ``MARKS[i]`` to
-#: ``MARKS[i + 1]``.
-MARKS = ("start", "conv", "weight", "stats", "solve", "out", "writeback")
-SECTIONS = MARKS[1:]
+#: The timed marks captured into each branch graph of a graphed hop, in
+#: the order a hop records them: the boundaries of
+#: ``engine/hop.py::process_hop``'s numbered sections, three inside
+#: section 5 (``pencils``: the loaded pencils; ``factor``: the tracking
+#: solver's rebuild factorization, ``ops/jdiag.py::jdiag_topk_tracked``,
+#: at ``pencils`` on a plain hop and in the other solvers; ``track``: the
+#: solver's step) and, last, of the state and output copies of
+#: ``engine/graph.py::hop_into`` and ``GraphedHop``.
+MARKS = ("start", "conv", "weight", "stats", "pencils", "factor", "track", "solve", "out",
+         "writeback")
+#: Each section's start and end mark: the hop's numbered sections and the
+#: copies after them, then ``pencils``, ``factor``, ``track`` and
+#: ``synth`` (the variable-span filters), which divide ``solve``.
+SECTIONS = {
+    "conv": ("start", "conv"),
+    "weight": ("conv", "weight"),
+    "stats": ("weight", "stats"),
+    "solve": ("stats", "solve"),
+    "out": ("solve", "out"),
+    "writeback": ("out", "writeback"),
+    "pencils": ("stats", "pencils"),
+    "factor": ("pencils", "factor"),
+    "track": ("factor", "track"),
+    "synth": ("track", "solve"),
+}
+_SECTION_MARKS = [(MARKS.index(a), MARKS.index(b)) for a, b in SECTIONS.values()]
 RING_ROWS = 32768  # a 20 s window at 1,600 hops a second
 #: A branch's every SAMPLE_EVERY-th replay is timed by its marks: odd, so the
 #: 32-hop cadence is not oversampled, prime to a 12-hop cycle, and sparse,
@@ -273,13 +292,14 @@ class HopMeter:
     graph at each of :data:`MARKS`; anywhere else it does nothing (eager
     hops, the CPU, the warm pass before a capture), and under
     ``torch.func.vmap`` it records once for the batch. A branch whose
-    capture carries all seven marks is captured a second time without
+    capture carries all the marks is captured a second time without
     them, and that twin is what a hop replays, so the marks cost the
     device nothing on most hops. Every :data:`SAMPLE_EVERY`-th replay of
     each branch replays the marked graph instead and is sampled: at the
     next replay, if the sampled replay's last event has completed by then,
-    its six section times are read (libcuda's ``cuEventElapsedTime``) and
-    kept with its branch; if not, the sample is kept as missed
+    its section times (:data:`SECTIONS`, each from its start mark to its
+    end mark) are read (libcuda's ``cuEventElapsedTime``) and kept with
+    its branch; if not, the sample is kept as missed
     (:meth:`MeterWindow.samples`). The FD engine's hop carries no section
     marks.
 
@@ -319,7 +339,7 @@ class HopMeter:
         self.resid_reads = 0
         self._branch_replays = [0, 0]  # replays of the plain and the rebuild branch
         self._pending = None
-        # (row, branch, six section ms, or None where missed)
+        # (row, branch, the section ms in SECTIONS' order, or None where missed)
         self._samples = collections.deque(maxlen=n // SAMPLE_EVERY + 4)
         self._capturing = None
         self.setup: list[tuple[str, float, int | None]] = []
@@ -363,8 +383,8 @@ class HopMeter:
     def launch(self, graph, branch: bool, marked=None) -> None:
         """Replay ``graph``, the branch ``branch`` of a graphed hop, inside
         the ``launch`` span. ``marked``: the branch's twin that carries the
-        timed marks, (graph, its seven events), or None. Reads the last
-        sampled replay's sections first if they have completed; every
+        timed marks, (graph, the events of :data:`MARKS`), or None. Reads
+        the last sampled replay's sections first if they have completed; every
         :data:`SAMPLE_EVERY`-th replay of the branch replays the twin and
         is sampled."""
         if self._pending is not None:
@@ -398,12 +418,10 @@ class HopMeter:
         if elapsed(out, h[-2], h[-1]) != 0:
             self._samples.append((row, branch, None))
             return
-        last = ms.value
         times = []
-        for a, b in zip(h[:-2], h[1:-1]):
-            elapsed(out, a, b)
+        for a, b in _SECTION_MARKS:
+            elapsed(out, h[a], h[b])
             times.append(ms.value)
-        times.append(last)
         self._samples.append((row, branch, times))
 
     def decided(self, cause: str) -> bool:
@@ -545,8 +563,8 @@ class MeterWindow:
         return causes.count(_CAUSE_INDEX[cause]) / len(causes)
 
     def _sampled(self) -> dict[bool, list]:
-        """Each branch's samples among the window's unprofiled hops: six
-        section ms each, or None where missed."""
+        """Each branch's samples among the window's unprofiled hops: the
+        section ms in :data:`SECTIONS`' order each, or None where missed."""
         by_branch: dict[bool, list] = {}
         for hop, branch, times in self._m._samples:
             if self._first <= hop < self._last and not self.profiled[hop - self._first]:
@@ -568,16 +586,25 @@ class MeterWindow:
         branch that the window's hops took has a sample read and none
         missed: a mean without a branch, or without the replays slow enough
         to miss, would read low."""
-        k = SECTIONS.index(section)
-        sampled = self._sampled()
         hops = collections.Counter(row[_REBUILT] for row in self._rows)
         total = 0.0
         for branch, n in hops.items():
-            times = sampled.get(branch)
-            if not times or any(t is None for t in times):
+            mean = self.branch_ms(section, branch)
+            if mean is None:
                 return None
-            total += n / len(self._rows) * sum(t[k] for t in times) / len(times)
+            total += n / len(self._rows) * mean
         return total
+
+    def branch_ms(self, section: str, branch: bool) -> float | None:
+        """Mean device ms of the section ``section`` (:data:`SECTIONS`) over
+        the window's sampled replays of one branch (rebuild True, plain
+        False). None unless the branch has a sample read in the window and
+        none missed."""
+        k = list(SECTIONS).index(section)
+        times = self._sampled().get(branch)
+        if not times or any(t is None for t in times):
+            return None
+        return sum(t[k] for t in times) / len(times)
 
 
 _METER = HopMeter()

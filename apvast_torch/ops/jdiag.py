@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from apvast_torch.observability import meter
 from apvast_torch.ops.kernels import (
     blocked_cholesky,
     jacobi_eigh,
@@ -30,6 +31,8 @@ from apvast_torch.ops.kernels import (
 )
 from apvast_torch.ops.small_chol import cholesky_small
 from apvast_torch.ops.trisolve import neumann_tri_inverse, triangular_inverse
+
+_meter = meter()
 
 
 def cholesky(x: torch.Tensor) -> torch.Tensor:
@@ -410,9 +413,11 @@ def jdiag_topk_tracked(
 
     ``rebuild`` is a host bool: the factorization runs only on the hops
     that refresh Li, and a non-finite fresh factor falls back to the
-    carried one. The carry may be bfloat16 (``tracking_li_bf16``): the
-    fresh factor is rounded to it, and its products promote it back to
-    the pencil's dtype, as ``jnp.matmul`` of bfloat16 and float32 does.
+    carried one. The hop meter's ``factor`` mark follows it on every hop,
+    before any other work of the solver. The carry may be bfloat16
+    (``tracking_li_bf16``): the fresh factor is rounded to it, and its
+    products promote it back to the pencil's dtype, as ``jnp.matmul`` of
+    bfloat16 and float32 does.
 
     ``residual_precision="default"``: the residual path's products (A X
     and B X, and P's two products with Li) take bfloat16-rounded operands
@@ -432,16 +437,6 @@ def jdiag_topk_tracked(
     k = q_init.shape[-1]
     dtype, dev = A.dtype, A.device
     eye = torch.eye(n, dtype=dtype, device=dev)
-
-    # Zone-wise basis-health guard: a sustained true-silence gap collapses
-    # the pencil until the inner CholeskyQR2 returns an exactly-zero
-    # (finite) basis, which is absorbing (its residual reads 0, below any
-    # rebuild threshold). A basis is healthy iff all-finite and no column
-    # has underflowed; unhealthy zones restart from identity columns.
-    eye_nk = eye[:, :k].expand(z, n, k)
-    healthy0 = _basis_healthy(q_init)
-    q_init = torch.where(healthy0[:, None, None], q_init, eye_nk)
-    lam_init = torch.where(healthy0[:, None], lam_init, torch.zeros_like(lam_init))
 
     def mm(a, b, single_pass=False):
         return single_pass_matmul(a, b) if single_pass else a @ b
@@ -471,6 +466,17 @@ def jdiag_topk_tracked(
     if rebuild:
         fresh = triangular_inverse(cholesky(b_full())).to(li_carry.dtype)
         li = torch.where(torch.isfinite(fresh), fresh, li_carry)
+    _meter.mark("factor")
+
+    # Zone-wise basis-health guard: a sustained true-silence gap collapses
+    # the pencil until the inner CholeskyQR2 returns an exactly-zero
+    # (finite) basis, which is absorbing (its residual reads 0, below any
+    # rebuild threshold). A basis is healthy iff all-finite and no column
+    # has underflowed; unhealthy zones restart from identity columns.
+    eye_nk = eye[:, :k].expand(z, n, k)
+    healthy0 = _basis_healthy(q_init)
+    q_init = torch.where(healthy0[:, None, None], q_init, eye_nk)
+    lam_init = torch.where(healthy0[:, None], lam_init, torch.zeros_like(lam_init))
     li_w = li.to(dtype)  # exact: bfloat16 widens to float32 without rounding
     sp = residual_precision == "default"
 

@@ -1794,23 +1794,40 @@ def test_hop_meter_twin_replays_bit_for_bit(dev, rebuilt):
 
 @pytest.mark.parametrize("rebuilt", [False, True])
 def test_hop_meter_sections_sum_to_the_replay(dev, rebuilt):
-    """The six sections of a replay add up to within 5 % of a timing event
-    pair recorded around it (mean of 10 replays of the branch)."""
+    """The hop's six sections of a replay add up to within 5 % of a timing
+    event pair recorded around it, and ``pencils`` + ``factor`` +
+    ``track`` + ``synth`` to within 3 % of ``solve`` (means of 10 replays
+    of the branch); the marks come in ``MARKS``' order, each section's
+    time is at least 0, and the factorization takes time on the rebuild
+    branch alone."""
+    from apvast_torch.observability import MARKS, SECTIONS
+
     rng = np.random.default_rng(28)
     model = ApVast(device=dev, **_s8_kwargs(rng, production_overrides()))
     twin, marks = model.graph.marked[rebuilt]
+    assert len(marks) == len(MARKS)
     outer = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-    sums, spans = [], []
+    sums, spans, sections = [], [], []
     for a, b in rng.standard_normal((12, 2, 64)).astype(np.float32):
         model.graph.stage(a, b)
         outer[0].record()
         twin.replay()
         outer[1].record()
         torch.cuda.synchronize()
-        sums.append(sum(x.elapsed_time(y) for x, y in zip(marks, marks[1:])))
         spans.append(outer[0].elapsed_time(outer[1]))
+        sections.append({k: marks[MARKS.index(x)].elapsed_time(marks[MARKS.index(y)])
+                         for k, (x, y) in SECTIONS.items()})
+        sums.append(sum(list(sections[-1].values())[:6]))
     got, want = np.mean(sums[2:]), np.mean(spans[2:])
     assert abs(got - want) <= 0.05 * want, (got, want)
+    mean = {k: np.mean([row[k] for row in sections[2:]]) for k in SECTIONS}
+    assert all(v >= 0 for v in mean.values()), mean
+    parts = mean["pencils"] + mean["factor"] + mean["track"] + mean["synth"]
+    assert abs(parts - mean["solve"]) <= 0.03 * mean["solve"], mean
+    if rebuilt:
+        assert mean["factor"] > 0.02, mean
+    else:
+        assert mean["factor"] < 0.01, mean
 
 
 def test_hop_meter_adds_no_sync(dev):

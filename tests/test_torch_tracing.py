@@ -10,7 +10,9 @@ into its own profiler and no other; the sampled reading of the device
 sections (with stand-ins for a graph, its events and libcuda), late,
 missed while pending, weighted by branch; and each of the benchmark's readers
 of the meter on a short CPU run, None where its span runs only in a
-graph on the card. The card's side (marks in both branch graphs, the
+graph on the card; the sections inside ``solve`` summing to it, the
+hop's six sections reading between the marks they read before, and the
+per-branch reader. The card's side (marks in both branch graphs, the
 sections against the replay, no added sync, ``launch`` around
 ``cudaGraphLaunch``) is in ``tests/test_torch_cuda.py``."""
 
@@ -44,7 +46,7 @@ NEW_METRICS = {
     "launch_host_ms": False, "writeback_dev_ms": False, "conv_dev_ms": False,
     "weight_dev_ms": False, "stats_dev_ms": False, "solve_dev_ms": False,
     "out_dev_ms": False, "resid_rebuild_share": True, "resid_rebuild_share.live": True,
-    "capture_s": False, "plan_s": True,
+    "capture_s": False, "plan_s": True, "factor_dev_ms": False, "track_dev_ms": False,
 }
 
 
@@ -295,34 +297,56 @@ def test_sampling_constants():
     """One odd sampling period, so that the 32-hop cadence's rebuild hops
     are sampled at their share, prime to a 12-hop cycle (a syllable-rate
     level envelope); the ring holds a 20 s window at four times the
-    fastest cell's hop rate; seven marks, six sections."""
+    fastest cell's hop rate; ten marks, ten sections, each between two
+    marks in the order a hop records them."""
     assert SAMPLE_EVERY % 2 == 1 and np.gcd(SAMPLE_EVERY, 32) == 1
     assert np.gcd(SAMPLE_EVERY, 12) == 1
     assert RING_ROWS >= 32768
-    assert len(MARKS) == 7 and SECTIONS == MARKS[1:]
+    assert len(MARKS) == 10 and len(SECTIONS) == 10
+    assert all(MARKS.index(a) < MARKS.index(b) for a, b in SECTIONS.values())
     assert CAUSES == ("none", "warmup", "cadence", "residual")
 
 
-def test_sampled_sections_are_read_late_and_weighted_by_branch(fresh_meter, monkeypatch):
-    """The device sections' sampling with stand-ins for the graphs, their
-    timed events and libcuda's elapsed time: every SAMPLE_EVERY-th replay
-    of each branch replays the branch's marked twin and is read at the
-    next launch, a replay not yet complete there is kept as missed, and
-    each branch's mean is weighted by the branch's share of the window's
-    hops. A window with a missed sample, or with hops of a branch that has
-    no sample in it, reads as None."""
+def test_marks_in_the_order_a_hop_records_them():
+    """The three marks inside section 5 lie between ``stats`` and
+    ``solve``, in the solver's order: the loaded pencils, the rebuild
+    factorization, the tracker's step."""
+    assert MARKS == ("start", "conv", "weight", "stats", "pencils", "factor", "track", "solve",
+                     "out", "writeback")
+    assert list(SECTIONS)[:6] == ["conv", "weight", "stats", "solve", "out", "writeback"]
+    assert [SECTIONS[k] for k in ("pencils", "factor", "track", "synth")] == [
+        ("stats", "pencils"), ("pencils", "factor"), ("factor", "track"), ("track", "solve")]
+
+
+# Stand-ins for a graph, its timed events and libcuda's elapsed time. Each
+# branch's mark timestamps: the plain branch's sections between
+# consecutive marks take 1, 2, ..., 9 ms; the rebuild branch's 2 ms each.
+STAMPS = {False: (0, 1, 3, 6, 10, 15, 21, 28, 36, 45), True: tuple(range(0, 20, 2))}
+# The six sections as the meter read them with seven marks: from each of
+# these marks to the next.
+SEVEN_MARKS = ("start", "conv", "weight", "stats", "solve", "out", "writeback")
+
+
+class _Graph:
+    def __init__(self):
+        self.replays = 0
+
+    def replay(self):
+        self.replays += 1
+
+
+class _Event:
+    def __init__(self, handle):
+        self.cuda_event = handle
+
+
+def _sampled_run(meter_, monkeypatch, missed_plain=True):
+    """4 SAMPLE_EVERY + 11 hops through ``launch`` with a rebuild on every
+    fourth hop, each branch's marks stamped by :data:`STAMPS`; with
+    ``missed_plain`` the first plain sample is read before it completes.
+    Returns (rebuilt_at, sampled hops, replays of each branch, graphs,
+    twins)."""
     import apvast_torch.observability as obs
-
-    class Graph:
-        def __init__(self):
-            self.replays = 0
-
-        def replay(self):
-            self.replays += 1
-
-    class Event:
-        def __init__(self, handle):
-            self.cuda_event = handle
 
     ready = [True]
 
@@ -333,10 +357,9 @@ def test_sampled_sections_are_read_late_and_weighted_by_branch(fresh_meter, monk
         return 0
 
     monkeypatch.setattr(obs, "_libcuda_elapsed", lambda: elapsed)
-    marks = {False: [Event(t) for t in (0, 1, 3, 6, 10, 15, 21)],  # sections 1, 2, ..., 6
-             True: [Event(t) for t in range(0, 14, 2)]}  # sections 2 each
-    graphs = {b: Graph() for b in (False, True)}
-    twins = {b: Graph() for b in (False, True)}
+    marks = {b: [_Event(t) for t in STAMPS[b]] for b in (False, True)}
+    graphs = {b: _Graph() for b in (False, True)}
+    twins = {b: _Graph() for b in (False, True)}
     n = 4 * SAMPLE_EVERY + 11
     rebuilt_at = [h % 4 == 1 for h in range(n)]
     sampled, seen = [], {False: 0, True: 0}
@@ -345,14 +368,33 @@ def test_sampled_sections_are_read_late_and_weighted_by_branch(fresh_meter, monk
         if seen[rebuilt] % SAMPLE_EVERY == 0:
             sampled.append(h)
     first_plain = next(h for h in sampled if not rebuilt_at[h])
+    for h, rebuilt in enumerate(rebuilt_at):
+        ready[0] = not missed_plain or h != first_plain + 1
+        t0 = meter_.enter()
+        meter_.decided("residual" if rebuilt else "none")
+        meter_.launch(graphs[rebuilt], rebuilt, (twins[rebuilt], marks[rebuilt]))
+        meter_.leave(t0, rebuilt)
+    return rebuilt_at, sampled, seen, graphs, twins
+
+
+def _stamped(branch, section):
+    a, b = SECTIONS[section]
+    return STAMPS[branch][MARKS.index(b)] - STAMPS[branch][MARKS.index(a)]
+
+
+def test_sampled_sections_are_read_late_and_weighted_by_branch(fresh_meter, monkeypatch):
+    """The device sections' sampling with stand-ins for the graphs, their
+    timed events and libcuda's elapsed time: every SAMPLE_EVERY-th replay
+    of each branch replays the branch's marked twin and is read at the
+    next launch, a replay not yet complete there is kept as missed, and
+    each branch's mean is weighted by the branch's share of the window's
+    hops. A window with a missed sample, or with hops of a branch that has
+    no sample in it, reads as None."""
+    rebuilt_at, sampled, seen, graphs, twins = _sampled_run(fresh_meter, monkeypatch)
+    n = len(rebuilt_at)
+    first_plain = next(h for h in sampled if not rebuilt_at[h])
     reb = next(h for h in sampled if rebuilt_at[h])
     assert first_plain < reb < max(sampled)  # plain, ..., rebuild, plain
-    for h, rebuilt in enumerate(rebuilt_at):
-        ready[0] = h != first_plain + 1  # the first plain sample is read before it completes
-        t0 = fresh_meter.enter()
-        fresh_meter.decided("residual" if rebuilt else "none")
-        fresh_meter.launch(graphs[rebuilt], rebuilt, (twins[rebuilt], marks[rebuilt]))
-        fresh_meter.leave(t0, rebuilt)
     assert [row for row, _, _ in fresh_meter._samples] == sampled
     assert [b for _, b, _ in fresh_meter._samples] == [rebuilt_at[h] for h in sampled]
     for b in (False, True):
@@ -368,10 +410,69 @@ def test_sampled_sections_are_read_late_and_weighted_by_branch(fresh_meter, monk
     share = sum(rebuilt_at[-hops:]) / hops
     w = fresh_meter.window(hops)
     assert w.samples() == {False: (plain_samples - 1, 0), True: (1, 0)}
-    for k, section in enumerate(SECTIONS):
-        assert w.section_ms(section) == pytest.approx((1 - share) * (k + 1) + share * 2)
+    for section in SECTIONS:
+        want = (1 - share) * _stamped(False, section) + share * _stamped(True, section)
+        assert w.section_ms(section) == pytest.approx(want)
     # Past the rebuild sample, rebuild hops with no sample: None, not the
     # plain branch's mean.
     w = fresh_meter.window(n - reb - 1)
     assert w.samples() == {False: (1, 0)} and any(rebuilt_at[reb + 1:])
     assert w.section_ms("solve") is None
+
+
+def test_solve_is_the_sum_of_its_four_parts(fresh_meter, monkeypatch):
+    """On the stand-ins' rows, ``pencils`` + ``factor`` + ``track`` +
+    ``synth`` equal ``solve``: in each branch and weighted by branch."""
+    _sampled_run(fresh_meter, monkeypatch, missed_plain=False)
+    w = fresh_meter.window(fresh_meter.hops)
+    parts = ("pencils", "factor", "track", "synth")
+    for read in (w.section_ms, lambda s: w.branch_ms(s, False), lambda s: w.branch_ms(s, True)):
+        assert read("solve") > 0
+        assert sum(read(p) for p in parts) == pytest.approx(read("solve"), rel=1e-12)
+
+
+@pytest.mark.parametrize("section", SEVEN_MARKS[1:])
+def test_hop_sections_read_what_they_read_with_seven_marks(fresh_meter, monkeypatch, section):
+    """Each of the hop's six sections runs between the marks it ran
+    between before the marks inside ``solve`` came, and reads, on the
+    stand-ins' rows, the time between those two marks."""
+    k = SEVEN_MARKS.index(section)
+    assert SECTIONS[section] == (SEVEN_MARKS[k - 1], SEVEN_MARKS[k])
+    rebuilt_at, *_ = _sampled_run(fresh_meter, monkeypatch, missed_plain=False)
+    w = fresh_meter.window(len(rebuilt_at))
+    share = sum(rebuilt_at) / len(rebuilt_at)
+    start, end = (MARKS.index(m) for m in SEVEN_MARKS[k - 1:k + 1])
+    before = {b: STAMPS[b][end] - STAMPS[b][start] for b in (False, True)}
+    assert w.section_ms(section) == pytest.approx((1 - share) * before[False] + share * before[True])
+
+
+def test_branch_reader_none_rules(fresh_meter, monkeypatch):
+    """``branch_ms``: one branch's mean over its read samples in the
+    window; None for a branch with a missed sample in the window, and for
+    a branch with no sample there, whatever the other branch holds. The
+    benchmark's ``factor_dev_ms`` reads the rebuild branch's ``factor``
+    section alone and ``track_dev_ms`` the weighted ``track`` section."""
+    rebuilt_at, sampled, *_ = _sampled_run(fresh_meter, monkeypatch)
+    n = len(rebuilt_at)
+    first_plain = next(h for h in sampled if not rebuilt_at[h])
+    reb = next(h for h in sampled if rebuilt_at[h])
+    w = fresh_meter.window(n)
+    assert w.branch_ms("factor", False) is None  # the missed plain sample
+    assert w.branch_ms("factor", True) == _stamped(True, "factor")
+    w = fresh_meter.window(n - first_plain - 1)
+    assert w.branch_ms("factor", False) == _stamped(False, "factor")
+    assert w.branch_ms("track", False) == _stamped(False, "track")
+    w = fresh_meter.window(n - reb - 1)  # no rebuild sample
+    assert w.branch_ms("factor", True) is None
+    assert w.branch_ms("factor", False) == _stamped(False, "factor")
+    # The benchmark's readers on a record of the window past the missed
+    # sample.
+    hops = n - first_plain - 1
+    record = dict(hop_s=[1e-3] * hops, rebuilt=rebuilt_at[-hops:], profiled=[False] * hops)
+    assert _bench_module("factor_dev_ms").read(record) == _stamped(True, "factor")
+    share = sum(rebuilt_at[-hops:]) / hops
+    want = (1 - share) * _stamped(False, "track") + share * _stamped(True, "track")
+    assert _bench_module("track_dev_ms").read(record) == pytest.approx(want)
+    record = dict(hop_s=[1e-3] * n, rebuilt=rebuilt_at, profiled=[False] * n)
+    assert _bench_module("factor_dev_ms").read(record) == _stamped(True, "factor")
+    assert _bench_module("track_dev_ms").read(record) is None  # the missed plain sample
