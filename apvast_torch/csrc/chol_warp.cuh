@@ -1,7 +1,8 @@
 // Blocked Cholesky factor and lower-triangular inverse of a small SPD
 // matrix held in shared memory, by one thread block. A tool of K9
-// (subspace.cu, the k x k Gram matrices of CholeskyQR2) and K10a
-// (whiten.cu, the 128 x 128 panels), not a kernel.
+// (subspace.cu, the k x k Gram matrices of CholeskyQR2), K10a (whiten.cu,
+// the 128 x 128 panels) and the tracker's Rayleigh-Ritz solve
+// (tracked_rr.cu, its pencil and Gram matrices), not a kernel.
 //
 // The matrix is cut into 32-wide sub-panels. For each sub-panel:
 //  1. one warp factors the 32 x 32 diagonal block in registers (lane r
@@ -54,9 +55,11 @@ constexpr int kScratch = kSub + kSub * kRowLd;
 // diagonal; isr[c0 + c] = the column scales rsqrt(max(pivot, 1e-30)); its
 // rows also to scratch + kSub (stride kRowLd) for invert_diag. Lane r holds
 // row r; each column goes to the other lanes through shared memory (one
-// store, then vector loads every lane reads alike).
+// store, then vector loads every lane reads alike). Where fail is given, a
+// pivot that is not > 0 (a NaN included: where cholesky_ex reports
+// info > 0) sets *fail to 1; the clamp runs all the same.
 __device__ __forceinline__ void factor_diag(float* A, int ld, int c0, float* isr,
-                                            float* scratch) {
+                                            float* scratch, int* fail = nullptr) {
   const int lane = threadIdx.x & 31;
   float* row = A + (c0 + lane) * ld + c0;
   float* col = scratch;
@@ -65,7 +68,9 @@ __device__ __forceinline__ void factor_diag(float* A, int ld, int c0, float* isr
   for (int m = 0; m < kSub; ++m) d[m] = row[m];
 #pragma unroll
   for (int c = 0; c < kSub; ++c) {
-    const float s = 1.f / sqrtf(clamp_pivot(__shfl_sync(kFull, d[c], c)));
+    const float p = __shfl_sync(kFull, d[c], c);
+    if (fail != nullptr && lane == c && !(p > 0.f)) *fail = 1;
+    const float s = 1.f / sqrtf(clamp_pivot(p));
     const float l = d[c] * s;  // L[lane][c] for lane >= c
     d[c] = l;
     if (lane == c) isr[c0 + c] = s;
@@ -273,22 +278,25 @@ __device__ __forceinline__ void merge_level(const float* A, int ld, float* X, in
 // stride ldx) holds the inverses of L's diagonal blocks, zeros elsewhere
 // above the block diagonal. isr holds n floats, scratch kScratch (on 16
 // bytes). Needs at least two warps;
-// ld, ldx odd keep a warp's column reads free of bank conflicts.
+// ld, ldx odd keep a warp's column reads free of bank conflicts. fail, where
+// given, is factor_diag's. With X null no diagonal block is inverted (L
+// alone: invert must not follow) and every warp takes strip rows.
 __device__ __forceinline__ void factor(float* A, int ld, float* X, int ldx, float* isr,
-                                       float* scratch, int n) {
+                                       float* scratch, int n, int* fail = nullptr) {
   const int warp = threadIdx.x / 32, nwarps = blockDim.x / 32;
-  for (int e = threadIdx.x; e < n * n; e += blockDim.x) {
+  const bool inverse = X != nullptr;
+  for (int e = threadIdx.x; inverse && e < n * n; e += blockDim.x) {
     const int r = e / n, c = e % n;
     if (c / kSub > r / kSub) X[r * ldx + c] = 0.f;
   }
   for (int c0 = 0; c0 < n; c0 += kSub) {
-    if (warp == 0) factor_diag(A, ld, c0, isr, scratch);
+    if (warp == 0) factor_diag(A, ld, c0, isr, scratch, fail);
     __syncthreads();
     STAGE_STAMP(9);
-    if (warp == nwarps - 1) {
+    if (inverse && warp == nwarps - 1) {
       invert_diag(scratch, c0, X, ldx);
     } else if (c0 + kSub < n) {
-      solve_strip(A, ld, c0, c0 + kSub, n, isr, warp, nwarps - 1);
+      solve_strip(A, ld, c0, c0 + kSub, n, isr, warp, inverse ? nwarps - 1 : nwarps);
     }
     __syncthreads();
     STAGE_STAMP(10);

@@ -28,19 +28,17 @@ from apvast_torch.ops.kernels import (
     jacobi_eigh,
     jacobi_eigh_hermitian,
     subspace_iterate,
+    tracked_rr,
+    tracked_rr_coords,
+    tracked_rr_coords_plain,
+    tracked_rr_plain,
 )
+from apvast_torch.ops.kernels.tracked_rr import MAX_WIDTH as TRACKED_RR_WIDTH
 from apvast_torch.ops.small_chol import cholesky_small
-from apvast_torch.ops.trisolve import neumann_tri_inverse, triangular_inverse
+from apvast_torch.ops.trisolve import cholesky, neumann_tri_inverse, triangular_inverse
+from apvast_torch.ops.trisolve import cholqr2 as _cholqr2
 
 _meter = meter()
-
-
-def cholesky(x: torch.Tensor) -> torch.Tensor:
-    """Lower Cholesky factor, NaN-filled where the factorization fails, as
-    JAX's is (``torch.linalg.cholesky`` would raise instead), so the
-    solvers' non-finite guards and ``silenced`` count see it."""
-    chol, info = torch.linalg.cholesky_ex(x)
-    return torch.where((info > 0)[..., None, None], torch.nan, chol)
 
 
 def eigh(h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -113,22 +111,6 @@ def jdiag_batched(A: torch.Tensor, B: torch.Tensor, reg: float = 1e-7):
         raise ValueError(f"jdiag_batched takes two (z, n, n) stacks, got {tuple(A.shape)} "
                          f"and {tuple(B.shape)}")
     return jdiag(A, B, reg)
-
-
-def _cholqr2(q: torch.Tensor) -> torch.Tensor:
-    """CholeskyQR2 orthonormalization of the columns of (batched) ``q``:
-    two passes of q <- q L^-T with L the Cholesky factor of the Gram
-    matrix, jittered relative to its own trace so a rank-deficient block
-    does not turn the factor into NaNs."""
-    k = q.shape[-1]
-    eye = torch.eye(k, dtype=q.dtype, device=q.device)
-    for _ in range(2):
-        gram = q.transpose(-1, -2) @ q
-        trace = torch.diagonal(gram, dim1=-2, dim2=-1).sum(-1)
-        jitter = (trace / k) * 1e-6 + 1e-30
-        chol = cholesky(gram + jitter[..., None, None] * eye)
-        q = q @ neumann_tri_inverse(chol).transpose(-1, -2)
-    return q
 
 
 def _sym(x: torch.Tensor) -> torch.Tensor:
@@ -381,6 +363,14 @@ def single_pass_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return bf16_round(a.float()) @ bf16_round(b.float())
 
 
+def _rr_kernel_takes(s: torch.Tensor) -> bool:
+    """Whether the tracker's Rayleigh-Ritz solve on the basis ``s`` (z, n,
+    2k) runs as its kernel: a float32 CUDA basis of at most
+    ``TRACKED_RR_WIDTH`` columns; anything else runs the torch chain."""
+    return (s.device.type == "cuda" and s.dtype == torch.float32
+            and s.shape[-1] <= TRACKED_RR_WIDTH)
+
+
 def jdiag_topk_tracked(
     A: torch.Tensor,
     B: torch.Tensor,
@@ -510,29 +500,16 @@ def jdiag_topk_tracked(
             a_s = apply_a(s)
             b_s = apply_b(s)
         st = s.transpose(-1, -2)
-        abar = _sym(st @ a_s)
-        bbar = _sym(st @ b_s)
-        kk = bbar.shape[-1]
-        eyek = torch.eye(kk, dtype=dtype, device=dev)
-        tr = torch.diagonal(bbar, dim1=-2, dim2=-1).sum(-1) / kk
-        # Trace-relative, dtype-scaled jitter: covers roundoff on warmup
-        # hops without biasing float64 eigenvalues.
-        jit_rel = 8.0 * torch.finfo(dtype).eps
-        bbar = bbar + (jit_rel * tr)[:, None, None] * eyek
-        lbar = cholesky(bbar)
-        libar = triangular_inverse(lbar)
-        wbar = _sym((libar @ abar) @ libar.transpose(-1, -2))
-        # Inner inexact solve: k-block power steps seeded from the X
-        # coordinates (the previous Ritz vectors span basis slots :k).
-        y = _cholqr2(lbar.transpose(-1, -2)[:, :, :k])
-        for _ in range(2):
-            y = _cholqr2(wbar @ y)
-        h = _sym(y.transpose(-1, -2) @ (wbar @ y))
+        # The Rayleigh-Ritz solve on the projected pencil (whitening, the
+        # power steps and their CholeskyQR2, h), then K4 on h, then the
+        # pencil coordinates c (descending, c^T bbar c = I): on the card in
+        # float32 up to 2k = 128 one launch each side of K4, else torch.
+        solve, coords = ((tracked_rr, tracked_rr_coords) if _rr_kernel_takes(s)
+                         else (tracked_rr_plain, tracked_rr_coords_plain))
+        h, y, libar = solve(st @ a_s, st @ b_s, k)
         d, v = _small_eigh(h, small_eigh, jacobi_sweeps)  # ascending
-        # Pencil coordinates, descending, c^T bbar c = I.
-        c = libar.transpose(-1, -2) @ (y @ v.flip(-1))
+        c, lam = coords(libar, y, d, v)
         q = s @ c  # B-orthonormal Ritz vectors
-        lam = d.flip(-1)
 
     u = q[..., :num_vectors]
     dd = lam[..., :num_vectors]

@@ -3,7 +3,9 @@
 The time-domain hop's K1 (streaming convolution), K8 (the truncated
 weighting's row-wise circular convolution), K2 and K3 (lag statistics),
 K6 (dense framed statistics), K10a and K9 (the 'invert' solver), K4 (the
-Rayleigh-Ritz Jacobi eigensolver) and K5 (output synthesis); the
+Rayleigh-Ritz Jacobi eigensolver) with the tracking solver's Rayleigh-Ritz
+solve before it and its Ritz coordinates after it (``tracked_rr``, which
+replaces no Pallas kernel), and K5 (output synthesis); the
 frequency-domain engine's K7 (Hermitian Jacobi, a form of K4); and two
 kernels that no engine path calls, as in the JAX package: K11, the unfused
 circular filter (a form of K5), and K10b, the fused Cholesky and
@@ -45,6 +47,12 @@ from apvast_torch.ops.kernels.streaming_conv import (
     streaming_conv_plain,
 )
 from apvast_torch.ops.kernels.subspace import subspace_iterate, subspace_iterate_plain
+from apvast_torch.ops.kernels.tracked_rr import (
+    tracked_rr,
+    tracked_rr_coords,
+    tracked_rr_coords_plain,
+    tracked_rr_plain,
+)
 from apvast_torch.ops.kernels.whiten import (
     blocked_cholesky,
     chol_panel,
@@ -63,7 +71,9 @@ WRAPPERS = {
     "statistics": covariance,
     "whiten": chol_panel,
     "subspace": subspace_iterate,
+    "tracked_rr": tracked_rr,
     "jacobi_eigh": jacobi_eigh,
+    "tracked_rr_coords": tracked_rr_coords,
     "output_filter": circular_filter_overlap,
     "jacobi_eigh_hermitian": jacobi_eigh_hermitian,
     "circular_filter": circular_filter,
@@ -117,4 +127,8 @@ __all__ = [
     "streaming_conv_plain",
     "subspace_iterate",
     "subspace_iterate_plain",
+    "tracked_rr",
+    "tracked_rr_coords",
+    "tracked_rr_coords_plain",
+    "tracked_rr_plain",
 ]

@@ -33,7 +33,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(__file__))),
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
 KERNEL_SOURCES = (
     "streaming_conv", "rowwise_conv", "lag_corr", "skew_assembly", "statistics", "whiten",
-    "subspace", "jacobi_eigh", "output_filter", "chol_tri_inverse",
+    "subspace", "tracked_rr", "jacobi_eigh", "output_filter", "chol_tri_inverse",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,8 +1,13 @@
-"""Triangular inversion (port of ``apvast_tpu/ops/trisolve.py``).
+"""Triangular inversion (port of ``apvast_tpu/ops/trisolve.py``), and the
+solvers' NaN-filled Cholesky factor and CholeskyQR2 that use it.
 
 ``neumann_tri_inverse`` is the matmul-only inverse of a small lower
-factor, kept as written: CholeskyQR2 (``ops/jdiag._cholqr2``) uses it, and
-its zero-diagonal guard decides what a collapsed (silent) pencil gives.
+factor, kept as written: CholeskyQR2 (:func:`cholqr2`, JAX's
+``ops/jdiag._cholqr2``) uses it, and its zero-diagonal guard decides what a
+collapsed (silent) pencil gives. :func:`cholesky` and :func:`cholqr2` live
+here, below ``ops/jdiag.py``, so that the tracker's Rayleigh-Ritz kernel
+(``ops/kernels/tracked_rr.py``), which ``ops/jdiag.py`` imports, can run
+them in its plain version.
 ``clamped_cholesky`` is the column Cholesky of the TPU kernels K9 and K10a,
 which their plain versions share. ``triangular_inverse`` inverts a large
 Cholesky factor. The JAX function splits it into blocks to dodge the
@@ -62,3 +67,27 @@ def triangular_inverse(chol: torch.Tensor) -> torch.Tensor:
     n = chol.shape[-1]
     eye = torch.eye(n, dtype=chol.dtype, device=chol.device)
     return torch.linalg.solve_triangular(chol, eye.expand_as(chol), upper=False)
+
+
+def cholesky(x: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor, NaN-filled where the factorization fails, as
+    JAX's is (``torch.linalg.cholesky`` would raise instead), so the
+    solvers' non-finite guards and ``silenced`` count see it."""
+    chol, info = torch.linalg.cholesky_ex(x)
+    return torch.where((info > 0)[..., None, None], torch.nan, chol)
+
+
+def cholqr2(q: torch.Tensor) -> torch.Tensor:
+    """CholeskyQR2 orthonormalization of the columns of (batched) ``q``:
+    two passes of q <- q L^-T with L the Cholesky factor of the Gram
+    matrix, jittered relative to its own trace so a rank-deficient block
+    does not turn the factor into NaNs."""
+    k = q.shape[-1]
+    eye = torch.eye(k, dtype=q.dtype, device=q.device)
+    for _ in range(2):
+        gram = q.transpose(-1, -2) @ q
+        trace = torch.diagonal(gram, dim1=-2, dim2=-1).sum(-1)
+        jitter = (trace / k) * 1e-6 + 1e-30
+        chol = cholesky(gram + jitter[..., None, None] * eye)
+        q = q @ neumann_tri_inverse(chol).transpose(-1, -2)
+    return q

@@ -48,7 +48,13 @@ Phase 2  each kernel against its plain PyTorch version on the card, at the
          whose full-depth windows hold it, as in the plain version) and at
          (4, 2, 3, 64) and (4, 2, 17, 96) with a general k_t; K11 at
          (2, 1600) x (2, 800, 50), at 37 rows (no whole row tile) and at
-         1000 rows (the JAX function pads them). K10b (no engine caller) at (2, 800, 800), (1, 200, 200)
+         1000 rows (the JAX function pads them). The tracker's Rayleigh-Ritz
+         kernel (tracked_rr, replacing no Pallas kernel) at (2, 128, 128)
+         with k = 64, also at 16 and 32 zones, and at ragged widths (20, 44,
+         100), also against a float64 oracle; its coordinates at (2, 128, 64)
+         on K4's eigenpairs and ragged; timed beside the torch chain of the
+         hop's stretch they replace (solve, K4, coordinates), graphed.
+         K10b (no engine caller) at (2, 800, 800), (1, 200, 200)
          and (1, 1024, 1024) against its plain version and against a float64
          oracle, both within 1e-5 of scale (the JAX package's bound), with
          exact zeros above the diagonal; on an ill-conditioned batch (its
@@ -394,6 +400,20 @@ def _bound(flops, bytes_, tc_flops=None):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", fp32_ms
 
 
+def _graphed(fn):
+    """``fn`` captured in a CUDA graph (after a warm call on a side
+    stream); returns its replay."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph.replay
+
+
 def _check(name: str, rel: float, tol: float) -> None:
     if not rel <= tol:
         raise AssertionError(f"{name}: relative error {rel:.3e} > {tol:.0e}")
@@ -735,6 +755,32 @@ def phase2(scene, dev, card):
 
     x5, f5, t5 = stream["output_filter"]["args"]
 
+    # The tracker's Rayleigh-Ritz kernel: the (z, 2k, 2k) raw projections
+    # s^T A s and s^T B s (SPD with a 1e-6 asymmetric part, as rounding
+    # leaves them) at k = 64, z = 2 (one stream), 16 and 32 (8 and 16
+    # streams); ragged: padded widths and n > 2k. Its coordinates take K4's
+    # eigenpairs of its own h. (Their own generator: the inputs of every
+    # other check are as before.)
+    grr = torch.Generator().manual_seed(SEED + 23)
+
+    def rr_inputs(z, n):
+        def raw(load):
+            x = torch.randn((z, n, n), generator=grr)
+            return x @ x.transpose(1, 2) / n + load * torch.eye(n) + 1e-6 * torch.randn(
+                (z, n, n), generator=grr)
+        return raw(0.0).to(dev), raw(0.2).to(dev)
+
+    rr2, rr16, rr32 = rr_inputs(2, 2 * k4), rr_inputs(16, 2 * k4), rr_inputs(32, 2 * k4)
+    rr_ragged = [(rr_inputs(3, 20), 8), (rr_inputs(1, 44), 22), (rr_inputs(2, 100), 30)]
+    h_rr, y_rr, li_rr = K.tracked_rr(*rr2, k4)
+    d_rr, v_rr = K.jacobi_eigh(h_rr, 2)
+
+    def rr_chain(a, b):
+        """The stretch of the hop the kernel and its coordinates replace:
+        the torch chain, K4, the torch coordinates."""
+        h, y, li = K.tracked_rr_plain(a, b, k4)
+        return K.tracked_rr_coords_plain(li, y, *K.jacobi_eigh(h, 2))
+
     # K6 dense statistics: the deleted-form buffers (4, M, S, N - 1) and the
     # aligned targets (2, M, K); SJ = 1600 (S = 32) and a ragged SJ = 300.
     n6 = cfg.statistics_buffer_length - 1
@@ -1004,6 +1050,54 @@ def phase2(scene, dev, card):
             ragged=[
                 (K.chol_tri_inverse, K.chol_tri_inverse_plain, (b10_200,)),
                 (K.chol_tri_inverse, K.chol_tri_inverse_plain, (b10_1024,)),
+            ],
+        ),
+        dict(
+            name="tracked_rr", route="cuda",
+            source="apvast_torch/csrc/tracked_rr.cu",
+            replaces="none: the torch glue of apvast_torch/ops/jdiag.py::jdiag_topk_tracked",
+            kernel=lambda: K.tracked_rr(*rr2, k4),
+            plain=lambda: K.tracked_rr_plain(*rr2, k4),
+            library=None,
+            # Context: the hop's stretch from the projections to the
+            # coordinates as torch ops, replayed from a graph as the hop
+            # runs it (eagerly the host's ~300 launches would be timed).
+            context={"chain_graphed_ms": _graphed(lambda: rr_chain(*rr2))},
+            # Per zone, FMAs: libar abar libar^T n^3 (triangles skipped), the
+            # pencil's factor and inverse n^3 / 3, three wbar y 3 n^2 k, six
+            # Grams (symmetric) and six row solves 6 n k^2, the Gram factors
+            # k^3, h n k^2; abar, bbar read, h, y, libar written once.
+            flops=2 * 2 * (4 * (2 * k4)**3 // 3 + 3 * (2 * k4)**2 * k4 + 7 * 2 * k4**3 + k4**3),
+            bytes=4 * 2 * (3 * (2 * k4)**2 + 2 * k4 * k4 + k4 * k4),
+            oracle=[("north star", lambda a, b: K.tracked_rr(a, b, k4),
+                     lambda a, b: K.tracked_rr_plain(a, b, k4), rr2)],
+            ragged=[
+                (lambda a, b, k=k: K.tracked_rr(a, b, k),
+                 lambda a, b, k=k: K.tracked_rr_plain(a, b, k), args)
+                for args, k in rr_ragged
+            ],
+            extra=[
+                dict(label="z16", kernel=lambda: K.tracked_rr(*rr16, k4),
+                     plain=lambda: K.tracked_rr_plain(*rr16, k4)),
+                dict(label="z32", kernel=lambda: K.tracked_rr(*rr32, k4),
+                     plain=lambda: K.tracked_rr_plain(*rr32, k4)),
+            ],
+        ),
+        dict(
+            name="tracked_rr_coords", route="cuda",
+            source="apvast_torch/csrc/tracked_rr.cu",
+            replaces="none: the torch glue of apvast_torch/ops/jdiag.py::jdiag_topk_tracked",
+            kernel=lambda: K.tracked_rr_coords(li_rr, y_rr, d_rr, v_rr),
+            plain=lambda: K.tracked_rr_coords_plain(li_rr, y_rr, d_rr, v_rr),
+            library=None,
+            # Per zone n k^2 for y v and n^2 k / 2 for libar^T (y v); libar,
+            # y, v read, c written once.
+            flops=2 * 2 * (2 * k4 * k4 * k4 + (2 * k4)**2 * k4 // 2),
+            bytes=4 * 2 * ((2 * k4)**2 + 2 * 2 * k4 * k4 + k4 * k4 + 2 * k4),
+            ragged=[
+                (K.tracked_rr_coords, K.tracked_rr_coords_plain,
+                 (torch.tril(rnd(3, 20, 20)).contiguous(), rnd(3, 20, 7), rnd(3, 7),
+                  rnd(3, 7, 7))),
             ],
         ),
         dict(
@@ -1632,19 +1726,22 @@ INVERT = {"subspace_whiten": "invert", "jacobi_sweeps": 3,
 DENSE = {"use_lag_statistics": False}
 WEIGHTING_CONV = {"weighting_conv_taps": WEIGHTING_TAPS}
 # The kernels each time-domain path launches once per hop ('invert' also
-# K10a once per panel).
+# K10a once per panel). The tracking solver runs its Rayleigh-Ritz solve
+# and coordinates around K4 (TRACKER_KERNELS); the round-3 solvers do not.
 PRODUCTION_KERNELS = ("streaming_conv", "lag_corr", "skew_assembly", "jacobi_eigh",
                       "output_filter")
+TRACKER_KERNELS = ("tracked_rr", "tracked_rr_coords")
 PATH_KERNELS = {
-    "production": PRODUCTION_KERNELS,
+    "production": PRODUCTION_KERNELS + TRACKER_KERNELS,
     "exact": ("streaming_conv", "lag_corr", "skew_assembly", "output_filter"),
     "invert": PRODUCTION_KERNELS + ("whiten", "subspace"),
-    "dense": ("streaming_conv", "statistics", "jacobi_eigh", "output_filter"),
-    "weighting-conv": PRODUCTION_KERNELS + ("rowwise_conv",),
+    "solve": PRODUCTION_KERNELS,  # 'solve' and 'newton'
+    "dense": ("streaming_conv", "statistics", "jacobi_eigh", "output_filter") + TRACKER_KERNELS,
+    "weighting-conv": PRODUCTION_KERNELS + TRACKER_KERNELS + ("rowwise_conv",),
     # The kept lag assemblies: C0 by K2, laid out in torch (no K3).
-    "pair": ("streaming_conv", "lag_corr", "jacobi_eigh", "output_filter"),
-    "wide": ("streaming_conv", "lag_corr", "jacobi_eigh", "output_filter"),
-    "tap": ("streaming_conv", "lag_corr", "jacobi_eigh", "output_filter"),
+    "pair": ("streaming_conv", "lag_corr", "jacobi_eigh", "output_filter") + TRACKER_KERNELS,
+    "wide": ("streaming_conv", "lag_corr", "jacobi_eigh", "output_filter") + TRACKER_KERNELS,
+    "tap": ("streaming_conv", "lag_corr", "jacobi_eigh", "output_filter") + TRACKER_KERNELS,
 }
 ROUND3_KERNELS = ("whiten", "subspace")
 FD_KERNELS = ("jacobi_eigh_hermitian",)
@@ -1727,7 +1824,7 @@ def phase3(scene, dev, card, results):
         _want("invert", HOPS, whiten=panels * HOPS))
     for whiten in ("solve", "newton"):
         held(whiten, production_overrides() | {"subspace_whiten": whiten},
-             _want("production", CPU_HOPS), hops=CPU_HOPS)
+             _want("solve", CPU_HOPS), hops=CPU_HOPS)
     # Each kernel's launches on the main-path run of the path that runs it.
     launched_by = {"statistics": dense, "rowwise_conv": wconv} | {
         name: invert for name in ROUND3_KERNELS}
@@ -2534,7 +2631,7 @@ def _multi_newton(scene, dev, card, pairs, sweeps=None):
         raise AssertionError(f"multi {label}: the onset rebuilt scene 1 alone on no hop")
     if any(silenced):
         raise AssertionError(f"multi {label}: silenced {silenced}")
-    if counts != _want("production", 1):
+    if counts != _want("solve", 1):
         raise AssertionError(f"multi {label}: launches {counts}")
     return worst["loudspeaker feeds"]
 

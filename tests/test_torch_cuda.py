@@ -149,6 +149,18 @@ def _cases(rnd):
             (rnd(1, 64), rnd(1, 5, 64)),
             (rnd(2, 1600), rnd(2, 33, 50)),
         ],
+        # The production shape (n = 2k = 128), padded widths (20 -> 32 with
+        # k = 8 -> 32; 44 -> 64 with k = 22 -> 32) and n > 2k.
+        "tracked_rr": [(_spd(rnd, 2, 128), _spd(rnd, 2, 128), 64),
+                       (_spd(rnd, 3, 20), _spd(rnd, 3, 20), 8),
+                       (_spd(rnd, 1, 44), _spd(rnd, 1, 44), 22),
+                       (_spd(rnd, 2, 100), _spd(rnd, 2, 100), 30)],
+        "tracked_rr_coords": [
+            (torch.tril(rnd(2, 128, 128)).contiguous(), rnd(2, 128, 64), rnd(2, 64),
+             rnd(2, 64, 64)),
+            (torch.tril(rnd(3, 20, 20)).contiguous(), rnd(3, 20, 7), rnd(3, 7), rnd(3, 7, 7)),
+            (torch.tril(rnd(1, 5, 5)).contiguous(), rnd(1, 5, 3), rnd(1, 3), rnd(1, 3, 3)),
+        ],
         # One panel, the padding path, the main path's shape; the most panels
         # (the longest look-ahead chain) and an odd batch.
         "chol_tri_inverse": [(_spd(rnd, 2, 128),), (_spd(rnd, 1, 200),), (_spd(rnd, 2, 800),),
@@ -169,6 +181,8 @@ _PLAIN = {
     "statistics": K.covariance_plain,
     "circular_filter": K.circular_filter_plain,
     "chol_tri_inverse": K.chol_tri_inverse_plain,
+    "tracked_rr": K.tracked_rr_plain,
+    "tracked_rr_coords": K.tracked_rr_coords_plain,
 }
 
 
@@ -1027,14 +1041,19 @@ _INVERT = {"subspace_whiten": "invert", "jacobi_sweeps": 8, "subspace_oversample
 
 _PRODUCTION_KERNELS = ("streaming_conv", "lag_corr", "skew_assembly", "jacobi_eigh",
                        "output_filter")
+# The tracking solver's Rayleigh-Ritz solve and coordinates around K4 (not
+# the round-3 solvers').
+_TRACKER_KERNELS = ("tracked_rr", "tracked_rr_coords")
 # Each configuration's overrides of production_overrides() and the kernels
 # its hop launches once.
 _CARD_PATHS = {
-    "production": ({}, _PRODUCTION_KERNELS),
+    "production": ({}, _PRODUCTION_KERNELS + _TRACKER_KERNELS),
     "invert": (_INVERT, _PRODUCTION_KERNELS + ("whiten", "subspace")),
     "dense": ({"use_lag_statistics": False},
-              ("streaming_conv", "statistics", "jacobi_eigh", "output_filter")),
-    "weighting-conv": ({"weighting_conv_taps": 31}, _PRODUCTION_KERNELS + ("rowwise_conv",)),
+              ("streaming_conv", "statistics", "jacobi_eigh", "output_filter")
+              + _TRACKER_KERNELS),
+    "weighting-conv": ({"weighting_conv_taps": 31},
+                       _PRODUCTION_KERNELS + _TRACKER_KERNELS + ("rowwise_conv",)),
 }
 
 
@@ -1638,7 +1657,7 @@ def test_matlab_configuration_on_the_card_matches_cpu(dev):
             hop_statistics(cpu.config, cpu.state.wresp_stat, cpu.state.wtarget_stat),
         ):
             assert _rel(x, y) <= 1e-4
-    path = ("streaming_conv", "lag_corr", "skew_assembly", "jacobi_eigh", "output_filter")
+    path = _PRODUCTION_KERNELS + _TRACKER_KERNELS
     assert counts == {name: 8 if name in path else 0 for name in K.WRAPPERS}
     for pairs, tol in ((feeds, 5e-2), (targets, 1e-5)):
         g = torch.stack([p[0] for p in pairs])
